@@ -1,0 +1,96 @@
+"""Synthetic multi-room indoor scenes for tests and benchmarks (a copy of
+the JAX package's numpy generator: the same rng gives the same scene).
+
+Generates voxelized point clouds with the same record schema as the
+preprocessed Structured3D data (`(x, y, z, type, room_id)`; reference
+`datasets_preprocess/structured3d_to_point_clouds/point_cloud_reader_stru3d.py:508-559`
+and `downsample_ply.py:107-112`): a grid floor plan of axis-aligned rooms,
+each contributing floor + ceiling + wall surface voxels, with the room's
+instance id; walls between rooms get split between the adjoining rooms.
+
+Statistics roughly match the dataset analysis (1-22 rooms per scene, avg ~6;
+`datasets_preprocess/structured3d_analyze/stru3d_analyze_20241019.txt`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+# from mask3d_tpu/data/synthetic.py:19 make_synthetic_scene
+def make_synthetic_scene(
+    rng: np.random.Generator,
+    num_rooms_x: int = 3,
+    num_rooms_y: int = 2,
+    room_size: int = 24,
+    height: int = 10,
+    jitter: float = 0.3,
+    dropout: float = 0.3,
+    multi_floor: bool = False,
+) -> dict:
+    """Returns a reference-contract item dict (see `VoxelizeCollate`)."""
+    pts, inst = [], []
+    floors = 2 if multi_floor else 1
+    room_id = 0
+    for fl in range(floors):
+        z0 = fl * (height + 2)
+        for rx in range(num_rooms_x):
+            for ry in range(num_rooms_y):
+                room_id += 1
+                room_pts = []
+                x0, y0 = rx * room_size, ry * room_size
+                x1, y1 = x0 + room_size, y0 + room_size
+                xs = np.arange(x0, x1)
+                ys = np.arange(y0, y1)
+                gx, gy = np.meshgrid(xs, ys, indexing="ij")
+                gx, gy = gx.ravel(), gy.ravel()
+                # floor + ceiling
+                for zz in (z0, z0 + height - 1):
+                    room_pts.append(
+                        np.stack([gx, gy, np.full_like(gx, zz)], 1)
+                    )
+                # four walls (full height)
+                zs = np.arange(z0, z0 + height)
+                for wx in (x0, x1 - 1):
+                    wgy, wgz = np.meshgrid(ys, zs, indexing="ij")
+                    room_pts.append(
+                        np.stack(
+                            [np.full(wgy.size, wx), wgy.ravel(), wgz.ravel()],
+                            1,
+                        )
+                    )
+                for wy in (y0, y1 - 1):
+                    wgx, wgz = np.meshgrid(xs, zs, indexing="ij")
+                    room_pts.append(
+                        np.stack(
+                            [wgx.ravel(), np.full(wgx.size, wy), wgz.ravel()],
+                            1,
+                        )
+                    )
+                room_pts = np.concatenate(room_pts)
+                pts.append(room_pts)
+                inst.append(np.full(len(room_pts), room_id, np.int32))
+
+    coords = np.concatenate(pts).astype(np.float32)
+    instance = np.concatenate(inst)
+    semantic = np.ones(len(coords), np.int32)  # all "is_room" class 1
+
+    if jitter > 0:
+        coords = coords + rng.normal(scale=jitter, size=coords.shape).astype(
+            np.float32
+        )
+    if dropout > 0:
+        keep = rng.random(len(coords)) > dropout
+        coords, semantic, instance = coords[keep], semantic[keep], instance[keep]
+
+    features = np.ones((len(coords), 1), np.float32)
+    labels = np.stack([semantic, instance], axis=-1).astype(np.int32)
+    return {
+        "coordinates": coords,
+        "features": features,
+        "labels": labels,
+        "raw_coordinates": coords.copy(),
+        "raw_features": features.copy(),
+        "raw_labels": labels.copy(),
+        "scene": f"synthetic_{rng.integers(1 << 30)}",
+    }

@@ -1,0 +1,84 @@
+"""Row gather between dense grids and voxel rows: `csrc/row_gather.cu`.
+
+`row_gather(src, idx, ok)` returns `out[b, t] = src[b, clamp(idx[b, t])]`
+where `ok[b, t]`, else 0, in src's dtype. On a CUDA tensor it launches the
+hand-written kernel; on a CPU tensor it runs `row_gather_plain`, the same
+function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mask3d_tpu_torch import cuda_build
+
+
+def row_gather_plain(src, idx, ok):
+    """`torch.gather` along the row axis, then zero the rows where ~ok."""
+    n, c = src.shape[1], src.shape[2]
+    j = idx.long().clamp(0, n - 1)
+    rows = torch.gather(src, 1, j[..., None].expand(-1, -1, c))
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=src.dtype,
+                                                        device=src.device))
+
+
+def _check(src, idx, ok):
+    if src.dim() != 3 or idx.dim() != 2 or ok.shape != idx.shape:
+        raise ValueError(
+            f"row_gather wants src [B,N,C], idx and ok [B,M]; got "
+            f"{tuple(src.shape)}, {tuple(idx.shape)}, {tuple(ok.shape)}")
+    if idx.shape[0] != src.shape[0] or src.shape[1] == 0:
+        raise ValueError("row_gather: batch mismatch or empty source")
+    if idx.dtype != torch.int32 or ok.dtype != torch.bool:
+        raise TypeError(f"row_gather wants int32 idx and bool ok, got "
+                        f"{idx.dtype} and {ok.dtype}")
+    if not (src.device == idx.device == ok.device):
+        raise ValueError("row_gather: tensors on different devices")
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load("row_gather")
+        lib.row_gather_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+            + [ctypes.c_int, ctypes.c_void_p])
+        lib.row_gather_f32.restype = ctypes.c_int
+        _lib = lib
+    return _lib.row_gather_f32
+
+
+def row_gather(src, idx, ok):
+    """src f32[B, N, C], idx i32[B, M], ok bool[B, M] -> f32[B, M, C]."""
+    _check(src, idx, ok)
+    if src.device.type == "cpu":
+        return row_gather_plain(src, idx, ok)
+    if src.device.type != "cuda":
+        raise ValueError(f"row_gather: unsupported device {src.device}")
+    if src.dtype != torch.float32:
+        raise TypeError(f"row_gather kernel takes float32, got {src.dtype}")
+    if not (src.is_contiguous() and idx.is_contiguous()
+            and ok.is_contiguous()):
+        raise ValueError("row_gather kernel wants contiguous tensors")
+    b, n, c = src.shape
+    m = idx.shape[1]
+    out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
+    if b * m * c == 0:
+        return out
+    vec4 = int(c % 4 == 0 and src.data_ptr() % 16 == 0)
+    fn = _kernel()
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        cuda_build.check(fn(src.data_ptr(), idx.data_ptr(), ok.data_ptr(),
+                            out.data_ptr(), b, m, n, c, vec4, stream),
+                         "row_gather")
+    row_gather.launches += 1
+    return out
+
+
+row_gather.launches = 0

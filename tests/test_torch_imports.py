@@ -1,0 +1,194 @@
+"""Import hygiene of the PyTorch port: `mask3d_tpu_torch` and
+`chip_smoke.py` import no jax, no flax and nothing of `mask3d_tpu`, and
+their entry points refuse CUDA where there is none."""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "mask3d_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mask3d_tpu")
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_port_sources_import_no_jax():
+    """AST scan: no import statement anywhere in the port names a
+    forbidden package (lazy imports inside functions included)."""
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}: {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_port_import_loads_no_jax_modules():
+    """In a fresh interpreter, importing every port module and chip_smoke
+    adds no jax/flax/mask3d_tpu module to sys.modules."""
+    mods = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT.rglob("*.py"))
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(set(sys.modules) - before)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "mask3d_tpu_torch.models.mask3d" in loaded
+    assert not [m for m in loaded if _forbidden(m)], loaded
+
+
+def test_small_overrides_match_e2e_small_config():
+    """The shared override list reproduces tests/test_e2e.py's
+    small_config in both packages."""
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from tests.test_e2e import small_config
+    from tests.torch_parity import SMALL_OVERRIDES
+
+    ref = small_config()
+    got = apply_overrides(Config(), SMALL_OVERRIDES)
+    for group in ("general", "data", "model"):
+        assert vars(getattr(ref, group)) == vars(getattr(got, group)), group
+
+
+@pytest.mark.parametrize("entry", ["build_model", "collate", "infer",
+                                   "device_batch"])
+def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
+    """A CUDA request where CUDA is absent raises; nothing falls back to
+    the CPU."""
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
+    from tests.torch_parity import SMALL_OVERRIDES, scene_items
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = apply_overrides(Config(), SMALL_OVERRIDES)
+    items = scene_items(make=make_synthetic_scene)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "build_model":
+            mt.build_model(cfg)
+        elif entry == "collate":
+            mt.collate(items, point_bucket_multiple=512)
+        elif entry == "infer":
+            host = mt.collate(items, device="cpu", point_bucket_multiple=512)
+            model = mt.build_model(cfg, device="cpu")
+            mt.infer(model, host.device, cfg)
+        else:
+            host = mt.collate(items, device="cpu", point_bucket_multiple=512)
+            host.device.to("cuda")
+
+
+@pytest.mark.parametrize("override", ["model.compute_dtype=bfloat16",
+                                      "model.pre_norm=true",
+                                      "model.backbone=Res16UNet50"])
+def test_build_model_refuses_unported_options(override):
+    """Options the port has not ported raise instead of being ignored."""
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from tests.torch_parity import SMALL_OVERRIDES
+
+    cfg = apply_overrides(Config(), SMALL_OVERRIDES + [override])
+    with pytest.raises(NotImplementedError):
+        mt.build_model(cfg, device="cpu")
+
+
+def test_kernel_wrappers_take_plain_versions_on_cpu():
+    """A CPU tensor takes the plain version and counts no launch."""
+    from mask3d_tpu_torch.ops import masked_attention as ma
+    from mask3d_tpu_torch.sparse import row_gather as rg
+
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(1, 5, 16)), dtype=torch.float32)
+    k = torch.tensor(rng.normal(size=(1, 40, 16)), dtype=torch.float32)
+    mask = torch.tensor(rng.random((1, 5, 40)) < 0.5)
+    src = torch.tensor(rng.normal(size=(1, 30, 4)), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, 30, (1, 12)), dtype=torch.int32)
+    ok = torch.tensor(rng.random((1, 12)) < 0.7)
+    n_attn = ma.masked_cross_attention.launches
+    n_gather = rg.row_gather.launches
+    torch.testing.assert_close(
+        ma.masked_cross_attention(q, k, k, mask, 2),
+        ma.masked_cross_attention_plain(q, k, k, mask, 2), rtol=0, atol=0)
+    torch.testing.assert_close(rg.row_gather(src, idx, ok),
+                               rg.row_gather_plain(src, idx, ok),
+                               rtol=0, atol=0)
+    assert ma.masked_cross_attention.launches == n_attn
+    assert rg.row_gather.launches == n_gather
+
+
+@pytest.mark.parametrize("bad", ["mask_dtype", "mask_shape", "idx_dtype",
+                                 "ok_shape"])
+def test_kernel_wrappers_reject_bad_inputs(bad):
+    from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
+    from mask3d_tpu_torch.sparse.row_gather import row_gather
+
+    q = torch.zeros(1, 4, 8)
+    k = torch.zeros(1, 16, 8)
+    src = torch.zeros(1, 10, 3)
+    idx = torch.zeros(1, 6, dtype=torch.int32)
+    ok = torch.ones(1, 6, dtype=torch.bool)
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "mask_dtype":
+            masked_cross_attention(q, k, k, torch.zeros(1, 4, 16), 2)
+        elif bad == "mask_shape":
+            masked_cross_attention(q, k, k, torch.zeros(1, 4, 15,
+                                                        dtype=torch.bool), 2)
+        elif bad == "idx_dtype":
+            row_gather(src, idx.long(), ok)
+        else:
+            row_gather(src, idx, ok[:, :5])
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    """The CUDA kernels against their plain versions (needs a card;
+    `chip_smoke.py` runs the same checks at flagship shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    from mask3d_tpu_torch.ops import masked_attention as ma
+    from mask3d_tpu_torch.sparse import row_gather as rg
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (b, nq, s, d, h) in ((2, 25, 100, 32, 4), (3, 40, 515, 128, 8)):
+        q = torch.randn(b, nq, d, device="cuda", generator=gen)
+        k = torch.randn(b, s, d, device="cuda", generator=gen)
+        v = torch.randn(b, s, d, device="cuda", generator=gen)
+        mask = torch.rand(b, nq, s, device="cuda", generator=gen) < 0.4
+        mask[0, 0] = True
+        got = ma.masked_cross_attention(q, k, v, mask, h)
+        ref = ma.masked_cross_attention_plain(q, k, v, mask, h)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    for c in (3, 96):
+        src = torch.randn(2, 500, c, device="cuda", generator=gen)
+        idx = torch.randint(-3, 505, (2, 300), device="cuda",
+                            generator=gen).int()
+        ok = torch.rand(2, 300, device="cuda", generator=gen) < 0.8
+        assert torch.equal(rg.row_gather(src, idx, ok),
+                           rg.row_gather_plain(src, idx, ok))
