@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of mask3d_tpu: Mask3D room-instance segmentation on an
-NVIDIA H100, with hand-written CUDA kernels for the masked cross-attention
-and the grid-to-row gather.
+NVIDIA H100, with hand-written CUDA kernels for the masked cross-attention,
+the grid-to-row gather and the sparse gather-conv of the `gather_pallas`
+backbone.
 
 Entry points (each takes `device`, default "cuda"; a CUDA request without
 CUDA raises):

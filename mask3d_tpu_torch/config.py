@@ -194,6 +194,9 @@ class ModelConfig:
     # kernel offset) or "grouped_dx" (one window per x-offset group — each
     # DMA'd window amortizes K/3 select+matmul steps; wins when the
     # per-offset y/z windows were already span-limited by geometry).
+    # Both are Mosaic schedule knobs that compute the same function: the
+    # port accepts every value and runs its one CUDA sparse-conv kernel
+    # (sparse/sparse_conv.py), which needs no window and no select.
     pallas_window_mode: str = "per_offset"
 
 

@@ -1,11 +1,21 @@
-"""Res16UNet sparse-voxel backbones on dense grids (fp32).
+"""Res16UNet sparse-voxel backbones (fp32, with bf16 gather convs on
+`gather_pallas`).
 
 A 4-stage stride-2 encoder and a 4-stage transposed-conv decoder with skip
-concatenations and InstanceNorm everywhere, run as dense convolutions
-re-masked by occupancy (`sparse/dense_ops.py`). Returns
-`(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]], the
-five pyramid outputs as rows at strides [16, 8, 4, 2, 1], and the final
-level-0 grid for the pooled pyramid.
+concatenations and InstanceNorm everywhere. Three executions share one
+parameter layout (`impl`, the JAX package's `backbone_impl`):
+
+- `dense`: dense convolutions re-masked by occupancy on per-level grids
+  (`sparse/dense_ops.py`);
+- `gather`: row-space gather-matmul convolutions over kernel maps and
+  stride-2 convs over PoolMaps (`sparse/ops.py`), fp32;
+- `gather_pallas`: `gather` whose same-stride convs run the bf16 sparse-conv
+  kernel (`sparse/sparse_conv.py`) on every level that `supports()` its
+  capacity.
+
+Returns `(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]],
+the five pyramid outputs as rows at strides [16, 8, 4, 2, 1], and the final
+level-0 grid for the pooled pyramid (None on the gather impls).
 
 Parameters are named after the JAX package's (`conv0p1s1`, `bn0`,
 `block1_0_conv1`, `block1_0_norm1`, ...): `convs[name].weight` holds the
@@ -16,13 +26,16 @@ Only basic-block variants without squeeze-excitation are ported.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from mask3d_tpu_torch.sparse import dense_ops
+from mask3d_tpu_torch.sparse import dense_ops, ops
+from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.context import SparseBatch
+
+IMPLS = ("dense", "gather", "gather_pallas")
 
 
 class Conv(nn.Module):
@@ -45,6 +58,70 @@ class Norm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
 
 
+def _kernel_rows(conv: Conv):
+    """A conv weight [Cout, Cin, k, k, k] as [k^3, Cin, Cout] in
+    `cube_offsets` order (the inverse of `bridge.py`'s cube transpose)."""
+    w = conv.weight
+    return w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[1], w.shape[0])
+
+
+def _kernel_rows_tr(conv: Conv):
+    """A transposed weight [Cin, Cout, 2, 2, 2] as [8, Cin, Cout] by child
+    position (x&1)*4 + (y&1)*2 + (z&1)."""
+    w = conv.weight
+    return w.permute(2, 3, 4, 0, 1).reshape(8, w.shape[0], w.shape[1])
+
+
+# from mask3d_tpu/models/backbone.py:54 _GatherCtx (fp32; bf16 sparse-conv
+# kernel on eligible levels with use_kernel)
+class _GatherCtx:
+    """Row-form execution over kernel maps: features stay [B, N, C] rows of
+    their level. With `use_kernel`, same-stride convs on levels whose
+    capacity `supports()` run the bf16 sparse-conv kernel; the others run
+    the fp32 gather-matmul."""
+
+    def __init__(self, sb: SparseBatch, use_kernel: bool):
+        self.sb = sb
+        self.use_kernel = use_kernel
+
+    def scatter(self, feats_rows, level_idx):
+        return feats_rows  # rows are already per-level
+
+    def _conv(self, x, conv: Conv, idx, ok):
+        w = _kernel_rows(conv)
+        if self.use_kernel and sc.supports(x.shape[1]):
+            return sc.sparse_conv(x, w, idx, ok)
+        return ops.sparse_conv(x, w, idx, ok)
+
+    def conv_in(self, x, conv: Conv):
+        return self._conv(x, conv, self.sb.nbr0_idx, self.sb.nbr0_ok)
+
+    def conv3(self, x, conv: Conv, level_idx):
+        return self._conv(x, conv, self.sb.nbr_idx[level_idx],
+                          self.sb.nbr_ok[level_idx])
+
+    def conv1x1(self, x, conv: Conv, level_idx):
+        w = conv.weight
+        return x @ w.reshape(w.shape[0], w.shape[1]).t()
+
+    def conv_down(self, x, conv: Conv, fine_idx):
+        return ops.sparse_conv_down(x, _kernel_rows(conv),
+                                    self.sb.pools[fine_idx],
+                                    self.sb.levels[fine_idx + 1].capacity)
+
+    def conv_tr(self, x, conv: Conv, coarse_idx):
+        return ops.sparse_conv_tr(x, _kernel_rows_tr(conv),
+                                  self.sb.pools[coarse_idx - 1],
+                                  self.sb.levels[coarse_idx - 1].valid)
+
+    def norm(self, x, norm: Norm, level_idx):
+        return ops.instance_norm(x, self.sb.levels[level_idx].valid,
+                                 norm.weight, norm.bias)
+
+    def rows(self, x, level_idx):
+        return x
+
+
 # from mask3d_tpu/models/backbone.py:150 _DenseCtx (fp32; no int8, no sp)
 class _DenseCtx:
     """Dense-grid execution: features live as [B, Gx, Gy, Gz, C] per level."""
@@ -60,6 +137,9 @@ class _DenseCtx:
 
     def conv3(self, x, conv: Conv, level_idx):
         return dense_ops.dense_conv_same(x, conv.weight, self.occ[level_idx])
+
+    def conv_in(self, x, conv: Conv):
+        return self.conv3(x, conv, 0)
 
     conv1x1 = conv3  # k=1 weights: the residual downsample
 
@@ -86,10 +166,14 @@ class Res16UNetBase(nn.Module):
     LAYERS: Sequence[int] = (2, 2, 2, 2, 2, 2, 2, 2)
     INIT_DIM: int = 32
 
-    def __init__(self, in_channels: int = 1, conv1_kernel_size: int = 5):
+    def __init__(self, in_channels: int = 1, conv1_kernel_size: int = 5,
+                 impl: str = "dense"):
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
+        self.impl = impl
         self.convs = nn.ModuleDict()
         self.norms = nn.ModuleDict()
         p, lay, c0 = self.PLANES, self.LAYERS, self.INIT_DIM
@@ -164,13 +248,17 @@ class Res16UNetBase(nn.Module):
 
     # from mask3d_tpu/models/backbone.py:725 Res16UNetBase.__call__
     def forward(self, feats, sb: SparseBatch, grid_dims
-                ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
-        ctx = _DenseCtx(sb, grid_dims)
+                ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                           Optional[torch.Tensor]]:
+        if self.impl == "dense":
+            ctx = _DenseCtx(sb, grid_dims)
+        else:
+            ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas")
         x = ctx.scatter(feats, 0)
 
-        # Encoder. The stem is conv -> norm -> relu (the JAX package runs
-        # the same arithmetic as a fused z-folded conv).
-        out = ctx.conv3(x, self.convs["conv0p1s1"], 0)
+        # Encoder. The stem is conv -> norm -> relu (the JAX package's
+        # dense impl runs the same arithmetic as a fused z-folded conv).
+        out = ctx.conv_in(x, self.convs["conv0p1s1"])
         out_p1 = torch.relu(ctx.norm(out, self.norms["bn0"], 0))
 
         def down(name, x_in, fine_idx):
@@ -197,7 +285,8 @@ class Res16UNetBase(nn.Module):
             out = torch.cat([out, skips[coarse - 1]], dim=-1)
             out = self._blocks(ctx, i + 5, out, coarse - 1)
             feature_maps.append(ctx.rows(out, coarse - 1))
-        return feature_maps[-1], feature_maps, out
+        return feature_maps[-1], feature_maps, (
+            out if self.impl == "dense" else None)
 
 
 class Res16UNet14(Res16UNetBase):

@@ -7,8 +7,9 @@ layout: the full padded level is the attention memory (padding rows
 blocked), the squeezed memory and its K/V projections are computed once per
 level and reused by every shared decoder round, and every masked
 cross-attention runs the CUDA kernel of `ops/masked_attention.py`.
-Attention masks come from the pooled mask-feature pyramid, computed on the
-dense grids (pooling commutes with the linear mask head).
+Attention masks come from the pooled mask-feature pyramid: on the dense
+grids (pooling commutes with the linear mask head) on the dense backbone,
+by row-space average pooling over the PoolMaps on the gather backbones.
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ import torch
 from torch import nn
 
 from mask3d_tpu_torch.device import resolve_device
-from mask3d_tpu_torch.models.backbone import BACKBONES
+from mask3d_tpu_torch.models.backbone import BACKBONES, IMPLS
 from mask3d_tpu_torch.models.posenc import fourier_embeddings, \
     sine_embeddings
 from mask3d_tpu_torch.ops.fps import furthest_point_sample
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
 from mask3d_tpu_torch.sparse import dense_ops
 from mask3d_tpu_torch.sparse.context import SparseBatch
+from mask3d_tpu_torch.sparse.ops import avg_pool
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
 
@@ -146,7 +148,7 @@ class Mask3D(nn.Module):
                  normalize_pos_enc=True, positional_encoding_type="fourier",
                  gauss_scale=1.0, hlevels=(0, 1, 2, 3),
                  backbone_name="Res16UNet34C", in_channels=1,
-                 conv1_kernel_size=5):
+                 conv1_kernel_size=5, backbone_impl="dense"):
         super().__init__()
         d = hidden_dim
         self.hidden_dim = d
@@ -158,7 +160,8 @@ class Mask3D(nn.Module):
         self.gauss_scale = gauss_scale
         self.hlevels = tuple(hlevels)
         self.backbone = BACKBONES[backbone_name](
-            in_channels=in_channels, conv1_kernel_size=conv1_kernel_size)
+            in_channels=in_channels, conv1_kernel_size=conv1_kernel_size,
+            impl=backbone_impl)
         planes = self.backbone.PLANES
         # channels of feature_maps[i] (strides 16, 8, 4, 2, 1)
         fm_channels = [planes[3], planes[4], planes[5], planes[6], planes[7]]
@@ -229,15 +232,24 @@ class Mask3D(nn.Module):
         mask_feats = self.mask_features_head(bb_out) * valid0[..., None]
         coords_pyr = [raw_coords.float()]
         mask_feats_pyr = [mask_feats]
-        # Pooled pyramid on the dense grids: mean-pool the coordinate grid
-        # and the backbone grid, gather rows per level, and apply the
-        # (linear) mask head per coarse row.
-        coord_grid = dense_ops.cell_coord_grid(
-            grid_dims[0], b, device=feats.device) * sb.occ[0]
-        for crow, brow in dense_ops.pooled_row_pyramid(
-                [coord_grid, bb_grid], sb.occ, sb.levels, grid_dims):
-            coords_pyr.append(crow)
-            mask_feats_pyr.append(self.mask_features_head(brow))
+        if bb_grid is not None:
+            # Pooled pyramid on the dense grids: mean-pool the coordinate
+            # grid and the backbone grid, gather rows per level, and apply
+            # the (linear) mask head per coarse row.
+            coord_grid = dense_ops.cell_coord_grid(
+                grid_dims[0], b, device=feats.device) * sb.occ[0]
+            for crow, brow in dense_ops.pooled_row_pyramid(
+                    [coord_grid, bb_grid], sb.occ, sb.levels, grid_dims):
+                coords_pyr.append(crow)
+                mask_feats_pyr.append(self.mask_features_head(brow))
+        else:
+            # from mask3d_tpu/models/mask3d.py:498-506: one row-space mean
+            # pool of [coords | mask_feats] per level, split afterwards
+            fused = torch.cat([coords_pyr[0], mask_feats], dim=-1)
+            for i, pool in enumerate(sb.pools):
+                fused = avg_pool(fused, pool, sb.levels[i + 1].capacity)
+                coords_pyr.append(fused[..., :3])
+                mask_feats_pyr.append(fused[..., 3:])
 
         pe_levels = {fm_level[h] for h in self.hlevels}
         pe_pyr, minmax_pyr = [], []
@@ -309,13 +321,14 @@ class Mask3D(nn.Module):
                             aux_pred_masks=torch.stack(predictions_masks))
 
 
-# model options the port has not ported yet -> the one value it runs
+# model options the port has not fully ported -> the values it runs
 _SUPPORTED_VALUES = {
-    "non_parametric_queries": True, "random_queries": False,
-    "random_query_both": False, "use_np_features": False,
-    "use_level_embed": False, "backbone_impl": "dense",
-    "compute_dtype": None, "int8_stride1": False, "pallas_chain": False,
-    "sp_axis": None, "pre_norm": False, "shared_decoder": True,
+    "non_parametric_queries": (True,), "random_queries": (False,),
+    "random_query_both": (False,), "use_np_features": (False,),
+    "use_level_embed": (False,), "backbone_impl": IMPLS,
+    "compute_dtype": (None,), "int8_stride1": (False,),
+    "pallas_chain": (False,), "sp_axis": (None,), "pre_norm": (False,),
+    "shared_decoder": (True,),
 }
 
 
@@ -326,10 +339,10 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
-        if getattr(m, opt) != supported:
+        if getattr(m, opt) not in supported:
             raise NotImplementedError(
                 f"model.{opt}={getattr(m, opt)!r} is not ported yet "
-                f"(the port runs {opt}={supported!r})")
+                f"(the port runs {opt} in {supported!r})")
     if m.backbone not in BACKBONES:
         raise NotImplementedError(f"backbone {m.backbone} is not ported")
     model = Mask3D(
@@ -342,6 +355,7 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
         backbone_name=m.backbone,
         in_channels=cfg.data.in_channels,
         conv1_kernel_size=m.conv1_kernel_size,
+        backbone_impl=m.backbone_impl,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,12 +1,15 @@
 """Where the flagship forward's device time goes.
 
-    python -m mask3d_tpu_torch.profile_forward [--out trace.json]
+    python -m mask3d_tpu_torch.profile_forward [--impl dense|gather_pallas]
+                                               [--out trace.json]
 
 Collates the bench's 8 synthetic scenes at bucket 49152, builds the flagship
-fp32 model (seeded random weights), warms up, then traces one `infer` with
-`torch.profiler` and prints the device time per kernel group (the two CUDA
-kernels of the port, convolutions, other PyTorch kernels), the wall time of
-the traced forward and the device's idle share within it. Needs a CUDA card.
+fp32 model (seeded random weights) on the chosen backbone path
+(`model.backbone_impl`, default dense), warms up, then traces one `infer`
+with `torch.profiler` and prints the device time per kernel group (the
+port's three CUDA kernels, convolutions, other PyTorch kernels), the wall
+time of the traced forward and the device's idle share within it. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("masked_attention kernel", ("mca_partial", "mca_combine")),
     ("row_gather kernel", ("row_gather_kernel",)),
-    ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
-                              "wgrad", "dgrad", "fprop", "sm90_")),
+    ("sparse_conv kernel", ("sparse_conv_kernel",)),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "wgrad",
+                              "dgrad", "fprop")),
     ("matmuls (cuBLAS)", ("gemm", "cutlass", "cublas")),
     ("reductions", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -44,13 +48,16 @@ def _group(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--impl", choices=("dense", "gather_pallas"),
+                    default="dense", help="model.backbone_impl")
     ap.add_argument("--out", default=None, help="chrome trace path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152"])
+    cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152",
+                                     f"model.backbone_impl={args.impl}"])
     rng = np.random.default_rng(0)
     items = [make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
                                   room_size=36, height=18, jitter=0.3,
@@ -81,7 +88,8 @@ def main(argv=None):
         per_group[_group(evt.key)] += us / 1e3
         per_kernel[evt.key] += us / 1e3
     busy = sum(per_group.values())
-    print(f"traced forward: wall {wall_ms:.2f} ms, device busy {busy:.2f} "
+    print(f"traced {args.impl} forward on {torch.cuda.get_device_name(0)}: "
+          f"wall {wall_ms:.2f} ms, device busy {busy:.2f} "
           f"ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for group, ms in per_group.most_common():
         print(f"  {group:28s} {ms:9.3f} ms  {ms / busy:6.1%}")

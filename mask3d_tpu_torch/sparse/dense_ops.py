@@ -19,7 +19,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from mask3d_tpu_torch.sparse.core import INT32_MAX, SparseLevel, pack_keys
+from mask3d_tpu_torch.sparse.core import INT32_MAX, PoolMap, SparseLevel, \
+    pack_keys
 from mask3d_tpu_torch.sparse.row_gather import row_gather
 
 
@@ -173,7 +174,7 @@ def pooled_row_pyramid(grids, occ, levels, grid_dims):
 
 # from mask3d_tpu/sparse/dense_ops.py:588 downsample_level_dense
 def downsample_level_dense(level: SparseLevel, grid_dims, capacity: int,
-                           occ_f):
+                           occ_f, with_parent: bool = False):
     """Dense-grid construction of the stride-2 coarse level: coarse
     occupancy = maxpool of fine occupancy; coarse rows enumerate occupied
     cells in cell order (== sorted key order); `occ_f` is the fine level's
@@ -181,9 +182,9 @@ def downsample_level_dense(level: SparseLevel, grid_dims, capacity: int,
     dropped and flagged in the returned overflow; the coarse occupancy keeps
     them (it pools the untruncated fine grid).
 
-    Returns (coarse_level, overflow bool[B], occ_coarse). Per-row parents
-    and child counts are not built: the dense path pools on grids and never
-    reads them."""
+    Returns (coarse_level, PoolMap, occ_coarse). `with_parent` adds the
+    per-row parents, child positions and child counts the gather path reads;
+    the dense path pools on grids and leaves them None."""
     b = level.key.shape[0]
     gx, gy, gz = grid_dims
     cgx, cgy, cgz = (((gx - 1) >> 1) + 1, ((gy - 1) >> 1) + 1,
@@ -219,4 +220,22 @@ def downsample_level_dense(level: SparseLevel, grid_dims, capacity: int,
                         INT32_MAX).to(torch.int32)
     coarse = SparseLevel(key=key_c, coords=coords_c, valid=valid_c,
                          count=count, dims=dims_c, stride=level.stride * 2)
-    return coarse, overflow, occ_c
+    parent = kidx = nchild = None
+    if with_parent:
+        # child counts: sum-pool the fine occupancy, written at the coarse
+        # rows; parents: the coarse row position at each fine row's cell
+        nchild = torch.zeros((b, capacity + 1), dtype=torch.int32, device=dev)
+        nchild[b_idx, write_row] = sumpool2(occ_f).reshape(b, cells_c).to(
+            torch.int32)
+        nchild = nchild[:, :capacity]
+        fc = level.coords
+        pc = fc >> 1
+        pcell = (pc[..., 0] * cgy + pc[..., 1]) * cgz + pc[..., 2]
+        pcell = torch.where(level.valid, pcell, 0).long()
+        ppos = torch.gather(pos, 1, pcell)
+        parent = torch.where(level.valid & (ppos < capacity), ppos,
+                             capacity).to(torch.int32)
+        kidx = ((fc[..., 0] & 1) * 4 + (fc[..., 1] & 1) * 2
+                + (fc[..., 2] & 1)).to(torch.int32)
+    pool = PoolMap(parent=parent, kidx=kidx, nchild=nchild, overflow=overflow)
+    return coarse, pool, occ_c
