@@ -6,16 +6,16 @@
 Needs one CUDA card; exits nonzero without one, or when the package is not
 beside this script. Phases:
 
-1. Card and build: prints the card's name and power limit, builds the three
+1. Card and build: prints the card's name and power limit, builds the four
    CUDA kernels from `mask3d_tpu_torch/csrc/` (one nvcc per source, in
    parallel).
 2. Kernels against their plain PyTorch versions on the card, at the
    flagship's shapes: masked cross-attention at B=8, Q=25, D=128, H=8 and
    S in {3072, 6144, 12288, 24576} (max |err| <= 1e-4); the row gather
-   with indices from a real collated batch at C in {3, 96, 128, 256}
-   (bitwise equal). Each is timed beside its plain version, a PyTorch
-   library call that computes the same function where there is one, and
-   its bound.
+   with indices from a real collated batch at C in {3, 96, 128, 256} in
+   f32 and at the bf16 taps C in {96, 128, 256} (bitwise equal). Each is
+   timed beside its plain version, a PyTorch library call that computes
+   the same function where there is one, and its bound.
 3. The main path: 8 synthetic scenes collated at bucket 49152, the flagship
    Mask3D + Res16UNet34C (fp32, seeded random weights) through `infer`,
    with the kernels' launch counts read around that one forward
@@ -39,10 +39,26 @@ beside this script. Phases:
    averaging) must each fail both paths' gates. Then `gather_pallas` at a
    small width and bucket 1024, card against CPU: backbone maps within the
    JAX package's bf16 bounds (outputs printed).
-5. Times: each forward's median over 10 runs.
+5. The JAX bench's inference stack on `dense` (`profile_forward.CONFIGS`),
+   on the same weights: `bf16`, `int8` and `int8_chain`, each counted
+   (attention 12, gather 13 of which 9 bf16, int8 conv 0 / 40 / 30 plain
+   + 8 chain steps) and gated against the configuration it departs from:
+   `bf16` vs fp32 and `int8` vs `bf16` on the mean |diff| of maps and
+   outputs (BF16_STACK_MEAN, INT8_PATH_MEAN times max(1, std)), stage 8
+   of `int8_chain` fused vs unfused on one input within the JAX package's
+   tolerance (tests/test_pallas_chain.py:185-196). The int8 conv kernel is
+   held against its plain version at every (grid, Cin, Cout, k, step)
+   those forwards launched (bitwise; sums within 1e-5 of sum |term|) and
+   timed beside cuDNN's bf16 conv3d (not the same function). Three faults
+   planted at run time must fail their gates: the junction's residual
+   dropped, the int8 activation scale doubled, the norms without their
+   mean. Then `int8_chain` at a small width (MIN_ROWS 0), card against
+   CPU: each fused stage on one input, median |diff| 0 and within the
+   same tolerance (whole-forward maps printed).
+6. Times: each forward's median over 10 runs.
 
-TF32 is switched off for convolutions and matmuls: the slice is fp32 (the
-`gather_pallas` convs round their inputs to bf16 by design).
+TF32 is switched off for convolutions and matmuls: the fp32 paths are fp32
+(the `gather_pallas` convs and the bf16/int8 stack round by design).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -73,6 +89,23 @@ BF16_BOUNDS = dict(mean=5e-3, q999=5e-2, max=0.3)
 FP32_PATH_TOL = 1e-3
 BF16_PATH_MEAN = 0.05
 BUCKET = 49152
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
+BF16_GATHER_C = {96: 0, 128: 2, 256: 3}  # the bf16 grids' taps
+# the JAX bench's inference stack on the dense path, and what each counted
+# forward launches: int8 conv launches by chain step (30 plain int8 convs
+# and 8 chain steps with the chain), row gathers by dtype (5 taps and the
+# pooled backbone grid at 4 levels in bf16; the 4 coordinate taps in f32)
+INT8_PATHS = ("bf16", "int8", "int8_chain")
+INT8_STEPS = {"bf16": {}, "int8": {"conv": 40},
+              "int8_chain": {"conv": 30, "entry": 2, "mid": 4,
+                             "junction": 2}}
+GATHER_BY_DTYPE = {"bfloat16": 9, "float32": 4}
+# bf16 against fp32 and int8 against bf16: mean |diff| / max(1, std) of
+# the backbone maps and outputs, set from the first card run between the
+# sound reading and the planted faults' (PERF.md)
+BF16_STACK_MEAN = 0.1
+INT8_PATH_MEAN = 0.25
+STAGE_OF_MAP = (4, 5, 6, 7, 8)  # the stage whose output each map taps
 
 
 def log(*a):
@@ -163,16 +196,20 @@ def check_attention(torch, F, ma):
     return rows
 
 
-def check_gather(torch, rg, dense_ops, batch, caps):
-    """Kernel vs plain with idx/ok from a real batch's static keys."""
+def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
+                 taps=GATHER_C):
+    """Kernel vs plain with idx/ok from a real batch's static keys, in f32
+    or bf16 rows."""
     from mask3d_tpu_torch.sparse.context import build_sparse_batch
 
+    dtype = dtype or torch.float32
+    esize = torch.empty((), dtype=dtype).element_size()
     gen = torch.Generator(device="cuda").manual_seed(1)
     sb = build_sparse_batch(
         batch.coords, batch.counts, batch.dims,
         caps, batch.grid_dims)
     rows = []
-    for c, li in GATHER_C.items():
+    for c, li in taps.items():
         gd = batch.grid_dims[li]
         cells = gd[0] * gd[1] * gd[2]
         lvl = sb.levels[li]
@@ -180,7 +217,8 @@ def check_gather(torch, rg, dense_ops, batch, caps):
             torch.int32).contiguous()
         ok = lvl.valid.contiguous()
         b, m = idx.shape
-        src = torch.randn(b, cells, c, device="cuda", generator=gen)
+        src = torch.randn(b, cells, c, device="cuda", generator=gen).to(
+            dtype)
         got = rg.row_gather(src, idx, ok)
         ref = rg.row_gather_plain(src, idx, ok)
         torch.cuda.synchronize()
@@ -189,17 +227,18 @@ def check_gather(torch, rg, dense_ops, batch, caps):
         fidx = (idx.long() + torch.arange(b, device="cuda")[:, None]
                 * cells).view(-1)
         row = dict(
-            C=c, level=li, rows=b * m, equal=equal, max_abs_err=(
-                got - ref).abs().max().item(),
+            C=c, level=li, rows=b * m, dtype=str(dtype)[6:], equal=equal,
+            max_abs_err=(got.float() - ref.float()).abs().max().item(),
             ms=time_ms(torch, lambda: rg.row_gather(src, idx, ok)),
             plain_ms=time_ms(torch, lambda: rg.row_gather_plain(
                 src, idx, ok)),
             library_ms=time_ms(torch, lambda: flat.index_select(0, fidx)),
         )
         n_ok = int(ok.sum())
-        nbytes = b * m * 5 + n_ok * c * 4 + b * m * c * 4
+        nbytes = b * m * 5 + n_ok * c * esize + b * m * c * esize
         row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
-        log(f"row_gather C={c} level {li} rows {b * m}: bitwise equal "
+        log(f"row_gather {row['dtype']} C={c} level {li} rows {b * m}: "
+            f"bitwise equal "
             f"{equal} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
             f"ms index_select {row['library_ms']:.4f} ms bound "
             f"{row['bound_ms']:.4f} ms")
@@ -309,15 +348,16 @@ def backbone_maps(torch, mdl, cfg, dev, sparse):
                 for i, m in enumerate(maps)]
 
 
-def small_models(mt, cfg_mod, synth, np, impl, bucket):
+def small_models(mt, cfg_mod, synth, np, impl, bucket,
+                 backbone="Res16UNet14A", extra=()):
     """The small-width config, batch and one set of weights on the CPU and
     on the card."""
     ov = ["model.hidden_dim=32", "model.dim_feedforward=64",
           "model.num_queries=8", "model.num_heads=4",
-          "model.num_decoders=2", "model.backbone=Res16UNet14A",
+          "model.num_decoders=2", f"model.backbone={backbone}",
           "model.conv1_kernel_size=3",
           f"data.point_bucket_multiple={bucket}",
-          f"model.backbone_impl={impl}"]
+          f"model.backbone_impl={impl}", *extra]
     cfg = cfg_mod.apply_overrides(cfg_mod.Config(), ov)
     rng = np.random.default_rng(3)
     items = [synth(rng, num_rooms_x=3, num_rooms_y=2, room_size=12,
@@ -365,6 +405,185 @@ def small_reference_gather(torch, mt, cfg_mod, synth, np, sparse):
     return maps, final
 
 
+def int8_inputs(torch, gen, occ, cin, cout, k, step, res_dtype=None):
+    """Inputs of one int8 conv call on the batch's occupancy grid `occ`:
+    an int8 grid (steps conv and entry, with the 1x1 second output where
+    the widths differ, as a chain's entry has) or a bf16 raw grid with
+    norm-like affines, a quantize multiplier and, at a junction, a
+    residual of `res_dtype`."""
+    b, dims = occ.shape[0], tuple(occ.shape[1:4])
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def int8_grid(c):
+        q = torch.randint(-127, 128, (b,) + dims + (c,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        return (q * occ.int()).to(torch.int8)
+
+    wq = torch.randint(-127, 128, (k ** 3, cin, cout), generator=gen,
+                       device="cuda", dtype=torch.int32).to(torch.int8)
+    sw = rnd(cout).abs() * 1e-3 + 1e-4
+    kw = dict(stats=step != "conv")
+    if step in ("conv", "entry"):
+        if step == "entry" and cin != cout:
+            kw["wdq"] = torch.randint(
+                -127, 128, (1, cin, cout), generator=gen, device="cuda",
+                dtype=torch.int32).to(torch.int8)
+            kw["swd"] = rnd(cout).abs() * 1e-3 + 1e-4
+        return (int8_grid(cin), occ, wq, sw, "none"), kw
+    x = (rnd(*((b,) + dims + (cin,))) * occ).bfloat16()
+    kw.update(A=rnd(b, cin) * 0.2 + 1.0, Bc=rnd(b, cin) * 0.2,
+              inv=127.0 / (rnd(cin).abs() * 2 + 3))
+    if step == "mid":
+        return (x, occ, wq, sw, "affine"), kw
+    if res_dtype == torch.int8:
+        kw.update(res=int8_grid(cin), Ar=rnd(b, cin).abs() * 0.01 + 0.01,
+                  Br=torch.zeros(b, cin, device="cuda"))
+    else:
+        kw.update(res=(rnd(*((b,) + dims + (cin,))) * occ).bfloat16(),
+                  Ar=rnd(b, cin) * 0.2 + 1.0, Br=rnd(b, cin) * 0.2)
+    return (x, occ, wq, sw, "join"), kw
+
+
+def stats_within(torch, got, outs, ref):
+    """Each per-(item, channel) sum within 1e-5 of sum |term|."""
+    terms = []
+    for o in outs:
+        r = o.float()
+        terms += [r.abs().sum(dim=(1, 2, 3)), (r * r).sum(dim=(1, 2, 3))]
+    scale = torch.stack(terms, dim=1)
+    return bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def check_int8_conv(torch, F, ic, sb, shape_launches):
+    """Kernel vs plain at each (grid dims, Cin, Cout, k, step) the counted
+    int8 forwards launched, on the batch's occupancy at that grid (a
+    junction with an int8 and a bf16 residual); conv outputs and yq
+    bitwise, sums within 1e-5 of sum |term|. Times beside the plain
+    version, cuDNN's bf16 conv3d at the same shape (not the same function:
+    no int8 conv3d exists in PyTorch) and the bound, with the operations of
+    the whole grid and of the occupied outputs only."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    level_of = {tuple(o.shape[1:4]): li for li, o in enumerate(sb.occ)}
+    rows = []
+    for (dims, cin, cout, k, step), n_launch in sorted(
+            shape_launches.items(), key=lambda kv: (kv[0][4], kv[0][:4])):
+        occ = sb.occ[level_of[dims]]
+        variants = ((torch.int8, torch.bfloat16) if step == "junction"
+                    else (None,))
+        for res_dtype in variants:
+            args, kw = int8_inputs(torch, gen, occ, cin, cout, k, step,
+                                   res_dtype)
+            got = ic.int8_conv(*args, **kw)
+            ref = ic.int8_conv_plain(*args, **kw)
+            torch.cuda.synchronize()
+            equal = torch.equal(got.out, ref.out) and all(
+                (a is None and r is None) or torch.equal(a, r)
+                for a, r in ((got.out2, ref.out2), (got.yq, ref.yq)))
+            outs = [ref.out] + ([ref.out2] if ref.out2 is not None else [])
+            stats_ok = not kw["stats"] or stats_within(
+                torch, got.stats, outs, ref.stats)
+            err = (got.out.float() - ref.out.float()).abs().max().item()
+            x = args[0]
+            xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+            wb = args[2].to(torch.bfloat16).reshape(
+                k, k, k, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+            cells = occ[..., 0].numel()
+            occupied = int(occ.sum().item())
+            nbytes = cells * (cin * x.element_size() + 4 + 2 * cout) + \
+                k ** 3 * cin * cout
+            ops = 2 * k ** 3 * cin * cout
+            if kw.get("res") is not None:
+                nbytes += cells * cin * kw["res"].element_size()
+            if step == "junction":
+                nbytes += cells * cin  # yq
+            if kw.get("wdq") is not None:
+                nbytes += cells * 2 * cout + cin * cout
+                ops += 2 * cin * cout
+            row = dict(
+                step=step, grid=list(dims), Cin=cin, Cout=cout, k=k,
+                res=None if res_dtype is None else str(res_dtype)[6:],
+                launches=n_launch, cells=cells, occupied=occupied,
+                equal=equal, stats_ok=stats_ok, max_abs_err=err,
+                ms=time_ms(torch, lambda: ic.int8_conv(*args, **kw)),
+                plain_ms=time_ms(torch, lambda: ic.int8_conv_plain(
+                    *args, **kw), iters=1, warmup=0),
+                library_ms=None,  # no PyTorch call is an int8 conv3d
+                cudnn_bf16_ms=time_ms(torch, lambda: F.conv3d(
+                    xb, wb, padding=k // 2)),
+            )
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, ops * occupied, INT8_OPS_PER_S)
+            row["bound_ms_whole_grid"], row["bound_by_whole_grid"] = bound(
+                nbytes, ops * cells, INT8_OPS_PER_S)
+            log(f"int8_conv {step} {list(dims)} {cin}->{cout} k{k} "
+                f"res {row['res']} x{n_launch}: bitwise {equal}, stats "
+                f"{stats_ok}; kernel {row['ms']:.4f} ms plain "
+                f"{row['plain_ms']:.4f} ms cuDNN bf16 conv3d (not the same "
+                f"function) {row['cudnn_bf16_ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}, occupied "
+                f"outputs {occupied / cells:.3f}) / whole grid "
+                f"{row['bound_ms_whole_grid']:.4f} ms")
+            rows.append(row)
+            del args, kw, got, ref, xb, wb
+    return rows
+
+
+def backbone_run(torch, bb_mod, mdl, cfg, dev, sparse, stages_in=()):
+    """The backbone through the context `infer` builds: its five maps as
+    numpy valid rows, its final level-0 grid and the static bound each
+    stage returned; for each stage number in `stages_in`, also that
+    stage's (ctx, input, input bound)."""
+    build_sparse_batch, level_capacities, sb_kwargs = sparse
+    real = bb_mod.Res16UNetBase._blocks
+    bounds, inputs = {}, {}
+
+    def recording(self, ctx, stage, x, level_idx, bin_=None):
+        if stage in stages_in:
+            inputs[stage] = dict(ctx=ctx, x=x, bound=bin_)
+        out = real(self, ctx, stage, x, level_idx, bin_)
+        bounds[stage] = out[1]
+        return out
+
+    bb_mod.Res16UNetBase._blocks = recording
+    try:
+        with torch.inference_mode():
+            sb = build_sparse_batch(
+                dev.coords, dev.counts, dev.dims,
+                level_capacities(cfg, dev.capacity), dev.grid_dims,
+                **sb_kwargs(cfg))
+            _, maps, grid = mdl.backbone(dev.feats, sb, dev.grid_dims)
+            n = sb.num_levels
+            rows = [m[sb.levels[n - 1 - i].valid].float().cpu().numpy()
+                    for i, m in enumerate(maps)]
+    finally:
+        bb_mod.Res16UNetBase._blocks = real
+    return dict(maps=rows, grid=grid, bounds=bounds, occ=sb.occ[0],
+                inputs=inputs)
+
+
+def chain_tol_ratio(torch, want, got, bound, occ):
+    """The JAX package's fused-vs-unfused tolerance
+    (tests/test_pallas_chain.py:185-196) on two grids or row sets of one
+    stage's output: |diff| <= 3 step + 0.02 |want| + 0.02 everywhere,
+    step = bound / 127; returns (max |diff| / tol, median |diff| over
+    occupied cells, median step): it passes at ratio <= 1 and median
+    |diff| < median step."""
+    want = torch.as_tensor(want).float()
+    got = torch.as_tensor(got).float().to(want.device)
+    step = (bound.float() / 127.0).to(want.device)
+    diff = (got - want).abs()
+    tol = 3.0 * step + 0.02 * want.abs() + 0.02
+    if occ is not None:
+        diff_occ = diff[occ[..., 0].to(want.device) > 0]
+    else:
+        diff_occ = diff
+    return (float((diff / tol).max()), float(diff_occ.median()),
+            float(step.median()))
+
+
+
 def main():
     try:
         import numpy as np
@@ -384,11 +603,16 @@ def main():
         from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
         from mask3d_tpu_torch.evalm import Mask3DEvaluator
         from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+        from mask3d_tpu_torch.models import backbone as bb_mod
         from mask3d_tpu_torch.models import mask3d as mask3d_mod
         from mask3d_tpu_torch.models.backbone import _GatherCtx
         from mask3d_tpu_torch.ops import masked_attention as ma
         from mask3d_tpu_torch.postprocess import postprocess_item
+        from mask3d_tpu_torch.profile_forward import CONFIGS
+        from mask3d_tpu_torch.sparse import chain as chain_mod
         from mask3d_tpu_torch.sparse import dense_ops, row_gather as rg
+        from mask3d_tpu_torch.sparse import int8_conv as ic
+        from mask3d_tpu_torch.sparse import int8_ops
         from mask3d_tpu_torch.sparse import ops as sparse_ops
         from mask3d_tpu_torch.sparse import sparse_conv as sc
         from mask3d_tpu_torch.sparse.context import build_sparse_batch
@@ -403,12 +627,15 @@ def main():
     t_start = time.perf_counter()
 
     def phase(name, fn):
+        t = time.perf_counter()
         try:
             return fn()
         except Exception:
             failures.append(name)
             log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
             return None
+        finally:
+            log(f"[phase '{name}': {time.perf_counter() - t:.1f} s]")
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -452,6 +679,14 @@ def main():
         level_capacities(cfg, host.device.capacity))) or []
     if any(not r["equal"] for r in gather_rows):
         failures.append("row gather kernel disagrees with its plain version")
+    gather16_rows = phase("bf16 row gather kernel vs plain",
+                          lambda: check_gather(
+                              torch, rg, dense_ops, host.device,
+                              level_capacities(cfg, host.device.capacity),
+                              torch.bfloat16, BF16_GATHER_C)) or []
+    if not gather16_rows or any(not r["equal"] for r in gather16_rows):
+        failures.append("bf16 row gather not checked or disagrees with its "
+                        "plain version")
 
     cfg_gp = cfg_mod.apply_overrides(
         cfg_mod.Config(), [f"data.point_bucket_multiple={BUCKET}",
@@ -465,9 +700,21 @@ def main():
                   lambda: mt.build_model(cfg, device="cuda", seed=0))
     launches = {}
     shape_launches = {}  # path -> sparse conv launches by (N, K, Cin, Cout)
+    step_launches = {}  # path -> int8 conv launches by chain step
+    int8_shapes = {}  # path -> int8 conv launches by (dims, Cin, Cout, k,
+    # step)
+    gather_dtypes = {}  # path -> row gather launches by dtype
+    peak_gib = {}
     fwd_ms = {}
     counters = {"masked_attention": ma.masked_cross_attention,
-                "row_gather": rg.row_gather, "sparse_conv": sc.sparse_conv}
+                "row_gather": rg.row_gather, "sparse_conv": sc.sparse_conv,
+                "int8_conv": ic.int8_conv}
+    by_key = {"sparse_conv": (sc.sparse_conv.launches_by_shape,
+                              shape_launches),
+              "int8_steps": (ic.int8_conv.launches_by_step, step_launches),
+              "int8_shapes": (ic.int8_conv.launches_by_shape, int8_shapes),
+              "gather_dtypes": (rg.row_gather.launches_by_dtype,
+                                gather_dtypes)}
 
     def counted_forward(path, mdl, c):
         """One forward with every count set to 0 just before it and read
@@ -477,13 +724,18 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        sc.sparse_conv.launches_by_shape.clear()
+        for counts, _ in by_key.values():
+            counts.clear()
         out, overflow = mt.infer(mdl, host.device, c, device="cuda")
         torch.cuda.synchronize()
         launches[path] = {k: fn.launches for k, fn in counters.items()}
-        shape_launches[path] = dict(sc.sparse_conv.launches_by_shape)
-        log(f"{path} path launches: {launches[path]}; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for counts, record in by_key.values():
+            record[path] = dict(counts)
+        peak_gib[path] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{path} path launches: {launches[path]}, int8 conv by step "
+            f"{step_launches[path]}, row gather by dtype "
+            f"{gather_dtypes[path]}; peak device memory "
+            f"{peak_gib[path]:.2f} GiB")
         pc, pm = out.pred_class, out.pred_masks
         b, n = host.device.coords.shape[:2]
         q = c.model.num_queries
@@ -500,7 +752,8 @@ def main():
         preds = counted_forward("dense", model, cfg)
         assert launches["dense"] == {"masked_attention": n_dec,
                                      "row_gather": 13,  # 5 taps + 4 x 2
-                                     "sparse_conv": 0}, launches
+                                     "sparse_conv": 0, "int8_conv": 0
+                                     }, launches
         return preds
 
     preds = phase("main path", main_path) if model is not None else None
@@ -578,8 +831,8 @@ def main():
             # level eligible; gather runs them all in fp32 PyTorch
             assert launches[path] == {
                 "masked_attention": n_dec, "row_gather": 0,
-                "sparse_conv": 47 if path == "gather_pallas" else 0
-            }, launches
+                "sparse_conv": 47 if path == "gather_pallas" else 0,
+                "int8_conv": 0}, launches
             assert sum(shape_launches[path].values()) == \
                 launches[path]["sparse_conv"], shape_launches
             stats = path_stats(mdl, c, pc, pm)
@@ -669,6 +922,241 @@ def main():
 
     phase("gather_pallas card vs CPU at a small width", reference_gp)
 
+    # --- the JAX bench's inference stack: bf16, int8, int8 + chain ---
+    int8_models = {}
+    int8_runs = {}  # path -> backbone_run(...) + the forward's outputs
+    counts0 = host.device.counts.cpu().numpy()
+    valid0 = np.arange(host.device.capacity)[None] < counts0[:, None]
+
+    def cfg_of(path):
+        return cfg_mod.apply_overrides(
+            cfg_mod.Config(), [f"data.point_bucket_multiple={BUCKET}"]
+            + CONFIGS[path])
+
+    def pair_stats(ref, got):
+        """diff_stats of got's outputs and backbone maps against ref's."""
+        stats = {"pred_class": diff_stats(np, ref["preds"][0],
+                                          got["preds"][0]),
+                 "pred_masks": diff_stats(np, ref["preds"][1][valid0],
+                                          got["preds"][1][valid0])}
+        for i, (r, g) in enumerate(zip(ref["maps"], got["maps"])):
+            stats[f"map{i} (stride {16 >> i})"] = diff_stats(np, r, g)
+        return stats
+
+    def stage8_gate(want, got):
+        """int8_chain against int8 on the stage-8 grid: the JAX package's
+        fused-vs-unfused tolerance with the stage's static bound."""
+        ratio, med, med_step = chain_tol_ratio(
+            torch, want["grid"], got["grid"], got["bounds"][8], got["occ"])
+        return dict(ratio=ratio, median=med, median_step=med_step,
+                    ok=ratio <= 1.0 and med < med_step)
+
+    def int8_paths():
+        """The three configurations at full width on the dense model's
+        weights: launch counts, then each against the one it departs
+        from."""
+        ref = dict(preds=preds, maps=backbone_run(
+            torch, bb_mod, model, cfg, host.device, sparse)["maps"])
+        for path in INT8_PATHS:
+            c = cfg_of(path)
+            mdl = mt.build_model(c, device="cuda", seed=0)
+            mdl.load_state_dict(model.state_dict())
+            p = counted_forward(path, mdl, c)
+            want = {"masked_attention": n_dec, "row_gather": 13,
+                    "sparse_conv": 0,
+                    "int8_conv": sum(INT8_STEPS[path].values())}
+            assert launches[path] == want, (launches[path], want)
+            assert step_launches[path] == INT8_STEPS[path], step_launches
+            assert gather_dtypes[path] == GATHER_BY_DTYPE, gather_dtypes
+            assert sum(int8_shapes[path].values()) == \
+                launches[path]["int8_conv"], int8_shapes
+            int8_models[path] = (mdl, c)
+            int8_runs[path] = dict(backbone_run(
+                torch, bb_mod, mdl, c, host.device, sparse,
+                stages_in=(8,) if path == "int8_chain" else ()), preds=p)
+        int8_runs["fp32"] = ref
+        gates = {}
+        for path, base, tol in (("bf16", ref, BF16_STACK_MEAN),
+                                ("int8", int8_runs["bf16"], INT8_PATH_MEAN)):
+            stats = pair_stats(base, int8_runs[path])
+            for what, st in stats.items():
+                log(f"{path} vs {'fp32 dense' if path == 'bf16' else 'bf16'}"
+                    f" {what}: {json.dumps(st)}")
+            gates[path] = worst_ratio(stats, "mean", tol)
+            log(f"{path} gate: worst mean |diff| / max(1, std) "
+                f"{gates[path] * tol:.4g} against {tol} (ratio "
+                f"{gates[path]:.4g}, passes at <= 1)")
+        whole = stage8_gate(int8_runs["int8"], int8_runs["int8_chain"])
+        log(f"int8_chain vs int8, stage-8 grid of the two forwards "
+            f"(printed: stage 7 differs too): {json.dumps(whole)}")
+        chain_gate = stage8_fused_vs_unfused()
+        log(f"stage 8 on the int8_chain forward's input, fused vs unfused "
+            f"(the gate): {json.dumps(chain_gate)}")
+        assert gates["bf16"] <= 1.0 and gates["int8"] <= 1.0, gates
+        assert chain_gate["ok"], chain_gate
+
+    def stage8_fused_vs_unfused():
+        """Stage 8 of the int8_chain model on the input its counted
+        forward's stage 8 received, fused and unfused (the int8 path's
+        blocks): the JAX package's own comparison
+        (tests/test_pallas_chain.py:154-196) at full width."""
+        bb = int8_models["int8_chain"][0].backbone
+        inp = int8_runs["int8_chain"]["inputs"][8]
+        with torch.inference_mode():
+            fused, fb = bb._blocks(inp["ctx"], 8, inp["x"], 0, inp["bound"])
+            bb.pallas_chain = False
+            try:
+                unfused, _ = bb._blocks(inp["ctx"], 8, inp["x"], 0,
+                                        inp["bound"])
+            finally:
+                bb.pallas_chain = True
+        ratio, med, med_step = chain_tol_ratio(
+            torch, unfused, fused, fb, inp["ctx"].occ[0])
+        return dict(ratio=ratio, median=med, median_step=med_step,
+                    ok=ratio <= 1.0 and med < med_step)
+
+    if model is not None and preds is not None:
+        phase("bf16 / int8 / int8_chain at full width", int8_paths)
+
+    def int8_conv_check():
+        dev = host.device
+        sb = build_sparse_batch(
+            dev.coords, dev.counts, dev.dims,
+            level_capacities(cfg, dev.capacity), dev.grid_dims,
+            **_sb_kwargs(cfg))
+        shapes = dict(int8_shapes["int8"])
+        shapes.update({k: v for k, v in int8_shapes["int8_chain"].items()
+                       if k[4] != "conv"})
+        log(f"int8_conv launches by (grid, Cin, Cout, k, step) in the "
+            f"counted int8 / int8_chain forwards: {shapes}")
+        return check_int8_conv(torch, F, ic, sb, shapes)
+
+    int8_rows = phase("int8 conv kernel vs plain", int8_conv_check) or []
+    if not int8_rows or any(not (r["equal"] and r["stats_ok"])
+                            for r in int8_rows):
+        failures.append("int8 conv kernel not checked or disagrees with its "
+                        "plain version")
+
+    def int8_faults():
+        """Each fault, patched in at run time and taken out again, must
+        fail its gate: the junction's residual term dropped (stage 8 fused
+        against unfused), the int8 activation scale sx doubled where
+        activations are quantized while the weights keep sx (int8 against
+        bf16), and the dense norms normalizing without subtracting the
+        mean (bf16 against fp32)."""
+        real_conv = chain_mod.int8_conv
+        real_quantize = int8_ops.quantize
+
+        def no_residual(x, occ, wq, sw, mode="none", **kw):
+            if mode == "join":
+                kw["Ar"] = torch.zeros_like(kw["Ar"])
+                kw["Br"] = torch.zeros_like(kw["Br"])
+            return real_conv(x, occ, wq, sw, mode, **kw)
+
+        def doubled_sx(x, sx):
+            return real_quantize(x, 2.0 * sx)
+
+        def norm_without_mean(x, occ, gamma, beta, eps=1e-5):
+            x32 = x.float()
+            cnt = occ.float().sum(dim=(1, 2, 3), keepdim=True).clamp_min(1)
+            sq = (x32 * x32).sum(dim=(1, 2, 3), keepdim=True) / cnt
+            k = (torch.rsqrt(sq + eps) * gamma).to(x.dtype)
+            return x * k + occ.to(x.dtype) * beta.to(x.dtype)
+
+        chain_mod.int8_conv = no_residual
+        try:
+            g = stage8_fused_vs_unfused()
+        finally:
+            chain_mod.int8_conv = real_conv
+        log(f"planted fault 'junction residual dropped': stage 8 fused vs "
+            f"unfused {json.dumps(g)} (must fail)")
+        assert not g["ok"], g
+        faults = (("sx doubled in the int8 activation quantize", "int8",
+                   int8_ops, "quantize", doubled_sx, "bf16",
+                   INT8_PATH_MEAN),
+                  ("the dense norms skip the mean", "bf16", dense_ops,
+                   "dense_instance_norm", norm_without_mean, "fp32",
+                   BF16_STACK_MEAN))
+        for name, path, owner, attr, fake, base, tol in faults:
+            mdl, c = int8_models[path]
+            real = getattr(owner, attr)
+            setattr(owner, attr, fake)
+            try:
+                out, _ = mt.infer(mdl, host.device, c, device="cuda")
+                run = backbone_run(torch, bb_mod, mdl, c, host.device,
+                                   sparse)
+            finally:
+                setattr(owner, attr, real)
+            run["preds"] = (out.pred_class.cpu().numpy(),
+                            out.pred_masks.cpu().numpy())
+            stats = pair_stats(int8_runs[base], run)
+            ratio = worst_ratio(stats, "mean", tol)
+            log(f"planted fault '{name}' on {path}: worst mean |diff| / "
+                f"max(1, std) {ratio * tol:.4g} (gate ratio {ratio:.4g}, "
+                f"must be > 1); "
+                f"{json.dumps({w: st['mean'] for w, st in stats.items()})}")
+            assert not ratio <= 1.0, (name, ratio)  # NaN fails as well
+
+    if len(int8_models) == len(INT8_PATHS):
+        phase("planted faults fail the int8 gates", int8_faults)
+    else:
+        failures.append("int8 planted faults not run")
+
+    def reference_int8():
+        """int8_chain at a small width and bucket 1024 with MIN_ROWS 0
+        (stages 7 and 8 fuse), card against CPU. The gate: each fused stage
+        on the input the CPU forward gave it, card (kernels) against CPU
+        (plain versions), median |diff| 0 over occupied cells and within
+        the fused-vs-unfused tolerance everywhere. The backbone maps of the
+        two whole forwards are printed: the bf16 convs before the first
+        int8 conv round in another order on cuDNN, and int8 quantization
+        turns those flips into whole steps."""
+        import types
+
+        real_min = chain_mod.MIN_ROWS
+        chain_mod.MIN_ROWS = 0
+        try:
+            c, host_s, cpu_model, gpu_model = small_models(
+                mt, cfg_mod, make_synthetic_scene, np, "dense", 1024,
+                "Res16UNet18A", CONFIGS["int8_chain"])
+            ic.int8_conv.launches_by_step.clear()
+            ref = backbone_run(torch, bb_mod, cpu_model, c, host_s.device,
+                               sparse, stages_in=(7, 8))
+            got = backbone_run(torch, bb_mod, gpu_model, c,
+                               host_s.device.to("cuda"), sparse)
+        finally:
+            chain_mod.MIN_ROWS = real_min
+        steps = dict(ic.int8_conv.launches_by_step)
+        log(f"small int8_chain on the card launched {steps}")
+        assert all(steps.get(k) for k in ("entry", "mid", "junction"))
+        for i, (r, g) in enumerate(zip(ref["maps"], got["maps"])):
+            ratio, med, _ = chain_tol_ratio(
+                torch, r, g, ref["bounds"][STAGE_OF_MAP[i]], None)
+            log(f"small int8_chain backbone map {i}, card vs CPU (printed):"
+                f" tol ratio {ratio:.4g}, median |diff| {med:.4g}, "
+                f"{json.dumps(diff_stats(np, r, g))}")
+        results = []
+        for stage, level in ((7, 1), (8, 0)):
+            inp = ref["inputs"][stage]
+            gctx = types.SimpleNamespace(
+                occ=[o.cuda() for o in inp["ctx"].occ])
+            with torch.inference_mode():
+                want, bound_out = cpu_model.backbone._blocks_fused(
+                    inp["ctx"], stage, inp["x"], level, inp["bound"])
+                have, _ = gpu_model.backbone._blocks_fused(
+                    gctx, stage, inp["x"].cuda(), level,
+                    inp["bound"].cuda())
+            ratio, med, med_step = chain_tol_ratio(
+                torch, want, have.cpu(), bound_out, inp["ctx"].occ[level])
+            log(f"small fused stage {stage} on one input, card vs CPU: tol "
+                f"ratio {ratio:.4g}, median |diff| {med:.4g} (median step "
+                f"{med_step:.4g}), max |diff| "
+                f"{float((have.cpu().float() - want.float()).abs().max()):.4g}")
+            results.append((ratio, med))
+        assert all(r <= 1.0 and m == 0.0 for r, m in results), results
+
+    phase("int8_chain card vs CPU at a small width", reference_int8)
+
     def timing(path, mdl, c):
         ms = fwd_ms.setdefault(path, [])
         for _ in range(2):
@@ -685,18 +1173,20 @@ def main():
 
     if model is not None and preds is not None:
         phase("forward timing", lambda: timing("dense", model, cfg))
-    for path, (mdl, c) in gather_models.items():
+    for path, (mdl, c) in list(gather_models.items()) + list(
+            int8_models.items()):
         phase(f"{path} forward timing",
               lambda: timing(path, mdl, c))
 
-    def kernel_entry(name, source, replaces, rows, main, path, **extra):
-        """`main` is the row of the shape the summary keys report; the
-        launches are those of the path that runs the kernel."""
+    def kernel_entry(name, source, replaces, rows, main, n_launches,
+                     **extra):
+        """`main` is the row of the shape the summary keys report;
+        `n_launches` the count of the counted forward of the path that
+        runs the kernel."""
         main = main or {}
         return extra | {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches.get(path, {}).get(name, 0),
+            "replaces": replaces, "launches": n_launches,
             "max_abs_err": max((r["max_abs_err"] for r in rows),
                                default=None),
             "ms": main.get("ms"), "plain_ms": main.get("plain_ms"),
@@ -711,24 +1201,54 @@ def main():
         log(f"FAILED phases: {failures}")
         return 1
     log(card)
+    def forward_sums(rows):
+        return dict(
+            forward_ms=sum(r["launches"] * r["ms"] for r in rows),
+            forward_bound_ms=sum(r["launches"] * r["bound_ms"]
+                                 for r in rows))
+
+    def heaviest(rows):
+        return max(rows, key=lambda r: r["launches"] * r["ms"],
+                   default=None)
+
+    int8_entries = []
+    for step in ("conv", "entry", "mid", "junction"):
+        path = "int8" if step == "conv" else "int8_chain"
+        rows = [r for r in int8_rows if r["step"] == step]
+        # the flagship's junctions take the bf16 residual of a 1x1
+        fwd_rows = [r for r in rows if r["res"] != "int8"]
+        int8_entries.append(kernel_entry(
+            f"int8_conv:{step}", "mask3d_tpu_torch/csrc/int8_conv.cu",
+            "mask3d_tpu/sparse/pallas_chain.py:512", rows,
+            heaviest(fwd_rows), step_launches.get(path, {}).get(step, 0),
+            bound_ms_whole_grid=(heaviest(fwd_rows) or {}).get(
+                "bound_ms_whole_grid"),
+            cudnn_bf16_ms_not_the_same_function=(heaviest(fwd_rows) or {}
+                                                 ).get("cudnn_bf16_ms"),
+            **forward_sums(fwd_rows)))
     log(json.dumps({"kernels": [
         kernel_entry("masked_attention",
                      "mask3d_tpu_torch/csrc/masked_attention.cu",
                      "mask3d_tpu/ops/pallas_attention.py:102", attn_rows,
-                     attn_rows[-1] if attn_rows else None, "dense"),
+                     attn_rows[-1] if attn_rows else None,
+                     launches["dense"]["masked_attention"]),
         kernel_entry("row_gather", "mask3d_tpu_torch/csrc/row_gather.cu",
                      "mask3d_tpu/sparse/pallas_gather.py:198", gather_rows,
                      next((r for r in gather_rows if r["C"] == 96), None),
-                     "dense"),
+                     launches["dense"]["row_gather"]),
+        kernel_entry("row_gather_bf16",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198", gather16_rows,
+                     next((r for r in gather16_rows if r["C"] == 96), None),
+                     gather_dtypes["bf16"]["bfloat16"]),
         kernel_entry("sparse_conv", "mask3d_tpu_torch/csrc/sparse_conv.cu",
                      "mask3d_tpu/sparse/pallas_conv.py:316", spconv_rows,
-                     max(spconv_rows, key=lambda r: r["launches"] * r["ms"],
-                         default=None), "gather_pallas",
-                     forward_ms=sum(r["launches"] * r["ms"]
-                                    for r in spconv_rows),
-                     forward_bound_ms=sum(r["launches"] * r["bound_ms"]
-                                          for r in spconv_rows)),
-    ], "launches_by_path": launches, "forward_ms": fwd_ms}))
+                     heaviest(spconv_rows),
+                     launches["gather_pallas"]["sparse_conv"],
+                     **forward_sums(spconv_rows)),
+        *int8_entries,
+    ], "launches_by_path": launches, "int8_steps_by_path": step_launches,
+        "peak_gib": peak_gib, "forward_ms": fwd_ms}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

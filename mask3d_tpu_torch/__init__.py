@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of mask3d_tpu: Mask3D room-instance segmentation on an
 NVIDIA H100, with hand-written CUDA kernels for the masked cross-attention,
-the grid-to-row gather and the sparse gather-conv of the `gather_pallas`
-backbone.
+the grid-to-row gather, the sparse gather-conv of the `gather_pallas`
+backbone and the int8 conv (with the fused block chain's prologues) of the
+dense path's int8 eval stack.
 
 Entry points (each takes `device`, default "cuda"; a CUDA request without
 CUDA raises):

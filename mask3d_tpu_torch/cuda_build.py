@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("masked_attention", "row_gather", "sparse_conv")
+KERNELS = ("masked_attention", "row_gather", "sparse_conv", "int8_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -8,7 +8,7 @@ array onto a torch device. `grid_dims` stays a static tuple.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -48,6 +48,9 @@ class DeviceBatch:
     # Static per-level dense-grid dims (level-0 multiples of 8, coarser
     # levels the ceil-div halving chain).
     grid_dims: tuple = None
+    # Host-side fact for `model.unit_features`: every valid feature row is
+    # all ones (None: not known, e.g. a batch built by hand).
+    feats_all_ones: Optional[bool] = None
 
     @property
     def capacity(self) -> int:
@@ -59,6 +62,7 @@ class DeviceBatch:
             coords=_to(self.coords, dev), counts=_to(self.counts, dev),
             dims=_to(self.dims, dev), feats=_to(self.feats, dev),
             target=self.target.to(dev), grid_dims=self.grid_dims,
+            feats_all_ones=self.feats_all_ones,
         )
 
 

@@ -248,6 +248,8 @@ class VoxelizeCollate:
             target=Targets(labels=t_labels, masks=t_masks, valid=t_valid,
                            point_instance_ids=pt_inst),
             grid_dims=grid_dims,
+            feats_all_ones=all(bool(np.all(feats[i, :n] == 1.0))
+                               for i, n in enumerate(counts)),
         )
         return HostBatch(device=dev, scenes=[it["scene"] for it in per_item],
                          raw_coords=raw_coords)

@@ -31,6 +31,28 @@ def _sb_kwargs(cfg):
                 build_pool_parents=True)
 
 
+# from mask3d_tpu/train/loop.py:190-205 (init_state's unit_features check)
+def check_unit_features(cfg, batch: DeviceBatch):
+    """`model.unit_features` promises constant unit input features (the
+    dense stem then reads the occupancy grid): raise where the batch's
+    valid feature rows are not all ones, from the collator's host-side
+    `feats_all_ones` (a batch built by hand is checked here)."""
+    if not cfg.model.unit_features:
+        return
+    ones = batch.feats_all_ones
+    if ones is None:
+        feats = torch.as_tensor(batch.feats)
+        counts = torch.as_tensor(batch.counts, device=feats.device)
+        valid = torch.arange(feats.shape[1], device=feats.device)[None] \
+            < counts[:, None]
+        ones = bool((feats[valid] == 1.0).all())
+    if cfg.data.in_channels != 1 or not ones:
+        raise ValueError(
+            "model.unit_features=true but the batch carries non-constant "
+            "features: the dense stem would discard them; unset "
+            "unit_features for real feature channels")
+
+
 # from mask3d_tpu/train/loop.py:458-479 make_eval_step (forward half)
 def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
           device="cuda") -> Tuple[Mask3DOutput, torch.Tensor]:
@@ -40,6 +62,7 @@ def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
         raise ValueError(f"model built for backbone_impl="
                          f"{model.backbone.impl!r}, cfg says "
                          f"{cfg.model.backbone_impl!r}")
+    check_unit_features(cfg, batch)
     dev = resolve_device(device)
     batch = batch.to(dev)
     with torch.inference_mode():

@@ -1,4 +1,5 @@
-"""Res16UNet sparse-voxel backbones (fp32, with bf16 gather convs on
+"""Res16UNet sparse-voxel backbones (fp32 or bf16, with int8 eval convs and
+the fused int8 block chain on `dense`, bf16 gather convs on
 `gather_pallas`).
 
 A 4-stage stride-2 encoder and a 4-stage transposed-conv decoder with skip
@@ -6,7 +7,13 @@ concatenations and InstanceNorm everywhere. Three executions share one
 parameter layout (`impl`, the JAX package's `backbone_impl`):
 
 - `dense`: dense convolutions re-masked by occupancy on per-level grids
-  (`sparse/dense_ops.py`);
+  (`sparse/dense_ops.py`), in `compute_dtype` (None = f32, or bf16). The
+  int8 eval stack rides on it: `int8_stride1` runs every same-stride conv
+  with min(Cin, Cout) >= 96 as an int8 conv (`sparse/int8_ops.py`),
+  `int8_act_sigma` > 0 gives those convs static activation scales from the
+  producing norms' affines, `int8_residual` keeps intermediate block
+  outputs as int8 `QGrid`s, and `pallas_chain` runs the eligible stride-1
+  stages through the fused int8 chain (`sparse/chain.py`);
 - `gather`: row-space gather-matmul convolutions over kernel maps and
   stride-2 convs over PoolMaps (`sparse/ops.py`), fp32;
 - `gather_pallas`: `gather` whose same-stride convs run the bf16 sparse-conv
@@ -31,9 +38,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mask3d_tpu_torch.sparse import dense_ops, ops
+from mask3d_tpu_torch.sparse import chain, dense_ops, ops
 from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.context import SparseBatch
+from mask3d_tpu_torch.sparse.int8_ops import QGrid, act_bound, \
+    dense_conv_same_int8, dequantize, quantize_static, weight_rows
 
 IMPLS = ("dense", "gather", "gather_pallas")
 
@@ -61,8 +70,7 @@ class Norm(nn.Module):
 def _kernel_rows(conv: Conv):
     """A conv weight [Cout, Cin, k, k, k] as [k^3, Cin, Cout] in
     `cube_offsets` order (the inverse of `bridge.py`'s cube transpose)."""
-    w = conv.weight
-    return w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[1], w.shape[0])
+    return weight_rows(conv.weight)
 
 
 def _kernel_rows_tr(conv: Conv):
@@ -96,11 +104,11 @@ class _GatherCtx:
     def conv_in(self, x, conv: Conv):
         return self._conv(x, conv, self.sb.nbr0_idx, self.sb.nbr0_ok)
 
-    def conv3(self, x, conv: Conv, level_idx):
+    def conv3(self, x, conv: Conv, level_idx, bound=None):
         return self._conv(x, conv, self.sb.nbr_idx[level_idx],
                           self.sb.nbr_ok[level_idx])
 
-    def conv1x1(self, x, conv: Conv, level_idx):
+    def conv1x1(self, x, conv: Conv, level_idx, bound=None):
         w = conv.weight
         return x @ w.reshape(w.shape[0], w.shape[1]).t()
 
@@ -118,25 +126,53 @@ class _GatherCtx:
         return ops.instance_norm(x, self.sb.levels[level_idx].valid,
                                  norm.weight, norm.bias)
 
+    def block_join(self, out, residual, level_idx, bound=None,
+                   want_q=False):
+        return torch.relu(out + residual)
+
     def rows(self, x, level_idx):
         return x
 
 
-# from mask3d_tpu/models/backbone.py:150 _DenseCtx (fp32; no int8, no sp)
+# from mask3d_tpu/models/backbone.py:150 _DenseCtx (no sp)
 class _DenseCtx:
-    """Dense-grid execution: features live as [B, Gx, Gy, Gz, C] per level."""
+    """Dense-grid execution: features live as [B, Gx, Gy, Gz, C] per level,
+    in `compute_dtype` (None = f32) after the first conv."""
 
-    def __init__(self, sb: SparseBatch, grid_dims):
+    def __init__(self, sb: SparseBatch, grid_dims, compute_dtype=None,
+                 int8_stride1: bool = False, int8_act_sigma: float = 0.0,
+                 int8_residual: bool = False):
         self.sb = sb
         self.grid_dims = list(grid_dims)
         self.occ = list(sb.occ)
+        self.dt = compute_dtype
+        self.int8_l0 = int8_stride1
+        self.int8_sigma = float(int8_act_sigma)
+        self.int8_res = bool(int8_residual) and int8_stride1 and \
+            self.int8_sigma > 0
 
     def scatter(self, feats_rows, level_idx):
         return dense_ops.scatter_rows(
             feats_rows, self.sb.levels[level_idx], self.grid_dims[level_idx])
 
-    def conv3(self, x, conv: Conv, level_idx):
-        return dense_ops.dense_conv_same(x, conv.weight, self.occ[level_idx])
+    def _int8(self, conv: Conv) -> bool:
+        """int8 eval conv: only the widths >= 96 (the JAX package's
+        MXU-bound gate), on every level."""
+        w = conv.weight
+        return self.int8_l0 and min(w.shape[0], w.shape[1]) >= 96
+
+    def conv3(self, x, conv: Conv, level_idx, bound=None):
+        """Same-stride conv (k 3, or k 1 as `conv1x1`); `bound` is the static
+        bound on |x|, used when `int8_act_sigma` > 0."""
+        occ = self.occ[level_idx]
+        if not self._int8(conv):
+            if isinstance(x, QGrid):
+                x = dequantize(x, self.dt or torch.float32)
+            return dense_ops.dense_conv_same(x, conv.weight, occ,
+                                             compute_dtype=self.dt)
+        return dense_conv_same_int8(
+            x, conv.weight, occ, out_dtype=self.dt or torch.float32,
+            act_bound=bound if self.int8_sigma > 0 else None)
 
     def conv_in(self, x, conv: Conv):
         return self.conv3(x, conv, 0)
@@ -145,15 +181,30 @@ class _DenseCtx:
 
     def conv_down(self, x, conv: Conv, fine_idx):
         return dense_ops.dense_conv_down(x, conv.weight,
-                                         self.occ[fine_idx + 1])
+                                         self.occ[fine_idx + 1],
+                                         compute_dtype=self.dt)
 
     def conv_tr(self, x, conv: Conv, coarse_idx):
         return dense_ops.dense_conv_tr(x, conv.weight,
-                                       self.occ[coarse_idx - 1])
+                                       self.occ[coarse_idx - 1],
+                                       compute_dtype=self.dt)
 
     def norm(self, x, norm: Norm, level_idx):
         return dense_ops.dense_instance_norm(x, self.occ[level_idx],
                                              norm.weight, norm.bias)
+
+    # from mask3d_tpu/models/backbone.py:287 block_join
+    def block_join(self, out, residual, level_idx, bound=None,
+                   want_q=False):
+        """relu(out + residual); with `int8_residual` an intermediate block
+        output (`want_q`) comes back only as a statically quantized QGrid,
+        the next block's int8 conv input and residual."""
+        if isinstance(residual, QGrid):
+            residual = dequantize(residual, out.dtype)
+        y = torch.relu(out + residual)
+        if want_q and self.int8_res and bound is not None:
+            return quantize_static(y, bound)
+        return y
 
     def rows(self, x, level_idx):
         return dense_ops.gather_rows(x, self.sb.levels[level_idx],
@@ -167,13 +218,27 @@ class Res16UNetBase(nn.Module):
     INIT_DIM: int = 32
 
     def __init__(self, in_channels: int = 1, conv1_kernel_size: int = 5,
-                 impl: str = "dense"):
+                 impl: str = "dense", compute_dtype=None,
+                 int8_stride1: bool = False, int8_residual: bool = False,
+                 int8_act_sigma: float = 0.0, pallas_chain: bool = False,
+                 unit_features: bool = False):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
+        if impl != "dense" and (compute_dtype is not None or int8_stride1
+                                or pallas_chain or unit_features):
+            raise NotImplementedError(
+                "compute_dtype, the int8 stack and unit_features are ported "
+                "on the dense impl only")
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
         self.impl = impl
+        self.compute_dtype = compute_dtype
+        self.int8_stride1 = int8_stride1
+        self.int8_residual = int8_residual
+        self.int8_act_sigma = float(int8_act_sigma)
+        self.pallas_chain = pallas_chain
+        self.unit_features = unit_features
         self.convs = nn.ModuleDict()
         self.norms = nn.ModuleDict()
         p, lay, c0 = self.PLANES, self.LAYERS, self.INIT_DIM
@@ -221,57 +286,132 @@ class Res16UNetBase(nn.Module):
                 norm.weight.fill_(1.0)
                 norm.bias.zero_()
 
+    # from mask3d_tpu/models/backbone.py:498 _act_bound
+    def _act_bound(self, norm: Norm):
+        """Static per-channel bound sigma*|gamma| + |beta| on the output of
+        a norm (+ relu), for int8 activation scales; None unless the int8
+        stack runs with `int8_act_sigma` > 0."""
+        s = self.int8_act_sigma
+        if s <= 0 or self.impl != "dense" or not self.int8_stride1:
+            return None
+        return act_bound(s, norm.weight, norm.bias)
+
+    @staticmethod
+    def _cat_bound(a, b):
+        return None if a is None or b is None else torch.cat([a, b])
+
     # from mask3d_tpu/models/backbone.py:539 _block
-    def _block(self, ctx, name, x, level_idx):
+    def _block(self, ctx, name, x, level_idx, bin_=None, want_q=False):
         """BasicBlock: conv-norm-relu-conv-norm, residual (1x1 conv + norm
-        where the width changes), relu of the sum."""
+        where the width changes), relu of the sum. `bin_` is the static
+        bound on |x|; returns (out, bound of out). `want_q`: the output may
+        come back as a QGrid (`int8_residual`)."""
         residual = x
-        out = ctx.conv3(x, self.convs[f"{name}_conv1"], level_idx)
-        out = torch.relu(ctx.norm(out, self.norms[f"{name}_norm1"],
-                                  level_idx))
-        out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx)
-        out = ctx.norm(out, self.norms[f"{name}_norm2"], level_idx)
+        n1, n2 = self.norms[f"{name}_norm1"], self.norms[f"{name}_norm2"]
+        out = ctx.conv3(x, self.convs[f"{name}_conv1"], level_idx,
+                        bound=bin_)
+        out = torch.relu(ctx.norm(out, n1, level_idx))
+        out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx,
+                        bound=self._act_bound(n1))
+        out = ctx.norm(out, n2, level_idx)
+        bout = self._act_bound(n2)
         if f"{name}_downsample" in self.convs:
+            nd = self.norms[f"{name}_downsample_norm"]
             residual = ctx.conv1x1(residual,
                                    self.convs[f"{name}_downsample"],
-                                   level_idx)
-            residual = ctx.norm(residual,
-                                self.norms[f"{name}_downsample_norm"],
-                                level_idx)
-        return torch.relu(out + residual)
+                                   level_idx, bound=bin_)
+            residual = ctx.norm(residual, nd, level_idx)
+            bres = self._act_bound(nd)
+        else:
+            bres = bin_
+        bout = None if bout is None or bres is None else bout + bres
+        return ctx.block_join(out, residual, level_idx, bound=bout,
+                              want_q=want_q), bout
 
-    # from mask3d_tpu/models/backbone.py:650 _blocks
-    def _blocks(self, ctx, stage, x, level_idx):
+    def _stage_widths(self, stage):
+        """(cin, planes) of a stage, from its first block's conv1."""
+        planes, cin = self.convs[f"block{stage}_0_conv1"].weight.shape[:2]
+        return cin, planes
+
+    # from mask3d_tpu/models/backbone.py:617 _blocks_fused
+    def _blocks_fused(self, ctx, stage, x, level_idx, bin_):
+        """The whole stage through the fused int8 chain; the same
+        parameters as `_block`."""
+        blocks = []
         for i in range(self.LAYERS[stage - 1]):
-            x = self._block(ctx, f"block{stage}_{i}", x, level_idx)
-        return x
+            name = f"block{stage}_{i}"
+            blk = {}
+            for key, conv, norm in (("1", "conv1", "norm1"),
+                                    ("2", "conv2", "norm2"),
+                                    ("d", "downsample", "downsample_norm")):
+                if f"{name}_{conv}" in self.convs:
+                    nrm = self.norms[f"{name}_{norm}"]
+                    blk[f"w{key}"] = _kernel_rows(self.convs[f"{name}_{conv}"])
+                    blk[f"g{key}"], blk[f"b{key}"] = nrm.weight, nrm.bias
+            blocks.append(blk)
+        y, bout = chain.fused_basic_stage(x, bin_, ctx.occ[level_idx],
+                                          blocks, self.int8_act_sigma)
+        # the chain emits bf16; downstream ops take the compute dtype
+        return y.to(self.compute_dtype or torch.float32), bout
+
+    # from mask3d_tpu/models/backbone.py:650 _blocks (basic blocks, no SE,
+    # no sp, no fold_small_stages)
+    def _blocks(self, ctx, stage, x, level_idx, bin_=None):
+        cin, planes = self._stage_widths(stage)
+        # a bound exists only on the dense int8 path with static scales
+        if (self.pallas_chain and bin_ is not None
+                and not isinstance(x, QGrid)
+                and min(cin, planes) >= 96 and cin <= 128
+                and planes < 128  # the TPU layout's spare occupancy lane
+                and chain.padded_rows(ctx.grid_dims[level_idx])
+                >= chain.MIN_ROWS):
+            return self._blocks_fused(ctx, stage, x, level_idx, bin_)
+        # int8_residual: intermediate block outputs (read only by the next
+        # block) may live as int8 QGrids; the stage output stays a grid
+        wq = getattr(ctx, "int8_res", False) and planes >= 96
+        n = self.LAYERS[stage - 1]
+        for i in range(n):
+            x, bin_ = self._block(ctx, f"block{stage}_{i}", x, level_idx,
+                                  bin_=bin_, want_q=wq and i < n - 1)
+        return x, bin_
 
     # from mask3d_tpu/models/backbone.py:725 Res16UNetBase.__call__
     def forward(self, feats, sb: SparseBatch, grid_dims
                 ) -> Tuple[torch.Tensor, List[torch.Tensor],
                            Optional[torch.Tensor]]:
         if self.impl == "dense":
-            ctx = _DenseCtx(sb, grid_dims)
+            ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
+                            int8_stride1=self.int8_stride1,
+                            int8_act_sigma=self.int8_act_sigma,
+                            int8_residual=self.int8_residual)
+            if self.unit_features and self.in_channels == 1:
+                # the scatter of unit features is the occupancy grid
+                x = ctx.occ[0].to(feats.dtype)
+            else:
+                x = ctx.scatter(feats, 0)
         else:
             ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas")
-        x = ctx.scatter(feats, 0)
+            x = ctx.scatter(feats, 0)
 
         # Encoder. The stem is conv -> norm -> relu (the JAX package's
         # dense impl runs the same arithmetic as a fused z-folded conv).
         out = ctx.conv_in(x, self.convs["conv0p1s1"])
         out_p1 = torch.relu(ctx.norm(out, self.norms["bn0"], 0))
+        b_p1 = self._act_bound(self.norms["bn0"])
 
         def down(name, x_in, fine_idx):
+            norm = self.norms[name.replace("conv", "bn")]
             out = ctx.conv_down(x_in, self.convs[name], fine_idx)
-            return torch.relu(ctx.norm(out, self.norms[name.replace(
-                "conv", "bn")], fine_idx + 1))
+            return (torch.relu(ctx.norm(out, norm, fine_idx + 1)),
+                    self._act_bound(norm))
 
         skips: Dict[int, torch.Tensor] = {0: out_p1}
+        skip_bounds = {0: b_p1}
         out = out_p1
         for i in range(4):
-            out = down(f"conv{i + 1}p{2 ** i}s2", out, i)
-            out = self._blocks(ctx, i + 1, out, i + 1)
-            skips[i + 1] = out
+            out, bnd = down(f"conv{i + 1}p{2 ** i}s2", out, i)
+            out, bnd = self._blocks(ctx, i + 1, out, i + 1, bnd)
+            skips[i + 1], skip_bounds[i + 1] = out, bnd
 
         feature_maps = [ctx.rows(out, 4)]  # stride 16
 
@@ -279,11 +419,13 @@ class Res16UNetBase(nn.Module):
         for i in range(4):
             coarse = 4 - i
             name = f"convtr{i + 4}p{2 ** coarse}s2"
+            norm = self.norms[name.replace("convtr", "bntr")]
             out = ctx.conv_tr(out, self.convs[name], coarse)
-            out = torch.relu(ctx.norm(out, self.norms[name.replace(
-                "convtr", "bntr")], coarse - 1))
+            out = torch.relu(ctx.norm(out, norm, coarse - 1))
+            bnd = self._cat_bound(self._act_bound(norm),
+                                  skip_bounds[coarse - 1])
             out = torch.cat([out, skips[coarse - 1]], dim=-1)
-            out = self._blocks(ctx, i + 5, out, coarse - 1)
+            out, _ = self._blocks(ctx, i + 5, out, coarse - 1, bnd)
             feature_maps.append(ctx.rows(out, coarse - 1))
         return feature_maps[-1], feature_maps, (
             out if self.impl == "dense" else None)

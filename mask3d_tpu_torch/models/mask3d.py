@@ -148,7 +148,10 @@ class Mask3D(nn.Module):
                  normalize_pos_enc=True, positional_encoding_type="fourier",
                  gauss_scale=1.0, hlevels=(0, 1, 2, 3),
                  backbone_name="Res16UNet34C", in_channels=1,
-                 conv1_kernel_size=5, backbone_impl="dense"):
+                 conv1_kernel_size=5, backbone_impl="dense",
+                 **backbone_opts):
+        """`backbone_opts`: the backbone's compute dtype and int8 options
+        (`Res16UNetBase`)."""
         super().__init__()
         d = hidden_dim
         self.hidden_dim = d
@@ -161,7 +164,7 @@ class Mask3D(nn.Module):
         self.hlevels = tuple(hlevels)
         self.backbone = BACKBONES[backbone_name](
             in_channels=in_channels, conv1_kernel_size=conv1_kernel_size,
-            impl=backbone_impl)
+            impl=backbone_impl, **backbone_opts)
         planes = self.backbone.PLANES
         # channels of feature_maps[i] (strides 16, 8, 4, 2, 1)
         fm_channels = [planes[3], planes[4], planes[5], planes[6], planes[7]]
@@ -229,7 +232,10 @@ class Mask3D(nn.Module):
         # feature_maps: [s16, s8, s4, s2, s1]; sparse level of fm[i] = 4-i
         fm_level = [n_levels - 1 - i for i in range(n_levels)]
 
-        mask_feats = self.mask_features_head(bb_out) * valid0[..., None]
+        # A bf16 backbone's rows go into the f32 heads as f32 (Flax's Dense
+        # promotes bf16 inputs with f32 kernels; nn.Linear would refuse).
+        mask_feats = self.mask_features_head(bb_out.float()) * \
+            valid0[..., None]
         coords_pyr = [raw_coords.float()]
         mask_feats_pyr = [mask_feats]
         if bb_grid is not None:
@@ -241,7 +247,7 @@ class Mask3D(nn.Module):
             for crow, brow in dense_ops.pooled_row_pyramid(
                     [coord_grid, bb_grid], sb.occ, sb.levels, grid_dims):
                 coords_pyr.append(crow)
-                mask_feats_pyr.append(self.mask_features_head(brow))
+                mask_feats_pyr.append(self.mask_features_head(brow.float()))
         else:
             # from mask3d_tpu/models/mask3d.py:498-506: one row-space mean
             # pool of [coords | mask_feats] per level, split afterwards
@@ -295,7 +301,7 @@ class Mask3D(nn.Module):
                 key = f"0_{li}"
                 cross = self.cross[key]
                 if key not in kv_cache:
-                    src = self.squeeze[key](feature_maps[hlevel])
+                    src = self.squeeze[key](feature_maps[hlevel].float())
                     kv_cache[key] = cross.project_kv(src, pe_pyr[lvl])
                 # The memory is the full padded level: unblock queries whose
                 # mask blocks every row, then block the padding rows.
@@ -326,16 +332,17 @@ _SUPPORTED_VALUES = {
     "non_parametric_queries": (True,), "random_queries": (False,),
     "random_query_both": (False,), "use_np_features": (False,),
     "use_level_embed": (False,), "backbone_impl": IMPLS,
-    "compute_dtype": (None,), "int8_stride1": (False,),
-    "pallas_chain": (False,), "sp_axis": (None,), "pre_norm": (False,),
-    "shared_decoder": (True,),
+    "compute_dtype": (None, "bfloat16"), "sp_axis": (None,),
+    "pre_norm": (False,), "shared_decoder": (True,),
+    "fold_small_stages": (False,),
 }
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     """Entry point: the Mask3D eval model of `cfg.model`, with seeded random
     weights, on `device`, in eval mode. Load trained weights with
-    `bridge.load_flax`."""
+    `bridge.load_flax`. The model is eval-only, so `int8_stride1` applies
+    as it is (the JAX package passes `int8_stride1 and is_eval`)."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
@@ -356,6 +363,11 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
         in_channels=cfg.data.in_channels,
         conv1_kernel_size=m.conv1_kernel_size,
         backbone_impl=m.backbone_impl,
+        compute_dtype=(torch.bfloat16 if m.compute_dtype == "bfloat16"
+                       else None),
+        int8_stride1=m.int8_stride1, int8_residual=m.int8_residual,
+        int8_act_sigma=m.int8_act_sigma, pallas_chain=m.pallas_chain,
+        unit_features=m.unit_features,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,15 +1,16 @@
 """Where the flagship forward's device time goes.
 
     python -m mask3d_tpu_torch.profile_forward [--impl dense|gather_pallas]
-                                               [--out trace.json]
+        [--config fp32|bf16|int8|int8_chain] [--out trace.json]
 
 Collates the bench's 8 synthetic scenes at bucket 49152, builds the flagship
-fp32 model (seeded random weights) on the chosen backbone path
-(`model.backbone_impl`, default dense), warms up, then traces one `infer`
-with `torch.profiler` and prints the device time per kernel group (the
-port's three CUDA kernels, convolutions, other PyTorch kernels), the wall
-time of the traced forward and the device's idle share within it. Needs a
-CUDA card.
+model (seeded random weights) on the chosen backbone path
+(`model.backbone_impl`, default dense) in the chosen configuration (default
+fp32; `bf16`, `int8` and `int8_chain` are the JAX bench's inference stack,
+`CONFIGS`, dense only), warms up, then traces one `infer` with
+`torch.profiler` and prints the device time per kernel group (the port's
+CUDA kernels, convolutions, other PyTorch kernels), the wall time of the
+traced forward and the device's idle share within it. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,10 +26,19 @@ import mask3d_tpu_torch as mt
 from mask3d_tpu_torch.config import Config, apply_overrides
 from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 
+# model overrides of each configuration: the JAX bench's flagship stack
+# (bench.py:156-186) in bf16, int8, and int8 with the fused chain
+_INT8 = ["model.compute_dtype=bfloat16", "model.int8_stride1=true",
+         "model.int8_act_sigma=10", "model.int8_residual=true",
+         "model.unit_features=true"]
+CONFIGS = {"fp32": [], "bf16": ["model.compute_dtype=bfloat16"],
+           "int8": _INT8, "int8_chain": _INT8 + ["model.pallas_chain=true"]}
+
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("masked_attention kernel", ("mca_partial", "mca_combine")),
     ("row_gather kernel", ("row_gather_kernel",)),
     ("sparse_conv kernel", ("sparse_conv_kernel",)),
+    ("int8_conv kernel", ("int8_conv_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "implicit", "wgrad",
                               "dgrad", "fprop")),
     ("matmuls (cuBLAS)", ("gemm", "cutlass", "cublas")),
@@ -50,6 +60,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--impl", choices=("dense", "gather_pallas"),
                     default="dense", help="model.backbone_impl")
+    ap.add_argument("--config", choices=tuple(CONFIGS), default="fp32",
+                    help="inference configuration (bf16/int8: dense only)")
     ap.add_argument("--out", default=None, help="chrome trace path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -57,7 +69,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152",
-                                     f"model.backbone_impl={args.impl}"])
+                                     f"model.backbone_impl={args.impl}"]
+                          + CONFIGS[args.config])
     rng = np.random.default_rng(0)
     items = [make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
                                   room_size=36, height=18, jitter=0.3,
@@ -88,7 +101,8 @@ def main(argv=None):
         per_group[_group(evt.key)] += us / 1e3
         per_kernel[evt.key] += us / 1e3
     busy = sum(per_group.values())
-    print(f"traced {args.impl} forward on {torch.cuda.get_device_name(0)}: "
+    print(f"traced {args.impl} {args.config} forward on "
+          f"{torch.cuda.get_device_name(0)}: "
           f"wall {wall_ms:.2f} ms, device busy {busy:.2f} "
           f"ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")
     for group, ms in per_group.most_common():

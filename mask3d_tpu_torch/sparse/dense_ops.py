@@ -9,7 +9,9 @@ the tap points through the row-gather kernel (`row_gather.py`).
 
 Weight layouts are PyTorch's: `[Cout, Cin, k, k, k]` for convolutions and
 `[Cin, Cout, 2, 2, 2]` for transposed ones (`bridge.py` converts the JAX
-package's `[K, Cin, Cout]` cube ravels).
+package's `[K, Cin, Cout]` cube ravels). With `compute_dtype` (bf16) a conv
+rounds its input and weight, accumulates in f32 and writes bf16, as the
+JAX package's XLA convs do; the int8 convs are in `int8_ops.py`.
 """
 
 from __future__ import annotations
@@ -73,11 +75,27 @@ def occupancy(level: SparseLevel, grid_dims: Sequence[int]):
     return scatter_rows(ones, level, grid_dims)
 
 
-# from mask3d_tpu/sparse/dense_ops.py:156 dense_conv_same
-def dense_conv_same(x, weight, occ):
+def _cast(x, weight, compute_dtype):
+    """Round the conv input and weight to `compute_dtype` (None: as they
+    are). The conv then accumulates in f32 and writes its output once, in
+    that dtype."""
+    if compute_dtype is None:
+        return x, weight
+    return x.to(compute_dtype), weight.to(compute_dtype)
+
+
+def _mask(out, occ):
+    """Re-mask by occupancy in the output's dtype (a bf16 output times an
+    f32 mask would promote the grid back to f32)."""
+    return out * occ.to(out.dtype)
+
+
+# from mask3d_tpu/sparse/dense_ops.py:156 dense_conv_same (no bias)
+def dense_conv_same(x, weight, occ, compute_dtype=None):
     """Same-stride submanifold conv. weight: [Cout, Cin, k, k, k]."""
+    x, weight = _cast(x, weight, compute_dtype)
     out = _bxyzc(F.conv3d(_ncdhw(x), weight, padding=weight.shape[-1] // 2))
-    return out * occ
+    return _mask(out, occ)
 
 
 def _pad_odd(x, value=0.0):
@@ -86,22 +104,24 @@ def _pad_odd(x, value=0.0):
     return F.pad(x, pads, value=value) if any(pads) else x
 
 
-# from mask3d_tpu/sparse/dense_ops.py:422 dense_conv_down
-def dense_conv_down(x, weight, occ_coarse):
+# from mask3d_tpu/sparse/dense_ops.py:422 dense_conv_down (no bias)
+def dense_conv_down(x, weight, occ_coarse, compute_dtype=None):
     """Stride-2 kernel-2 conv; odd grid dims are zero-padded up.
     weight: [Cout, Cin, 2, 2, 2]."""
+    x, weight = _cast(x, weight, compute_dtype)
     out = _bxyzc(F.conv3d(_ncdhw(_pad_odd(x)), weight, stride=2))
-    return out * occ_coarse
+    return _mask(out, occ_coarse)
 
 
-# from mask3d_tpu/sparse/dense_ops.py:444 dense_conv_tr
-def dense_conv_tr(x, weight, occ_fine):
+# from mask3d_tpu/sparse/dense_ops.py:444 dense_conv_tr (no bias)
+def dense_conv_tr(x, weight, occ_fine, compute_dtype=None):
     """Transposed stride-2 kernel-2 conv: out[2i+d] = in[i] @ w[d].
     weight: [Cin, Cout, 2, 2, 2]. F.conv_transpose3d meets this contract
     as it is (no kernel flip); odd fine dims drop the overhang."""
+    x, weight = _cast(x, weight, compute_dtype)
     out = F.conv_transpose3d(_ncdhw(x), weight, stride=2)
     fx, fy, fz = occ_fine.shape[1:4]
-    return _bxyzc(out[:, :, :fx, :fy, :fz]) * occ_fine
+    return _mask(_bxyzc(out[:, :, :fx, :fy, :fz]), occ_fine)
 
 
 # from mask3d_tpu/sparse/dense_ops.py:465 dense_instance_norm

@@ -2,8 +2,8 @@
 
 `row_gather(src, idx, ok)` returns `out[b, t] = src[b, clamp(idx[b, t])]`
 where `ok[b, t]`, else 0, in src's dtype. On a CUDA tensor it launches the
-hand-written kernel; on a CPU tensor it runs `row_gather_plain`, the same
-function in plain PyTorch.
+hand-written kernel (an f32 and a bf16 variant); on a CPU tensor it runs
+`row_gather_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -39,29 +39,35 @@ def _check(src, idx, ok):
 
 
 _lib = None
+# dtype -> (C entry point, elements in a 16-byte vector)
+_VARIANTS = {torch.float32: ("row_gather_f32", 4),
+             torch.bfloat16: ("row_gather_bf16", 8)}
 
 
-def _kernel():
+def _kernel(dtype):
     global _lib
     if _lib is None:
         lib = cuda_build.load("row_gather")
-        lib.row_gather_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-            + [ctypes.c_int, ctypes.c_void_p])
-        lib.row_gather_f32.restype = ctypes.c_int
+        for name, _ in _VARIANTS.values():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+                           + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _lib = lib
-    return _lib.row_gather_f32
+    return getattr(_lib, _VARIANTS[dtype][0])
 
 
 def row_gather(src, idx, ok):
-    """src f32[B, N, C], idx i32[B, M], ok bool[B, M] -> f32[B, M, C]."""
+    """src f32 or bf16 [B, N, C], idx i32[B, M], ok bool[B, M] ->
+    [B, M, C] in src's dtype."""
     _check(src, idx, ok)
     if src.device.type == "cpu":
         return row_gather_plain(src, idx, ok)
     if src.device.type != "cuda":
         raise ValueError(f"row_gather: unsupported device {src.device}")
-    if src.dtype != torch.float32:
-        raise TypeError(f"row_gather kernel takes float32, got {src.dtype}")
+    if src.dtype not in _VARIANTS:
+        raise TypeError(f"row_gather kernel takes float32 or bfloat16, got "
+                        f"{src.dtype}")
     if not (src.is_contiguous() and idx.is_contiguous()
             and ok.is_contiguous()):
         raise ValueError("row_gather kernel wants contiguous tensors")
@@ -70,15 +76,20 @@ def row_gather(src, idx, ok):
     out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
     if b * m * c == 0:
         return out
-    vec4 = int(c % 4 == 0 and src.data_ptr() % 16 == 0)
-    fn = _kernel()
+    per_vec = _VARIANTS[src.dtype][1]
+    vec = int(c % per_vec == 0 and src.data_ptr() % 16 == 0)
+    fn = _kernel(src.dtype)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         cuda_build.check(fn(src.data_ptr(), idx.data_ptr(), ok.data_ptr(),
-                            out.data_ptr(), b, m, n, c, vec4, stream),
+                            out.data_ptr(), b, m, n, c, vec, stream),
                          "row_gather")
     row_gather.launches += 1
+    key = str(src.dtype).replace("torch.", "")
+    row_gather.launches_by_dtype[key] = \
+        row_gather.launches_by_dtype.get(key, 0) + 1
     return out
 
 
 row_gather.launches = 0
+row_gather.launches_by_dtype = {}  # "float32" / "bfloat16" -> launches

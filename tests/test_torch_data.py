@@ -119,8 +119,9 @@ def test_device_batch_to_keeps_fields():
         _items(t_make, 2, **SCENES[0]))
     dev = host.device.to("cpu")
     assert dev.grid_dims == host.device.grid_dims
+    assert dev.feats_all_ones is host.device.feats_all_ones is True
     for f in dataclasses.fields(dev):
-        if f.name in ("target", "grid_dims"):
+        if f.name in ("target", "grid_dims", "feats_all_ones"):
             continue
         np.testing.assert_array_equal(getattr(dev, f.name).numpy(),
                                       getattr(host.device, f.name))

@@ -105,16 +105,19 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
             host.device.to("cuda")
 
 
-@pytest.mark.parametrize("override", ["model.compute_dtype=bfloat16",
-                                      "model.pre_norm=true",
-                                      "model.backbone=Res16UNet50"])
+@pytest.mark.parametrize("override", [
+    "model.compute_dtype=float16", "model.pre_norm=true",
+    "model.backbone=Res16UNet50", "model.fold_small_stages=true",
+    "model.backbone_impl=gather_pallas model.compute_dtype=bfloat16",
+    "model.backbone_impl=gather model.pallas_chain=true"])
 def test_build_model_refuses_unported_options(override):
-    """Options the port has not ported raise instead of being ignored."""
+    """Options the port has not ported raise instead of being ignored: the
+    z-folded stages, fp16, and the bf16/int8 stack off the dense path."""
     import mask3d_tpu_torch as mt
     from mask3d_tpu_torch.config import Config, apply_overrides
     from tests.torch_parity import SMALL_OVERRIDES
 
-    cfg = apply_overrides(Config(), SMALL_OVERRIDES + [override])
+    cfg = apply_overrides(Config(), SMALL_OVERRIDES + override.split())
     with pytest.raises(NotImplementedError):
         mt.build_model(cfg, device="cpu")
 
@@ -122,6 +125,7 @@ def test_build_model_refuses_unported_options(override):
 def test_kernel_wrappers_take_plain_versions_on_cpu():
     """A CPU tensor takes the plain version and counts no launch."""
     from mask3d_tpu_torch.ops import masked_attention as ma
+    from mask3d_tpu_torch.sparse import int8_conv as ic
     from mask3d_tpu_torch.sparse import row_gather as rg
 
     rng = np.random.default_rng(0)
@@ -133,14 +137,27 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     ok = torch.tensor(rng.random((1, 12)) < 0.7)
     n_attn = ma.masked_cross_attention.launches
     n_gather = rg.row_gather.launches
+    n_int8 = ic.int8_conv.launches
     torch.testing.assert_close(
         ma.masked_cross_attention(q, k, k, mask, 2),
         ma.masked_cross_attention_plain(q, k, k, mask, 2), rtol=0, atol=0)
-    torch.testing.assert_close(rg.row_gather(src, idx, ok),
-                               rg.row_gather_plain(src, idx, ok),
-                               rtol=0, atol=0)
+    for dt in (torch.float32, torch.bfloat16):
+        got = rg.row_gather(src.to(dt), idx, ok)
+        assert got.dtype == dt
+        assert torch.equal(got, rg.row_gather_plain(src.to(dt), idx, ok))
+    occ = torch.tensor(rng.random((1, 3, 4, 5, 1)) < 0.5).float()
+    x = (torch.tensor(rng.normal(size=(1, 3, 4, 5, 8))) * occ).bfloat16()
+    wq = torch.tensor(rng.integers(-127, 128, (27, 8, 4)), dtype=torch.int8)
+    sw = torch.full((4,), 1e-3)
+    a = torch.ones(1, 8)
+    kw = dict(A=a, Bc=a * 0.1, inv=torch.full((8,), 20.0), stats=True)
+    got = ic.int8_conv(x, occ, wq, sw, "affine", **kw)
+    ref = ic.int8_conv_plain(x, occ, wq, sw, "affine", **kw)
+    assert torch.equal(got.out, ref.out) and torch.equal(got.stats,
+                                                         ref.stats)
     assert ma.masked_cross_attention.launches == n_attn
     assert rg.row_gather.launches == n_gather
+    assert ic.int8_conv.launches == n_int8
 
 
 @pytest.mark.parametrize("bad", ["mask_dtype", "mask_shape", "idx_dtype",
@@ -190,5 +207,6 @@ def test_kernels_match_plain_versions_on_the_card():
         idx = torch.randint(-3, 505, (2, 300), device="cuda",
                             generator=gen).int()
         ok = torch.rand(2, 300, device="cuda", generator=gen) < 0.8
-        assert torch.equal(rg.row_gather(src, idx, ok),
-                           rg.row_gather_plain(src, idx, ok))
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(rg.row_gather(src.to(dt), idx, ok),
+                               rg.row_gather_plain(src.to(dt), idx, ok))
