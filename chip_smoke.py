@@ -15,7 +15,11 @@ beside this script. Phases:
    with indices from a real collated batch at C in {3, 96, 128, 256} in
    f32 and at the bf16 taps C in {96, 128, 256} (bitwise equal). Each is
    timed beside its plain version, a PyTorch library call that computes
-   the same function where there is one, and its bound.
+   the same function where there is one, and its bound (the row gather
+   and the sparse conv by CUDA-graph replay: device time without the
+   host's per-call cost, the eager per-call time beside it). The row gather
+   fails its phase at a tap where it is slower than `index_select` by more
+   than the spread of two timings.
 3. The main path: 8 synthetic scenes collated at bucket 49152, the flagship
    Mask3D + Res16UNet34C (fp32, seeded random weights) through `infer`,
    with the kernels' launch counts read around that one forward
@@ -34,9 +38,11 @@ beside this script. Phases:
    per (N, K, Cin, Cout) in that counted `gather_pallas` forward; the
    kernel is then held against its plain version at each of those shapes,
    on the batch's kernel map of that N and K (max |err| / max(1, std) <=
-   1e-4). Two faults planted at run time (one kernel offset dropped in
-   every same-stride conv; the pooled pyramid summing instead of
-   averaging) must each fail both paths' gates. Then `gather_pallas` at a
+   1e-4, a second launch bitwise equal to the first), with its share of
+   ok pairs, ms, bound, ms / bound and the forward's sums. Two faults
+   planted at run time (one kernel offset dropped in every same-stride
+   conv; the pooled pyramid summing instead of averaging) must each fail
+   both paths' gates. Then `gather_pallas` at a
    small width and bucket 1024, card against CPU: backbone maps within the
    JAX package's bf16 bounds (outputs printed).
 5. The JAX bench's inference stack on `dense` (`profile_forward.CONFIGS`),
@@ -135,19 +141,19 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(torch, fn):
+    """Mean device ms per call, from 20 calls captured in a CUDA graph and
+    replayed (`profile_forward.graph_ms`): the host's per-call cost left
+    out."""
+    from mask3d_tpu_torch.profile_forward import graph_ms
+
+    return graph_ms(fn)
+
+
 def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def flagship_items(make_synthetic_scene, np, seed):
-    """The bench's scenes: 3x2 rooms of 36, height 18, two floors."""
-    rng = np.random.default_rng(seed)
-    return [make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
-                                 room_size=36, height=18, jitter=0.3,
-                                 dropout=0.2, multi_floor=True)
-            for _ in range(8)]
 
 
 def check_attention(torch, F, ma):
@@ -199,7 +205,11 @@ def check_attention(torch, F, ma):
 def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
                  taps=GATHER_C):
     """Kernel vs plain with idx/ok from a real batch's static keys, in f32
-    or bf16 rows."""
+    or bf16 rows. The kernel and `index_select` on the same rows are each
+    timed twice (device time), in turns; `fast` holds where the kernel's
+    mean time over index_select's is at most 1 + the spread of two timings:
+    the larger relative gap between one call's two readings, measured here
+    and printed beside the ratio (PERF.md keeps its readings)."""
     from mask3d_tpu_torch.sparse.context import build_sparse_batch
 
     dtype = dtype or torch.float32
@@ -226,22 +236,41 @@ def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
         flat = src.view(b * cells, c)
         fidx = (idx.long() + torch.arange(b, device="cuda")[:, None]
                 * cells).view(-1)
+
+        def kernel():
+            return time_graph_ms(torch, lambda: rg.row_gather(src, idx, ok))
+
+        def library():
+            return time_graph_ms(torch, lambda: flat.index_select(0, fidx))
+
+        k1, l1, l2, k2 = kernel(), library(), library(), kernel()
+        spread = max(abs(k1 - k2) / min(k1, k2), abs(l1 - l2) / min(l1, l2))
         row = dict(
             C=c, level=li, rows=b * m, dtype=str(dtype)[6:], equal=equal,
             max_abs_err=(got.float() - ref.float()).abs().max().item(),
-            ms=time_ms(torch, lambda: rg.row_gather(src, idx, ok)),
+            ms=(k1 + k2) / 2,
+            eager_ms=time_ms(torch, lambda: rg.row_gather(src, idx, ok)),
             plain_ms=time_ms(torch, lambda: rg.row_gather_plain(
                 src, idx, ok)),
-            library_ms=time_ms(torch, lambda: flat.index_select(0, fidx)),
+            library_ms=(l1 + l2) / 2,
+            library_eager_ms=time_ms(
+                torch, lambda: flat.index_select(0, fidx)),
+            timing_spread=spread,
         )
+        row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        row["fast"] = row["ratio_to_library"] <= 1.0 + spread
         n_ok = int(ok.sum())
         nbytes = b * m * 5 + n_ok * c * esize + b * m * c * esize
         row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
         log(f"row_gather {row['dtype']} C={c} level {li} rows {b * m}: "
             f"bitwise equal "
             f"{equal} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
-            f"ms index_select {row['library_ms']:.4f} ms bound "
-            f"{row['bound_ms']:.4f} ms")
+            f"ms index_select {row['library_ms']:.4f} ms (kernel / "
+            f"index_select {row['ratio_to_library']:.3f}, timing spread "
+            f"{spread:.3f}, fast {row['fast']}) bound "
+            f"{row['bound_ms']:.4f} ms; eager per call: kernel "
+            f"{row['eager_ms']:.4f} ms index_select "
+            f"{row['library_eager_ms']:.4f} ms")
         rows.append(row)
     return rows
 
@@ -258,8 +287,11 @@ def kernel_map(sb, n, k):
 
 def check_sparse_conv(torch, sc, sb, shape_launches):
     """Kernel vs plain at each (N, K, Cin, Cout) the counted forward
-    launched, on the real batch's kernel map of that N and K; returns
-    per-shape rows."""
+    launched, on the real batch's kernel map of that N and K, and a second
+    launch on the same input, which must be bitwise equal to the first;
+    returns per-shape rows with the share of (row, offset) pairs ok and of
+    (16-row m-fragment, offset) pairs with an ok row (the kernel's unit of
+    work), ms, bound and ms / bound."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     for (n, k, cin, cout), n_launch in sorted(
@@ -271,16 +303,25 @@ def check_sparse_conv(torch, sc, sb, shape_launches):
         w = torch.randn(k, cin, cout, device="cuda", generator=gen) / (
             k * cin) ** 0.5
         got = sc.sparse_conv(feats, w, idx, ok)
+        again = sc.sparse_conv(feats, w, idx, ok)
         ref = sc.sparse_conv_plain(feats, w, idx, ok)
         torch.cuda.synchronize()
+        repeat = bool(torch.equal(got, again))
         err = (got - ref).abs().max().item()
         scaled = err / max(1.0, ref.std().item())
         n_ok = int(ok.sum())
+        frag_live = ok.reshape(-1, 16, k).any(dim=1).float().mean().item()
         row = dict(
             level=level, N=n, K=k, Cin=cin, Cout=cout, launches=n_launch,
-            rows=b * n, ok_pairs=n_ok, max_abs_err=err, scaled_err=scaled,
-            ok=bool(torch.isfinite(got).all()) and scaled <= SPCONV_TOL,
-            ms=time_ms(torch, lambda: sc.sparse_conv(feats, w, idx, ok)),
+            rows=b * n, ok_pairs=n_ok, ok_share=n_ok / (b * n * k),
+            fragment_share=frag_live, max_abs_err=err, scaled_err=scaled,
+            repeat_equal=repeat,
+            ok=bool(torch.isfinite(got).all()) and scaled <= SPCONV_TOL
+            and repeat,
+            ms=time_graph_ms(torch, lambda: sc.sparse_conv(
+                feats, w, idx, ok)),
+            eager_ms=time_ms(torch, lambda: sc.sparse_conv(
+                feats, w, idx, ok)),
             plain_ms=time_ms(torch, lambda: sc.sparse_conv_plain(
                 feats, w, idx, ok), iters=3, warmup=1),
             library_ms=None,  # no single PyTorch call is a gather-conv
@@ -289,13 +330,20 @@ def check_sparse_conv(torch, sc, sb, shape_launches):
             b * n * cout * 4
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 2 * n_ok * cin * cout, BF16_FLOPS_PER_S)
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
         log(f"sparse_conv L{level} N={n} K={k} {cin}->{cout} x{n_launch}: "
-            f"max|err| {err:.3g} scaled {scaled:.3g} (tol {SPCONV_TOL}) "
-            f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{n_ok / (b * n * k):.3f} of pairs ok")
+            f"max|err| {err:.3g} scaled {scaled:.3g} (tol {SPCONV_TOL}), "
+            f"second launch bitwise equal {repeat}; kernel {row['ms']:.4f} "
+            f"ms (eager per call {row['eager_ms']:.4f}) plain "
+            f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}), {row['ms_over_bound']:.1f}x; ok pairs "
+            f"{row['ok_share']:.3f}, fragments with an ok row "
+            f"{frag_live:.3f}")
         rows.append(row)
-        del feats, w, got, ref
+        del feats, w, got, again, ref
+    log(f"sparse_conv forward sums (launches x ms): "
+        f"{sum(r['launches'] * r['ms'] for r in rows):.4f} ms, bound "
+        f"{sum(r['launches'] * r['bound_ms'] for r in rows):.4f} ms")
     return rows
 
 
@@ -608,7 +656,7 @@ def main():
         from mask3d_tpu_torch.models.backbone import _GatherCtx
         from mask3d_tpu_torch.ops import masked_attention as ma
         from mask3d_tpu_torch.postprocess import postprocess_item
-        from mask3d_tpu_torch.profile_forward import CONFIGS
+        from mask3d_tpu_torch.profile_forward import CONFIGS, flagship_items
         from mask3d_tpu_torch.sparse import chain as chain_mod
         from mask3d_tpu_torch.sparse import dense_ops, row_gather as rg
         from mask3d_tpu_torch.sparse import int8_conv as ic
@@ -658,7 +706,7 @@ def main():
 
     def collate():
         t = time.perf_counter()
-        host = mt.collate(flagship_items(make_synthetic_scene, np, 0),
+        host = mt.collate(flagship_items(),
                           device="cuda",
                           point_bucket_multiple=BUCKET)
         log(f"collated 8 scenes in {time.perf_counter() - t:.2f} s: "
@@ -679,6 +727,8 @@ def main():
         level_capacities(cfg, host.device.capacity))) or []
     if any(not r["equal"] for r in gather_rows):
         failures.append("row gather kernel disagrees with its plain version")
+    if any(not r["fast"] for r in gather_rows):
+        failures.append("row gather kernel slower than index_select")
     gather16_rows = phase("bf16 row gather kernel vs plain",
                           lambda: check_gather(
                               torch, rg, dense_ops, host.device,
@@ -687,6 +737,8 @@ def main():
     if not gather16_rows or any(not r["equal"] for r in gather16_rows):
         failures.append("bf16 row gather not checked or disagrees with its "
                         "plain version")
+    if any(not r["fast"] for r in gather16_rows):
+        failures.append("bf16 row gather kernel slower than index_select")
 
     cfg_gp = cfg_mod.apply_overrides(
         cfg_mod.Config(), [f"data.point_bucket_multiple={BUCKET}",
@@ -863,8 +915,8 @@ def main():
     spconv_rows = phase("sparse conv kernel vs plain",
                         sparse_conv_check) or []
     if not spconv_rows or any(not r["ok"] for r in spconv_rows):
-        failures.append("sparse conv kernel not checked or disagrees with "
-                        "its plain version")
+        failures.append("sparse conv kernel not checked, disagrees with "
+                        "its plain version or does not repeat bitwise")
 
     def planted_faults():
         """Each fault, patched in at run time and taken out again, must

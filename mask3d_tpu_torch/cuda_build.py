@@ -95,3 +95,20 @@ def check(err: int, what: str):
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def call(fn, device, what: str, *args):
+    """`fn(*args, stream)` with PyTorch's current stream on the CUDA
+    `device` (made the current device for the call where it is not), then
+    `check`. Reads the raw stream handle, which costs the host less than
+    building a `torch.cuda.Stream`."""
+    import torch
+
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)

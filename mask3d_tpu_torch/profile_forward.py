@@ -48,6 +48,43 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
 )
 
 
+def flagship_items(seed: int = 0):
+    """The bench's 8 synthetic scenes: 3x2 rooms of 36, height 18, two
+    floors."""
+    rng = np.random.default_rng(seed)
+    return [make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
+                                 room_size=36, height=18, jitter=0.3,
+                                 dropout=0.2, multi_floor=True)
+            for _ in range(8)]
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Mean device ms per call of `fn`: `iters` calls captured in one CUDA
+    graph and replayed, CUDA events around the replays. Unlike back-to-back
+    eager calls it leaves out the host's per-call cost (Python, dispatch),
+    which exceeds the device time of a small kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def _group(name: str) -> str:
     low = name.lower()
     for group, keys in GROUPS:
@@ -71,12 +108,8 @@ def main(argv=None):
     cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152",
                                      f"model.backbone_impl={args.impl}"]
                           + CONFIGS[args.config])
-    rng = np.random.default_rng(0)
-    items = [make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
-                                  room_size=36, height=18, jitter=0.3,
-                                  dropout=0.2, multi_floor=True)
-             for _ in range(8)]
-    host = mt.collate(items, device="cuda", point_bucket_multiple=49152)
+    host = mt.collate(flagship_items(), device="cuda",
+                      point_bucket_multiple=49152)
     model = mt.build_model(cfg, device="cuda", seed=0)
     for _ in range(2):
         mt.infer(model, host.device, cfg)

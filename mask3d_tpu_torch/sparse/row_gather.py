@@ -39,16 +39,16 @@ def _check(src, idx, ok):
 
 
 _lib = None
-# dtype -> (C entry point, elements in a 16-byte vector)
-_VARIANTS = {torch.float32: ("row_gather_f32", 4),
-             torch.bfloat16: ("row_gather_bf16", 8)}
+# dtype -> (C entry point, elements in a 16-byte vector, count key)
+_VARIANTS = {torch.float32: ("row_gather_f32", 4, "float32"),
+             torch.bfloat16: ("row_gather_bf16", 8, "bfloat16")}
 
 
 def _kernel(dtype):
     global _lib
     if _lib is None:
         lib = cuda_build.load("row_gather")
-        for name, _ in _VARIANTS.values():
+        for name, _, _ in _VARIANTS.values():
             fn = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
                            + [ctypes.c_int, ctypes.c_void_p])
@@ -76,16 +76,12 @@ def row_gather(src, idx, ok):
     out = torch.empty((b, m, c), dtype=src.dtype, device=src.device)
     if b * m * c == 0:
         return out
-    per_vec = _VARIANTS[src.dtype][1]
+    _, per_vec, key = _VARIANTS[src.dtype]
     vec = int(c % per_vec == 0 and src.data_ptr() % 16 == 0)
-    fn = _kernel(src.dtype)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        cuda_build.check(fn(src.data_ptr(), idx.data_ptr(), ok.data_ptr(),
-                            out.data_ptr(), b, m, n, c, vec, stream),
-                         "row_gather")
+    cuda_build.call(_kernel(src.dtype), src.device, "row_gather",
+                    src.data_ptr(), idx.data_ptr(), ok.data_ptr(),
+                    out.data_ptr(), b, m, n, c, vec)
     row_gather.launches += 1
-    key = str(src.dtype).replace("torch.", "")
     row_gather.launches_by_dtype[key] = \
         row_gather.launches_by_dtype.get(key, 0) + 1
     return out

@@ -4,9 +4,17 @@
 `out[b, p] = sum_k ok[b, p, k] * bf16(feats[b, idx[b, p, k]]) @ bf16(W[k])`
 with f32 products and accumulation: the function of the JAX package's
 windowed Pallas conv (`sparse/pallas_conv.py`). On a CUDA tensor it
-launches the hand-written kernel and adds one to `sparse_conv.launches`
-and to `sparse_conv.launches_by_shape[(N, K, Cin, Cout)]`; on a CPU tensor
-it runs `sparse_conv_plain`, the same arithmetic in plain PyTorch.
+launches the hand-written tensor-core kernel and adds one to
+`sparse_conv.launches` and to `sparse_conv.launches_by_shape[(N, K, Cin,
+Cout)]`; on a CPU tensor it runs `sparse_conv_plain`, the same arithmetic in
+plain PyTorch.
+
+The kernel's launch shape comes from `plan()`, host-side and tested on the
+CPU: bf16 rows padded to 16 channels (`bf16_rows`), or, for Cin = 1, the
+offsets folded into the reduction depth; the output-channel width of a
+block; 64- or 128-row tiles; and a split of each tile's active offsets
+over several blocks (split-K) where few tiles would otherwise fill the
+card.
 
 Which levels take it is the model's numerics, not a fallback: the backbone
 sends a level here only where `supports(N)` holds (the JAX eligibility
@@ -17,11 +25,27 @@ any N and Cin.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from mask3d_tpu_torch import cuda_build
 from mask3d_tpu_torch.sparse import ops
+
+# 128-row tiles where a launch has at least this many of them, else 64
+WIDE_TILES = 1024
+# split-K: a call of R < SPLIT_BELOW rows (B * N) takes ceil(SPLIT_ROWS /
+# R) splits, at most MAX_SPLITS and at least three offsets a split. The
+# flagship's coarse levels (L3, L4: 6144 and 3072 rows an item) hold a few
+# hundred valid rows in that capacity, so only split blocks fill the card.
+# These constants and WIDE_TILES come from `tune_sparse_conv.py`, which
+# times 64- and 128-row tiles x 1-6 splits at the flagship's 16 shapes
+# (PERF.md).
+SPLIT_BELOW = 65536
+SPLIT_ROWS = 3 * 49152
+MAX_SPLITS = 6
 
 
 # from mask3d_tpu/sparse/pallas_conv.py:374 supports
@@ -35,6 +59,64 @@ def sparse_conv_plain(feats, weight, nbr_idx, nbr_ok):
     """bf16-round feats and weight, then the fp32 gather-matmul conv."""
     return ops.sparse_conv(feats.to(torch.bfloat16).float(),
                            weight.to(torch.bfloat16).float(), nbr_idx, nbr_ok)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel runs one call. `depth`: channels of a bf16 row (Cin
+    padded to 16) or, folded, the offsets padded to 16; `tn`: output
+    channels a block (Cout padded to `cout_pad`, a multiple of it); `warps`:
+    16-row m-fragments a block; `splits`: blocks sharing a tile's active
+    offsets."""
+
+    folded: bool
+    depth: int
+    tn: int
+    cout_pad: int
+    warps: int
+    splits: int
+
+    @property
+    def tile_rows(self) -> int:
+        return 16 * self.warps
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, n: int, k: int, cin: int, cout: int) -> Plan:
+    """The launch shape of one call (see the module docstring)."""
+    folded = cin == 1
+    depth = _round_up(k if folded else cin, 16)
+    tn = next((t for t in (32, 64, 96) if cout <= t), 128)
+    cout_pad = _round_up(cout, tn)
+    rows = b * n
+    warps = 8 if -(-rows // 128) * (cout_pad // tn) >= WIDE_TILES else 4
+    splits = 1
+    if not folded and rows < SPLIT_BELOW:
+        splits = max(1, min(MAX_SPLITS, k // 3, -(-SPLIT_ROWS // rows)))
+    return Plan(folded, depth, tn, cout_pad, warps, splits)
+
+
+def bf16_rows(feats, depth: int):
+    """f32 [B, N, Cin] -> contiguous bf16 [B, N, depth], zero past Cin."""
+    x = feats.to(torch.bfloat16)
+    if depth != x.shape[-1]:
+        x = F.pad(x, (0, depth - x.shape[-1]))
+    return x.contiguous()
+
+
+def bf16_weights(weight, p: Plan):
+    """[K, Cin, Cout] -> bf16 [K, depth, cout_pad] (folded: [depth,
+    cout_pad]), zero padded."""
+    k, cin, cout = weight.shape
+    w = weight.to(torch.bfloat16)
+    if p.folded:
+        w = w.reshape(k, cout)
+        return F.pad(w, (0, p.cout_pad - cout, 0, p.depth - k)).contiguous()
+    return F.pad(w, (0, p.cout_pad - cout, 0, p.depth - cin)).contiguous()
 
 
 def _check(feats, weight, nbr_idx, nbr_ok):
@@ -66,12 +148,17 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = cuda_build.load("sparse_conv")
-        lib.sparse_conv_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.sparse_conv_f32.restype = ctypes.c_int
+        lib.sparse_conv_bf16.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.sparse_conv_bf16.restype = ctypes.c_int
         _lib = lib
-    return _lib.sparse_conv_f32
+    return _lib.sparse_conv_bf16
+
+
+def _aligned(t):
+    """t itself, or a copy where its data is not 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def sparse_conv(feats, weight, nbr_idx, nbr_ok):
@@ -93,17 +180,29 @@ def sparse_conv(feats, weight, nbr_idx, nbr_ok):
         raise ValueError("sparse_conv kernel wants contiguous tensors")
     b, n, cin = feats.shape
     k, _, cout = weight.shape
-    w16 = weight.to(torch.bfloat16).contiguous()
+    if k > 255:
+        raise ValueError(f"sparse_conv kernel takes at most 255 offsets, "
+                         f"got {k}")
     out = torch.empty((b, n, cout), dtype=torch.float32, device=feats.device)
     if b * cout == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        cuda_build.check(fn(feats.data_ptr(), w16.data_ptr(),
-                            nbr_idx.data_ptr(), nbr_ok.data_ptr(),
-                            out.data_ptr(), b, n, k, cin, cout, stream),
-                         "sparse_conv")
+    p = plan(b, n, k, cin, cout)
+    rows16 = bf16_rows(feats, 1 if p.folded else p.depth)
+    w16 = bf16_weights(weight, p)
+    idx, ok = _aligned(nbr_idx), _aligned(nbr_ok)
+    part = live = None
+    if p.splits > 1:
+        # touched only for tiles with an ok row
+        part = torch.empty((p.splits, b * n, cout), dtype=torch.float32,
+                           device=feats.device)
+        live = torch.empty(-(-b * n // p.tile_rows), dtype=torch.int32,
+                           device=feats.device)
+    cuda_build.call(
+        _kernel(), feats.device, "sparse_conv", rows16.data_ptr(),
+        w16.data_ptr(), idx.data_ptr(), ok.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(),
+        0 if live is None else live.data_ptr(), b * n, n, k, p.depth,
+        p.cout_pad, cout, p.tn, p.warps, p.splits, int(p.folded))
     sparse_conv.launches += 1
     key = (n, k, cin, cout)
     sparse_conv.launches_by_shape[key] = \
