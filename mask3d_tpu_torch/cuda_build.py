@@ -7,8 +7,9 @@ its own shared library, loaded with ctypes:
          -Xcompiler -fPIC -Xptxas=-v -o _build/lib<name>-<hash>.so <name>.cu
 
 The build runs at first CUDA use, from the sources in the package only, into
-`mask3d_tpu_torch/_build/`. The file name carries a hash of the source, so an
-edited kernel is rebuilt. Nothing is built when a module is imported.
+`mask3d_tpu_torch/_build/` (nvcc's temporary files too, in `_build/tmp/`).
+The file name carries a hash of the source, so an edited kernel is rebuilt.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -46,6 +47,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _nvcc_env() -> Dict[str, str]:
+    """The environment of an nvcc run: its temporary files in the build
+    directory, whatever TMPDIR the caller has."""
+    tmp = BUILD_DIR / "tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    return dict(os.environ, TMPDIR=str(tmp))
+
+
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -58,6 +67,7 @@ def build(names: Iterable[str] = KERNELS) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(exist_ok=True)
     procs = {}
+    env = None
     for name in names:
         out = _lib_path(name)
         if out.exists():
@@ -65,9 +75,10 @@ def build(names: Iterable[str] = KERNELS) -> float:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
+        env = env or _nvcc_env()
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, out)
+            text=True, env=env), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -89,6 +100,33 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
     return lib
+
+
+def load_source(source) -> ctypes.CDLL:
+    """A library built from a CUDA source outside `csrc/` (an earlier
+    kernel, for `tune_attention.py --old`), into `_build/` under a hash of
+    the source and flags."""
+    source = Path(source)
+    flags = list(NVCC_FLAGS)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    key = str(out)
+    if key not in _libs:
+        if not out.exists():
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *flags, "-o", str(tmp), str(source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=_nvcc_env())
+            build_logs[str(source)] = proc.stdout
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {source}:\n"
+                                   f"{proc.stdout}")
+            os.replace(tmp, out)
+        _libs[key] = ctypes.CDLL(key)
+    return _libs[key]
 
 
 def check(err: int, what: str):

@@ -4,23 +4,37 @@
 q [B, Q, D], k and v [B, S, D], mask [B, Q, S] bool or uint8 (True or
 nonzero = blocked), and returns softmax(q k^T / sqrt(hd), blocked -> -1e9) v
 as [B, Q, D]. A row with every key blocked gets uniform weights. On a CUDA
-tensor it launches the hand-written kernel; on a CPU tensor it runs
-`masked_cross_attention_plain`, the one-shot softmax in plain PyTorch.
+tensor it launches the hand-written kernel and adds one to
+`masked_cross_attention.launches` and to
+`masked_cross_attention.launches_by_shape[S]` (the key length); on a CPU
+tensor it runs `masked_cross_attention_plain`, the one-shot softmax in
+plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from mask3d_tpu_torch import cuda_build
 
 KERNEL_HEAD_DIMS = (8, 16, 32)
-_TK = 32  # keys per tile in the kernel
-_QG = 32  # queries per block in the kernel
-_TARGET_BLOCKS = 528  # 4 blocks per SM of the H100's 132
+KEYS_PER_SLICE = 16  # keys of a tile each thread takes (the kernel's)
+STAGES = 3  # the kernel's shared-memory ring depth
+MAX_THREADS = 256  # the kernel's launch bound
+# queries a thread by head dim (the kernel's templates; 4 ran 25% faster
+# than 2 at the flagship, tune_attention.py in PERF.md; 1 at hd 32, where
+# the registers would not hold more)
+QUERIES_PER_THREAD = {8: 4, 16: 4, 32: 1}
+SMEM_BYTES = 232448  # shared memory a block can use on the H100
+SMS = 132  # streaming multiprocessors of the H100
+BLOCKS_PER_SM = 1  # the grid the chunk count aims at: one block an SM
+# (tune_attention.py: more, smaller chunks were slower at every S)
 
 
 # from mask3d_tpu/ops/pallas_attention.py:80 _xla_reference
@@ -58,15 +72,61 @@ def _check(q, k, v, mask, num_heads):
                          "devices")
 
 
-def chunking(b: int, nq: int, s: int):
-    """(chunk, n_chunks) of the key axis: enough blocks to fill the card,
-    each chunk a whole number of key tiles."""
-    def cdiv(a, d):
-        return -(-a // d)
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel runs one call: `ksl` key slices a (head, `queries`
+    queries) group of lanes (adjacent lanes; tiles of 16 * ksl keys), `hg`
+    heads a block, `threads` a block, `chunk` keys a block (whole tiles)
+    and `nch` chunks an item."""
 
-    want = max(1, min(cdiv(_TARGET_BLOCKS, b * cdiv(nq, _QG)), cdiv(s, _TK)))
-    chunk = cdiv(cdiv(s, want), _TK) * _TK
-    return chunk, cdiv(s, chunk)
+    ksl: int
+    hg: int
+    threads: int
+    chunk: int
+    nch: int
+    queries: int = 4
+
+    @property
+    def tile(self) -> int:
+        return KEYS_PER_SLICE * self.ksl
+
+
+def _cdiv(a: int, d: int) -> int:
+    return -(-a // d)
+
+
+def smem_bytes(tile: int, width: int, nq: int) -> int:
+    """Shared memory of a block: the ring of K and V tiles [tile][width +
+    4] f32 and the mask tile [nq][tile] u8 (the kernel's stage_bytes)."""
+    return STAGES * (2 * tile * (width + 4) * 4 + _cdiv(nq * tile, 16) * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, nq: int, s: int, num_heads: int, head_dim: int) -> Plan:
+    """The launch shape: QUERIES_PER_THREAD[head_dim] queries a thread,
+    the most key slices (4, 2, 1) and then the most heads a block (a
+    divisor of H) that keep a block within MAX_THREADS threads and the
+    shared memory; then chunks of whole tiles so that the
+    grid holds about SMS * BLOCKS_PER_SM blocks. Raises where no shape
+    fits (Q * 1 thread above MAX_THREADS, or a tile of 16 keys of one head
+    beyond the shared memory)."""
+    nqt = QUERIES_PER_THREAD[head_dim]
+    for ksl in (4, 2, 1):
+        tile = KEYS_PER_SLICE * ksl
+        for hg in range(num_heads, 0, -1):
+            if num_heads % hg:
+                continue
+            threads = _cdiv(hg * _cdiv(nq, nqt) * ksl, 32) * 32
+            if threads <= MAX_THREADS and \
+                    smem_bytes(tile, hg * head_dim, nq) <= SMEM_BYTES:
+                groups = b * (num_heads // hg)
+                tiles = max(1, _cdiv(s, tile))
+                want = max(1, min(tiles, SMS * BLOCKS_PER_SM // groups))
+                chunk = _cdiv(tiles, want) * tile
+                return Plan(ksl, hg, threads, chunk, _cdiv(max(s, 1), chunk),
+                            nqt)
+    raise ValueError(f"masked_cross_attention kernel: no launch shape fits "
+                     f"Q={nq}, H={num_heads}, hd={head_dim}")
 
 
 _lib = None
@@ -77,7 +137,7 @@ def _kernel():
     if _lib is None:
         lib = cuda_build.load("masked_attention")
         lib.masked_cross_attention_f32.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
             + [ctypes.c_float, ctypes.c_void_p])
         lib.masked_cross_attention_f32.restype = ctypes.c_int
         _lib = lib
@@ -98,9 +158,9 @@ def masked_cross_attention(q, k, v, mask, num_heads: int):
     if q.dtype != torch.float32 or k.dtype != torch.float32 \
             or v.dtype != torch.float32:
         raise TypeError("masked_cross_attention kernel takes float32")
-    if hd not in KERNEL_HEAD_DIMS or num_heads > 16:
-        raise ValueError(f"kernel supports head dims {KERNEL_HEAD_DIMS} and "
-                         f"at most 16 heads, got hd={hd}, h={num_heads}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"kernel supports head dims {KERNEL_HEAD_DIMS}, got "
+                         f"hd={hd}")
     if not all(t.is_contiguous() for t in (q, k, v, mask)):
         raise ValueError("masked_cross_attention kernel wants contiguous "
                          "tensors")
@@ -110,23 +170,27 @@ def masked_cross_attention(q, k, v, mask, num_heads: int):
     out = torch.empty_like(q)
     if b * nq * s == 0:
         return out
-    chunk, nch = chunking(b, nq, s)
-    part_ml = torch.empty((2, b, nch, num_heads, nq), dtype=torch.float32,
+    p = plan(b, nq, s, num_heads, hd)
+    part_ml = torch.empty((2, b, p.nch, num_heads, nq), dtype=torch.float32,
                           device=q.device)
-    part_acc = torch.empty((b, nch, num_heads, nq, hd), dtype=torch.float32,
-                           device=q.device)
+    part_acc = torch.empty((b, p.nch, num_heads, nq, hd),
+                           dtype=torch.float32, device=q.device)
     m8 = mask.view(torch.uint8) if mask.dtype == torch.bool else mask
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        cuda_build.check(
-            fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m8.data_ptr(),
-               part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-               part_acc.data_ptr(), out.data_ptr(), b, nq, s, num_heads, hd,
-               chunk, nch, 1.0 / math.sqrt(hd), stream),
-            "masked_cross_attention")
+    if s % 16:  # the kernel copies mask rows in 16-byte pieces
+        m8 = F.pad(m8, (0, 16 - s % 16), value=1)
+    elif m8.data_ptr() % 16:
+        m8 = m8.clone()
+    cuda_build.call(
+        _kernel(), q.device, "masked_cross_attention", q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), m8.data_ptr(), part_ml[0].data_ptr(),
+        part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, nq, s,
+        m8.shape[-1], num_heads, hd, p.ksl, p.queries, p.hg, p.threads,
+        p.chunk, p.nch, 1.0 / math.sqrt(hd))
     masked_cross_attention.launches += 1
+    masked_cross_attention.launches_by_shape[s] = \
+        masked_cross_attention.launches_by_shape.get(s, 0) + 1
     return out
 
 
 masked_cross_attention.launches = 0
+masked_cross_attention.launches_by_shape = {}  # key length S -> launches

@@ -17,9 +17,11 @@ with `mode` one of
   returned as `yq` too (a chain's junction).
 Options: a second 1x1 output from the centre tap (`wdq`, `swd`, mode
 "none") and `stats`, the per-(item, channel) sum and sum of squares of each
-output after its cast ([B, 2 or 4, Cout]).
+output after its cast ([B, 2 or 4, Cout]; the kernel adds them in an order
+fixed by the plan, so they repeat bitwise from launch to launch).
 
-On a CUDA tensor it launches the hand-written kernel and adds one to
+On a CUDA tensor it launches the hand-written tensor-core kernel, in the
+launch shape `plan()` picks (host-side, tested on the CPU), and adds one to
 `int8_conv.launches`, to `int8_conv.launches_by_step[step]` and to
 `int8_conv.launches_by_shape[((X, Y, Z), Cin, Cout, k, step)]`, where the
 step is "conv" (mode none, no stats), "entry" (mode none with stats),
@@ -32,7 +34,10 @@ as a float64 `F.conv3d` of the integer values, which is exact
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+import functools
+import itertools
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +46,23 @@ from mask3d_tpu_torch import cuda_build
 
 MODES = ("none", "affine", "join")
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
-_LANE_TILE = 32  # the kernel's channel stage and output-channel tile
+# the kernel's warps a block, weight ring depth and fragments a warp: the
+# plan takes one fragment a warp (128 registers, two blocks an SM) except
+# for the 3^3 convs wider than 96 outputs, which take two
+# (tune_int8_conv.py)
+WARPS, STAGES = 8, 3
+FRAGS_PER_WARP = (1, 2)
+SMEM_BYTES = 232448  # shared memory a block can use on the H100
+SMS = 132  # streaming multiprocessors of the H100
+# the kernel's 16-cell fragment (x, y, z): the flattest shape leaves the
+# fewest fragments with an occupied cell on the flagship's fine levels
+FRAG = (4, 4, 1)
+STAGE_BYTES = 16384  # the most weight bytes a ring stage holds (>= 1 chunk)
+# split the stages of each tile over blocks where the grid has fewer tiles
+# than the card has SMs: about one block an SM, at least MIN_SPLIT_STAGES
+# stages a split, at most MAX_SPLITS splits (tune_int8_conv.py)
+MIN_SPLIT_STAGES = 4
+MAX_SPLITS = 16
 
 
 class Int8ConvOut(NamedTuple):
@@ -170,6 +191,196 @@ def _check(x, occ, wq, sw, mode, A, Bc, inv, res, Ar, Br, wdq, swd,
         raise ValueError("int8_conv: tensors on different devices")
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _cdiv(a: int, d: int) -> int:
+    return -(-a // d)
+
+
+def conflict_free(ys: int, xs: int) -> bool:
+    """Whether the 8 rows of each ldmatrix phase of a fragment (rows 0-7
+    and 8-15, row = (ix * fy + iy) * fz + iz) fall in distinct 16-byte
+    bank groups: their halo positions ix * xs + iy * ys + iz are distinct
+    mod 8 (a shift by a tap or a fragment origin keeps that)."""
+    fx, fy, fz = FRAG
+    pos = [ix * xs + iy * ys + iz for ix in range(fx) for iy in range(fy)
+           for iz in range(fz)]
+    return all(len({p % 8 for p in pos[m:m + 8]}) == 8 for m in (0, 8))
+
+
+def halo_strides(hy: int, hz: int) -> Tuple[int, int]:
+    """(ys, xs): the least y and x strides of a halo position, at least
+    hz and hy * ys, that keep the fragment's ldmatrix phases free of bank
+    conflicts."""
+    for ys in range(hz, hz + 8):
+        for xs in range(hy * ys, hy * ys + 8):
+            if conflict_free(ys, xs):
+                return ys, xs
+    raise ValueError(f"no conflict-free halo strides for a {hy}x{hz} halo")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel runs one call: `tile_frags` FRAG fragments a tile per
+    axis, `ys`/`xs`/`npos` the halo's position strides and count, `kcs`
+    32-channel chunks a weight stage, `splits` blocks sharing a tile's
+    (tap, chunk) stages, `nt` n-tiles of 8 channels a warp (12 or 16),
+    `cin_p`/`cout_p` the padded widths, `smem` the block's shared memory,
+    `mf` fragments a warp."""
+
+    tile_frags: Tuple[int, int, int]
+    ys: int
+    xs: int
+    npos: int
+    kcs: int
+    splits: int
+    nt: int
+    cin_p: int
+    cout_p: int
+    smem: int
+    mf: int = 1
+
+    @property
+    def tile(self) -> Tuple[int, int, int]:
+        return tuple(f * g for f, g in zip(FRAG, self.tile_frags))
+
+    def tiles(self, dims) -> int:
+        """Tiles of one item's grid."""
+        t = self.tile
+        return _cdiv(dims[0], t[0]) * _cdiv(dims[1], t[1]) * \
+            _cdiv(dims[2], t[2])
+
+    def stat_parts(self, dims) -> int:
+        """The kernel's slots of partial sums for the stats of one item:
+        one a tile, or, when split, one per 32 cells of the epilogue."""
+        if self.splits == 1:
+            return self.tiles(dims)
+        return _cdiv(dims[0] * dims[1] * dims[2], 32)
+
+    def args(self):
+        """The kernel's plan array."""
+        return (ctypes.c_int * 10)(*self.tile_frags, self.ys, self.xs,
+                                    self.npos, self.kcs, self.splits,
+                                    self.nt, self.mf)
+
+
+def smem_bytes(cin_p, cout_p, npos, kcs, cells, nfrag, prologue,
+               out_f32=False) -> int:
+    """The kernel's shared memory (its smem_layout): halo, weight ring (or,
+    after the main loop, the tile's staged output rows where larger),
+    prologue constants, tile occupancy and live flags."""
+    staged = cells * (_round_up(cout_p * (4 if out_f32 else 2), 16) + 16)
+    return (cin_p * npos + max(STAGES * kcs * cout_p * 32, staged)
+            + (5 * cin_p * 4 if prologue else 0)
+            + _round_up(cells, 16) + _round_up(nfrag, 16))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, dims: Tuple[int, int, int], cin: int, cout: int, k: int,
+         mode: str = "none", mf: Optional[int] = None,
+         out_f32: bool = False) -> Plan:
+    """The launch shape of one call on a [b, *dims, cin] grid: the output
+    channels a warp (16 n-tiles of 8, or 12 at Cout <= 96 and where 16 do
+    not split Cout over a divisor of the 8 warps, as at 384; every channel
+    in the block); the fragments a warp (`mf`, default as FRAGS_PER_WARP's
+    note says); the tile, among the splits of the block's fragments over
+    x, y, z, that computes and loads the fewest cells over the grid
+    (ragged tiles and halos counted) and fits the shared memory; weight
+    stages of at most STAGE_BYTES; and where the grid has fewer tiles than
+    the card has SMs, a split of each tile's stages over blocks (see
+    MIN_SPLIT_STAGES)."""
+    if cout <= 96:
+        cout_p, nt = 96, 12
+    else:
+        cout_p, nt = _round_up(cout, 128), 16
+        if WARPS % (cout_p // (8 * nt)):
+            cout_p, nt = _round_up(cout, 96), 12
+    nr = cout_p // (8 * nt)
+    if WARPS % nr:
+        raise ValueError(f"int8_conv kernel: Cout {cout} is too wide")
+    if mf is None:  # the default, or one fragment a warp where the
+        # default's tile does not fit
+        try:
+            return plan(b, dims, cin, cout, k, mode,
+                        2 if cout > 96 and k == 3 else 1, out_f32)
+        except ValueError:
+            mf = 1
+    nfrag = WARPS // nr * mf
+    cin_p = _round_up(cin, 32)
+    nkc = cin_p // 32
+    best = None
+    for kcs in range(max(1, min(nkc, STAGE_BYTES // (cout_p * 32))), 0, -1):
+        for g in itertools.product(range(1, nfrag + 1), repeat=3):
+            if g[0] * g[1] * g[2] != nfrag:
+                continue
+            tile = [f * n for f, n in zip(FRAG, g)]
+            hx, hy, hz = (t + k - 1 for t in tile)
+            ys, xs = halo_strides(hy, hz)
+            npos = (hx - 1) * xs + (hy - 1) * ys + hz
+            smem = smem_bytes(cin_p, cout_p, npos, kcs, nfrag * 16, nfrag,
+                              mode != "none", out_f32)
+            if smem > SMEM_BYTES:
+                continue
+            ntiles = 1
+            for d, t in zip(dims, tile):
+                ntiles *= _cdiv(d, t)
+            cost = ntiles * (nfrag * 16 + hx * hy * hz)
+            if best is None or cost < best[0]:
+                best = (cost, g, ys, xs, npos, smem, ntiles, kcs)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"int8_conv kernel: no tile of {nfrag} fragments "
+                         f"fits {cin}->{cout}")
+    _, g, ys, xs, npos, smem, ntiles, kcs = best
+    stages = k ** 3 * _cdiv(nkc, kcs)
+    splits = 1
+    if b * ntiles < SMS:
+        splits = max(1, min(MAX_SPLITS, stages // MIN_SPLIT_STAGES,
+                            _cdiv(SMS, b * ntiles)))
+    return Plan(g, ys, xs, npos, kcs, splits, nt, cin_p, cout_p, smem, mf)
+
+
+def live_fragment_share(occ) -> float:
+    """The share of the kernel's fragments (FRAG, laid from the grid's
+    origin) that hold an occupied cell of occ [B, X, Y, Z, 1]: its unit of
+    work."""
+    o = occ[..., 0] > 0.5
+    b = o.shape[0]
+    fx, fy, fz = FRAG
+    pads = [_round_up(d, f) for d, f in zip(o.shape[1:], FRAG)]
+    full = torch.zeros((b, *pads), dtype=torch.bool, device=o.device)
+    full[:, :o.shape[1], :o.shape[2], :o.shape[3]] = o
+    f = full.view(b, pads[0] // fx, fx, pads[1] // fy, fy, pads[2] // fz,
+                  fz)
+    return float(f.any(dim=6).any(dim=4).any(dim=2).float().mean())
+
+
+def pack_weights(wq, cin_p: int, cout_p: int):
+    """int8 [K, Cin, Cout] -> the kernel's B fragments, int32 [K, CinP/32,
+    CoutP/16, 32, 4], zero padded: word j of lane l = 4 * gid + tig holds,
+    for n-tile 2 * n16 + j // 2 and output column 8 * that + gid, the input
+    channels 32 * k32 + 16 * (j % 2) + 4 * tig + (0..3) in bytes 0..3
+    (mma.m16n8k32's b0 / b1)."""
+    k, cin, cout = wq.shape
+    wp = torch.zeros((k, cin_p, cout_p), dtype=torch.int8, device=wq.device)
+    wp[:, :cin, :cout] = wq
+    v = wp.view(k, cin_p // 32, 2, 4, 4, cout_p // 16, 2, 8)
+    # dims: tap, k32, which (b0/b1), tig, byte, n16, n-tile in pair, gid
+    words = v.permute(0, 1, 5, 7, 3, 6, 2, 4).contiguous()
+    return words.view(torch.int32).view(k, cin_p // 32, cout_p // 16, 32, 4)
+
+
+def unpack_weights(words, cin: int, cout: int):
+    """The inverse of `pack_weights`: int8 [K, Cin, Cout]."""
+    k, kc, n16 = words.shape[:3]
+    v = words.contiguous().view(torch.int8).view(k, kc, n16, 8, 4, 2, 2, 4)
+    wp = v.permute(0, 1, 6, 4, 7, 2, 5, 3).reshape(k, kc * 32, n16 * 16)
+    return wp[:, :cin, :cout]
+
+
 _lib = None
 
 
@@ -177,26 +388,12 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = cuda_build.load("int8_conv")
-        lib.int8_conv.argtypes = ([ctypes.c_void_p] * 16
-                                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+        lib.int8_conv.argtypes = ([ctypes.c_void_p] * 19
+                                  + [ctypes.c_int] * 12
+                                  + [ctypes.c_void_p] * 2)
         lib.int8_conv.restype = ctypes.c_int
         _lib = lib
     return _lib.int8_conv
-
-
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def pack_weights(wq, cin_p: int, cout_p: int):
-    """int8 [K, Cin, Cout] -> the kernel's int32 [K, CinP/4, CoutP]: words
-    of 4 consecutive input channels (channel 4g + j in byte j), zero
-    padded to CinP and CoutP."""
-    k, cin, cout = wq.shape
-    wp = torch.zeros((k, cin_p, cout_p), dtype=torch.int8, device=wq.device)
-    wp[:, :cin, :cout] = wq
-    words = wp.view(k, cin_p // 4, 4, cout_p).permute(0, 1, 3, 2)
-    return words.contiguous().view(torch.int32).view(k, cin_p // 4, cout_p)
 
 
 def int8_conv(x, occ, wq, sw, mode="none", *, A=None, Bc=None, inv=None,
@@ -219,19 +416,23 @@ def int8_conv(x, occ, wq, sw, mode="none", *, A=None, Bc=None, inv=None,
                         f"got {x.dtype}")
     b, gx, gy, gz, cin = x.shape
     kvol, _, cout = wq.shape
-    if cin % 4:
-        raise ValueError(f"int8_conv kernel needs Cin % 4 == 0, got {cin}")
+    if cin % 16 or cout % 2:
+        raise ValueError(f"int8_conv kernel needs Cin % 16 == 0 and Cout % 2 "
+                         f"== 0, got {cin}, {cout}")
     if not (x.is_contiguous() and (res is None or res.is_contiguous())
-            and x.data_ptr() % 16 == 0):
+            and x.data_ptr() % 16 == 0
+            and (res is None or res.data_ptr() % 16 == 0)):
         raise ValueError("int8_conv kernel wants contiguous, aligned grids")
     dev = x.device
-    cin_p, cout_p = _round_up(cin, _LANE_TILE), _round_up(cout, _LANE_TILE)
+    k = round(kvol ** (1.0 / 3.0))
+    p = plan(b, (gx, gy, gz), cin, cout, k, mode,
+             out_f32=out_dtype == torch.float32)
 
     def f32(t):
         return None if t is None else t.float().contiguous()
 
-    w = pack_weights(wq, cin_p, cout_p)
-    wd = None if wdq is None else pack_weights(wdq, cin_p, cout_p)
+    w = pack_weights(wq, p.cin_p, p.cout_p)
+    wd = None if wdq is None else pack_weights(wdq, p.cin_p, p.cout_p)
     occ_c = occ.float().contiguous()
     grid = (b, gx, gy, gz)
     out = torch.empty(grid + (cout,), dtype=out_dtype, device=dev)
@@ -239,27 +440,34 @@ def int8_conv(x, occ, wq, sw, mode="none", *, A=None, Bc=None, inv=None,
         grid + (cout,), dtype=torch.bfloat16, device=dev)
     yq = None if mode != "join" else torch.empty(
         grid + (cin,), dtype=torch.int8, device=dev)
+    nstats = 2 if wdq is None else 4
     st = None if not stats else torch.zeros(
-        (b, 2 if wdq is None else 4, cout), dtype=torch.float32, device=dev)
+        (b, nstats, cout), dtype=torch.float32, device=dev)
     consts = [f32(t) for t in (sw, swd, A, Bc, Ar, Br, inv)]
     if out.numel() == 0:
         return Int8ConvOut(out, out2, yq, st)
+    parts = part = part2 = None
+    if stats:  # the kernel's per-tile sums, reduced in a fixed order
+        parts = torch.empty((b * p.stat_parts((gx, gy, gz)), nstats, cout),
+                            dtype=torch.float32, device=dev)
+    if p.splits > 1:  # int32 partial sums, added by every split
+        cells = b * gx * gy * gz
+        part = torch.zeros((cells, p.cout_p), dtype=torch.int32, device=dev)
+        if wdq is not None:
+            part2 = torch.zeros_like(part)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _kernel()
-    k = round(kvol ** (1.0 / 3.0))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        cuda_build.check(fn(
-            x.data_ptr(), ptr(res), occ_c.data_ptr(), w.data_ptr(),
-            ptr(consts[0]), ptr(wd), ptr(consts[1]), ptr(consts[2]),
-            ptr(consts[3]), ptr(consts[4]), ptr(consts[5]), ptr(consts[6]),
-            out.data_ptr(), ptr(out2), ptr(yq), ptr(st), b, gx, gy, gz, cin,
-            cout, cin_p, cout_p, k, _MODE_ID[mode],
-            int(res is not None and res.dtype == torch.int8),
-            int(out_dtype == torch.float32), stream), "int8_conv")
+    cuda_build.call(
+        _kernel(), dev, "int8_conv", x.data_ptr(), ptr(res),
+        occ_c.data_ptr(), w.data_ptr(), ptr(consts[0]), ptr(wd),
+        ptr(consts[1]), ptr(consts[2]), ptr(consts[3]), ptr(consts[4]),
+        ptr(consts[5]), ptr(consts[6]), out.data_ptr(), ptr(out2), ptr(yq),
+        ptr(st), ptr(parts), ptr(part), ptr(part2), b, gx, gy, gz, cin, cout, p.cin_p,
+        p.cout_p, k, _MODE_ID[mode],
+        int(res is not None and res.dtype == torch.int8),
+        int(out_dtype == torch.float32), p.args())
     step = step_of(mode, stats)
     int8_conv.launches += 1
     int8_conv.launches_by_step[step] = \

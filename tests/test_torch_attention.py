@@ -13,8 +13,9 @@ from mask3d_tpu.ops.pallas_attention import masked_cross_attention as j_mca
 from mask3d_tpu_torch.models.posenc import fourier_embeddings, \
     sine_embeddings
 from mask3d_tpu_torch.ops.fps import furthest_point_sample
-from mask3d_tpu_torch.ops.masked_attention import chunking, \
-    masked_cross_attention
+from mask3d_tpu_torch.ops import masked_attention as ma
+from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention, \
+    masked_cross_attention_plain, plan
 
 
 def _t(a):
@@ -51,11 +52,107 @@ def test_masked_attention_matches_pallas_interpret(case):
     torch.testing.assert_close(got8, got, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("b,nq,s", [(8, 25, 3072), (8, 25, 24576),
-                                    (2, 40, 100), (1, 8, 32)])
-def test_chunking_covers_keys(b, nq, s):
-    chunk, nch = chunking(b, nq, s)
-    assert chunk % 32 == 0 and nch * chunk >= s > (nch - 1) * chunk
+@pytest.mark.parametrize("b,nq,s,h,hd", [
+    (8, 25, 3072, 8, 16), (8, 25, 24576, 8, 16), (8, 25, 6144, 8, 16),
+    (8, 25, 12288, 8, 16), (2, 40, 100, 8, 16), (1, 8, 32, 4, 8),
+    (8, 1, 24576, 8, 16), (3, 1, 70, 4, 32), (2, 40, 1000, 4, 32),
+    (2, 25, 99, 16, 8), (1, 25, 5, 8, 16), (2, 100, 300, 8, 32)])
+def test_chunking_covers_keys(b, nq, s, h, hd):
+    """The launch plan covers every key exactly once, in whole tiles, and
+    fits the kernel's thread and shared-memory limits; only the last warp
+    of a block holds lanes without a (head, queries) group."""
+    p = plan(b, nq, s, h, hd)
+    assert p.ksl in (1, 2, 4) and h % p.hg == 0
+    assert p.chunk % p.tile == 0 and p.nch * p.chunk >= s > (p.nch - 1) * \
+        p.chunk
+    owners = np.zeros(s, int)
+    for c in range(p.nch):
+        owners[c * p.chunk:min(s, (c + 1) * p.chunk)] += 1
+    assert (owners == 1).all()
+    assert p.threads % 32 == 0 and p.threads <= ma.MAX_THREADS
+    lanes = p.hg * -(-nq // p.queries) * p.ksl
+    assert lanes <= p.threads < lanes + 32
+    assert p.queries == ma.QUERIES_PER_THREAD[hd]
+    assert ma.smem_bytes(p.tile, p.hg * hd, nq) <= ma.SMEM_BYTES
+    blocks = b * (h // p.hg) * p.nch
+    assert blocks <= ma.SMS * ma.BLOCKS_PER_SM or p.nch == 1
+    if (b, nq, h, hd) == (8, 25, 8, 16):  # 8 heads x 7 quads x 4 slices
+        assert (p.ksl, p.hg, p.threads, p.queries) == (4, 8, 224, 4)
+        # one wave: all but 4 of the 132 SMs take a block
+        assert ma.SMS - b < blocks <= ma.SMS
+
+
+def stream_emulation(q, k, v, mask, h, p):
+    """The kernel's arithmetic order in plain PyTorch (f32): per chunk, per
+    key slice, tiles folded into a running (max, sum, acc) with one rescale
+    per tile; slices merged pairwise by lane distance 1, 2; then the
+    chunks merged as mca_combine does."""
+    b, nq, d = q.shape
+    s, hd = k.shape[1], d // h
+    qh = q.view(b, nq, h, hd)
+    kh, vh = k.view(b, s, h, hd), v.view(b, s, h, hd)
+    scale = 1.0 / np.sqrt(hd)
+    parts = []
+    for c in range(p.nch):
+        lo, hi = c * p.chunk, min(s, (c + 1) * p.chunk)
+        states = []
+        for sl in range(p.ksl):
+            m = torch.full((b, h, nq), -1e9)
+            l = torch.zeros((b, h, nq))
+            acc = torch.zeros((b, h, nq, hd))
+            for t0 in range(lo, hi, p.tile):
+                keys = [j for j in range(t0 + sl, min(hi, t0 + p.tile),
+                                         p.ksl)]
+                if not keys:
+                    continue
+                x = torch.einsum("bqhd,bkhd->bhqk", qh, kh[:, keys]) * scale
+                x = x.masked_fill(mask[:, None, :, keys], -1e9)
+                m_new = torch.maximum(m, x.amax(-1))
+                corr = torch.exp(m - m_new)
+                pr = torch.exp(x - m_new[..., None])
+                l = l * corr + pr.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bhqk,bkhd->bhqd", pr, vh[:, keys])
+                m = m_new
+            states.append((m, l, acc))
+        off = 1
+        while off < p.ksl:
+            merged = []
+            for i in range(p.ksl):
+                (m, l, a), (mo, lo_, ao) = states[i], states[i ^ off]
+                mn = torch.maximum(m, mo)
+                wa, wb = torch.exp(m - mn), torch.exp(mo - mn)
+                merged.append((mn, l * wa + lo_ * wb,
+                               a * wa[..., None] + ao * wb[..., None]))
+            states, off = merged, off * 2
+        parts.append(states[0])
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+    out = acc / lsum.clamp_min(1e-20)[..., None]
+    return out.permute(0, 2, 1, 3).reshape(b, nq, d)
+
+
+@pytest.mark.parametrize("b,nq,s,h", [(2, 25, 700, 8), (1, 40, 100, 8),
+                                      (2, 1, 333, 4)])
+def test_stream_order_within_tolerance(b, nq, s, h):
+    """The kernel's order of summation (slices, tiles, chunks) stays within
+    the card check's ATTN_TOL of the one-shot softmax, with an all-blocked
+    row and a fully open one."""
+    rng = np.random.default_rng(7)
+    d = h * 16
+    q, k, v = (torch.tensor(rng.normal(size=sh).astype(np.float32))
+               for sh in ((b, nq, d), (b, s, d), (b, s, d)))
+    mask = torch.tensor(rng.random((b, nq, s)) < 0.4)
+    mask[0, 0] = True
+    if nq > 1:
+        mask[-1, 1] = False
+    p = plan(b, nq, s, h, 16)
+    p = ma.Plan(p.ksl, p.hg, p.threads, 2 * p.tile,
+                -(-s // (2 * p.tile)))  # many chunks, ragged last tile
+    got = stream_emulation(q, k, v, mask, h, p)
+    ref = masked_cross_attention_plain(q, k, v, mask, h)
+    assert float((got - ref).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -199,13 +199,21 @@ def test_fused_stage_empty_item_stays_zero():
 
 
 def random_step(mode, gen, dev, b=2, dims=(9, 6, 11), cin=96, cout=80,
-                res_dtype=torch.int8, second=False):
-    """Random inputs of one chain step (or a plain int8 conv)."""
+                res_dtype=torch.int8, second=False, occ=None):
+    """Random inputs of one chain step (or a plain int8 conv); `occ` one of
+    None (30% occupied), "one" (a single occupied cell an item) or
+    "empty_item" (the last item without any)."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
+    kind = occ
     occ = (torch.rand((b,) + dims + (1,), generator=gen, device=dev)
            < 0.3).float()
+    if kind == "one":
+        occ.zero_()
+        occ[:, dims[0] // 2, 1, dims[2] - 1] = 1.0
+    elif kind == "empty_item":
+        occ[-1] = 0.0
     k = 1 if mode == "conv1x1" else 3
     wq = torch.randint(-127, 128, (k ** 3, cin, cout), generator=gen,
                        device=dev).to(torch.int8)
@@ -228,29 +236,134 @@ def random_step(mode, gen, dev, b=2, dims=(9, 6, 11), cin=96, cout=80,
     return (x, occ, wq, sw, mode), kw
 
 
+def stats_mirror(outs, occ, p):
+    """The int8 conv kernel's f32 sums in its order, under plan `p`: each
+    tile (or, when split, each run of 32 cells of an item) adds its cells'
+    outputs and their squares one at a time from 0 (cells in the kernel's
+    tile order, unoccupied ones 0), then an item's slots are added in 8
+    interleaved runs (slots g, g + 8, ...) and the 8 run sums in order.
+    Every step rounds to f32 on its own, as the kernel's do."""
+    b, dims = occ.shape[0], tuple(occ.shape[1:4])
+    rows = []
+    for o in outs:
+        r = o.float() * (occ > 0.5)
+        c = r.shape[-1]
+        if p.splits == 1:
+            t = p.tile
+            pads = [-(-d // s) * s for d, s in zip(dims, t)]
+            full = r.new_zeros((b, *pads, c))
+            full[:, :dims[0], :dims[1], :dims[2]] = r
+            cells = full.view(
+                b, pads[0] // t[0], t[0], pads[1] // t[1], t[1],
+                pads[2] // t[2], t[2], c).permute(0, 1, 3, 5, 2, 4, 6, 7)
+            cells = cells.reshape(b, -1, t[0] * t[1] * t[2], c)
+        else:
+            n = int(np.prod(dims))
+            flat = r.new_zeros((b, -(-n // 32) * 32, c))
+            flat[:, :n] = r.reshape(b, n, c)
+            cells = flat.view(b, -1, 32, c)
+        s1 = cells.new_zeros((b, cells.shape[1], c))
+        s2 = torch.zeros_like(s1)
+        for v in cells.unbind(2):
+            s1 = s1 + v
+            s2 = s2 + v * v
+        for slots in (s1, s2):
+            padded = slots.new_zeros((b, -(-slots.shape[1] // 8) * 8, c))
+            padded[:, :slots.shape[1]] = slots
+            runs = slots.new_zeros((b, 8, c))
+            for run in padded.split(8, dim=1):
+                runs = runs + run
+            total = slots.new_zeros((b, c))
+            for g in range(8):
+                total = total + runs[:, g]
+            rows.append(total)
+    return torch.stack(rows, dim=1)
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("entry", dict(second=True)), ("affine", {}), ("join", {}),
+    ("entry", dict(second=True, occ="empty_item")),
+    ("affine", dict(cin=192, cout=128, dims=(7, 5, 3), b=8))])
+def test_stats_order_within_tolerance(mode, extra):
+    """The kernel's order of the f32 sums (stats_mirror), unsplit and split,
+    stays within 1e-5 of sum |term| of the plain version's sums."""
+    import dataclasses
+
+    from mask3d_tpu_torch.sparse import int8_conv as ic
+
+    gen = torch.Generator().manual_seed(1)
+    args, kw = random_step(mode, gen, "cpu", **extra)
+    ref = int8_conv_plain(*args, **kw)
+    outs = [ref.out] + ([ref.out2] if ref.out2 is not None else [])
+    k = round(args[2].shape[0] ** (1 / 3))
+    p = ic.plan(args[0].shape[0], tuple(args[0].shape[1:4]),
+                args[0].shape[-1], args[2].shape[-1], k, args[4])
+    for pl in (dataclasses.replace(p, splits=1),
+               dataclasses.replace(p, splits=3)):
+        got = stats_mirror(outs, args[1], pl)
+        assert_stats_close(got, outs, ref.stats)
+        assert pl.stat_parts(tuple(args[0].shape[1:4])) == (
+            pl.tiles(tuple(args[0].shape[1:4])) if pl.splits == 1 else
+            -(-int(np.prod(args[0].shape[1:4])) // 32))
+
+
 @pytest.mark.cuda
 def test_int8_conv_kernel_matches_plain_on_the_card():
-    """The CUDA kernel against its plain version in every mode (needs a
-    card; `chip_smoke.py` runs the same check at the flagship's shapes)."""
+    """The CUDA kernel against its plain version at each branch of its
+    design (needs a card; `chip_smoke.py` runs the flagship's shapes): every
+    mode, k 1, the second 1x1 output, join with an int8 and a bf16
+    residual, a fragment with one occupied cell, an empty item, ragged
+    tiles, Cin 192 and 384, Cout 96, 256 and 384 (Res16UNet14D's widths),
+    the split coarse shapes (and one fine grid unsplit); outputs bitwise,
+    two launches bitwise equal, the f32 stats too, and bitwise equal to
+    stats_mirror (the kernel's order of sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card")
+    from mask3d_tpu_torch.sparse import int8_conv as ic
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [("none", {}), ("conv1x1", {}), ("entry", dict(second=True)),
              ("entry", {}), ("affine", {}), ("join", {}),
              ("join", dict(res_dtype=torch.bfloat16)),
-             ("none", dict(cin=384, cout=256, dims=(7, 5, 3)))]
+             ("none", dict(cin=384, cout=256, dims=(7, 5, 3))),
+             ("none", dict(occ="one")), ("join", dict(occ="one")),
+             ("entry", dict(second=True, occ="empty_item")),
+             ("affine", dict(occ="empty_item", cout=96)),
+             ("none", dict(cin=192, cout=128, dims=(28, 20, 10), b=8)),
+             ("conv1x1", dict(cin=384, cout=256, dims=(14, 10, 5), b=8)),
+             ("none", dict(cin=256, cout=256, dims=(14, 10, 5), b=8)),
+             ("entry", dict(cin=128, cout=96, second=True, b=1,
+                            dims=(112, 80, 40))),
+             ("none", dict(cin=416, cout=384, dims=(20, 12, 4))),
+             ("conv1x1", dict(cin=448, cout=384, dims=(10, 6, 2))),
+             ("join", dict(cin=384, cout=384)),
+             ("none", dict(cin=512, cout=384, dims=(7, 5, 3), b=8))]
     for mode, extra in cases:
         args, kw = random_step(mode, gen, "cuda", **extra)
+        k = round(args[2].shape[0] ** (1 / 3))
+        p_key = (args[0].shape[0], tuple(args[0].shape[1:4]),
+                 args[0].shape[-1], args[2].shape[-1], k, args[4])
+        p = ic.plan(*p_key)
         for out_dtype in ((torch.bfloat16, torch.float32)
                           if mode == "none" else (torch.bfloat16,)):
             got = int8_conv(*args, out_dtype=out_dtype, **kw)
+            again = int8_conv(*args, out_dtype=out_dtype, **kw)
             ref = int8_conv_plain(*args, out_dtype=out_dtype, **kw)
             torch.cuda.synchronize()
-            assert torch.equal(got.out, ref.out), (mode, extra)
-            for a, r in ((got.out2, ref.out2), (got.yq, ref.yq)):
+            what = (mode, extra, p.splits)
+            assert torch.equal(got.out, ref.out), what
+            assert torch.equal(got.out, again.out), what
+            for a, r, a2 in ((got.out2, ref.out2, again.out2),
+                             (got.yq, ref.yq, again.yq)):
                 assert (a is None) == (r is None)
-                assert a is None or torch.equal(a, r), (mode, extra)
+                assert a is None or torch.equal(a, r), what
+                assert a is None or torch.equal(a, a2), what
             if kw["stats"]:
                 outs = [ref.out] + ([ref.out2] if ref.out2 is not None
                                     else [])
                 assert_stats_close(got.stats, outs, ref.stats)
+                assert torch.equal(got.stats, again.stats), what
+                # the kernel's order exactly: the same f32 roundings
+                pl = ic.plan(*p_key, out_f32=out_dtype == torch.float32)
+                assert torch.equal(got.stats.cpu(), stats_mirror(
+                    [o.cpu() for o in outs], args[1].cpu(), pl)), what
