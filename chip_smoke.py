@@ -72,6 +72,18 @@ beside this script. Phases:
    CPU: each fused stage on one input, median |diff| 0 and within the
    same tolerance (whole-forward maps printed).
 6. Times: each forward's median over 10 runs.
+7. `test_entry`: `python -m mask3d_tpu_torch.cli test` in process at the
+   flagship's width (`Config()` defaults, fp32 dense, seeded random
+   weights) on 16 written test scenes of 3x2 rooms (two batches of 8):
+   the metric keys of the JAX package's `test()`, finite losses and mAP,
+   no overflow, 2 x (12, 13) attention and row-gather launches around the
+   whole call, batch 1's forward against `infer(aux_masks=True)` (bitwise,
+   else within ENTRY_TOL), the native voxelizer against numpy on every
+   scene, seconds per batch of collation, forward + criterion,
+   post-process and evaluator, and the peak device memory.
+
+Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
+first line names it; a traceback that escapes `main()` is written there).
 
 TF32 is switched off for convolutions and matmuls: the fp32 paths are fp32
 (the `gather_pallas` convs and the bf16/int8 stack round by design).
@@ -123,10 +135,43 @@ GATHER_BY_DTYPE = {"bfloat16": 9, "float32": 4}
 BF16_STACK_MEAN = 0.1
 INT8_PATH_MEAN = 0.25
 STAGE_OF_MAP = (4, 5, 6, 7, 8)  # the stage whose output each map taps
+# the test entry: 16 test scenes (two batches of 8) and one scene of each
+# other split; the keys the JAX package's `test()` returns
+# (mask3d_tpu/train/trainer.py:430-437): 3 x 13 losses + "loss",
+# batch_overflow and the evaluator's keys but `classes`
+ENTRY_TEST_SCENES = 16
+ENTRY_BATCH = 8
+ENTRY_EVAL_KEYS = ("mean_ap", "mean_ap_50", "mean_ap_25",
+                   "mean_precision_50", "mean_recall_50", "mean_f1_50",
+                   "mean_match_IoU", "successfully_detected_rooms")
+ENTRY_TOL = 1e-5  # entry vs `infer` where cuDNN picked another algorithm
 
 
-def log(*a):
-    print(*a, flush=True)
+LOG_FILE = None  # set by open_log
+
+
+def open_log():
+    """Truncate `mask3d_tpu_torch/_build/chip_smoke.log` beside this script
+    and name it on the first line; every `log` line goes there too."""
+    global LOG_FILE
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "mask3d_tpu_torch")
+    if not os.path.isdir(pkg):
+        print("chip_smoke log file: none (mask3d_tpu_torch is not beside "
+              "this script)", flush=True)
+        return
+    build = os.path.join(pkg, "_build")
+    os.makedirs(build, exist_ok=True)
+    LOG_FILE = os.path.join(build, "chip_smoke.log")
+    open(LOG_FILE, "w").close()
+    log(f"chip_smoke log file: {LOG_FILE}")
+
+
+def log(*a, file=None):
+    print(*a, flush=True, file=file)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            print(*a, file=f)
 
 
 def card_line():
@@ -670,16 +715,193 @@ def chain_tol_ratio(torch, want, got, bound, occ):
 
 
 
+def write_entry_dataset(np, root):
+    """Structured3D layout (`scene_NNNNN/point_cloud_rasterized_150.ply`,
+    binary PLY with float32 x, y, z, so the coordinates round-trip exactly)
+    of the flagship's scenes (`profile_forward.flagship_items`): one train
+    scene, one validation scene and the test scenes 3250..."""
+    from mask3d_tpu_torch.data.ply import write_ply
+    from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
+
+    rng = np.random.default_rng(0)
+    scenes = ["scene_00000", "scene_03000"] + [
+        f"scene_{3250 + i:05d}" for i in range(ENTRY_TEST_SCENES)]
+    for scene in scenes:
+        item = make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
+                                    room_size=36, height=18, jitter=0.3,
+                                    dropout=0.2, multi_floor=True)
+        c, lab = item["coordinates"], item["labels"]
+        os.makedirs(os.path.join(root, scene))
+        write_ply(os.path.join(root, scene,
+                               "point_cloud_rasterized_150.ply"),
+                  {"x": c[:, 0], "y": c[:, 1], "z": c[:, 2],
+                   "type": lab[:, 0], "room_id": lab[:, 1]}, text=False)
+    return scenes
+
+
+def run_test_entry(torch, np, mt, counters, card):
+    """`python -m mask3d_tpu_torch.cli test` in process, at the flagship's
+    full width (`Config()` defaults, fp32 dense, random weights from the
+    seed) on a written dataset; returns the kernels' launches in it."""
+    import tempfile
+
+    from mask3d_tpu_torch import cli
+    from mask3d_tpu_torch.data import collate as collate_mod
+    from mask3d_tpu_torch.train import trainer as trainer_mod
+    from mask3d_tpu_torch.utils import meter
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    seen = {}
+    collate_s = []
+    cls = trainer_mod.InstanceSegmentationTrainer
+    real = dict(make=trainer_mod.make_eval_step, test=cls.test,
+                collate=collate_mod.VoxelizeCollate.__call__)
+
+    def recording_make(cfg, model, criterion, device):
+        step = real["make"](cfg, model, criterion, device)
+
+        def eval_step(batch):
+            out = step(batch)
+            if "batch" not in seen:
+                seen.update(batch=batch, model=model, cfg=cfg,
+                            pred_class=out[0].clone(),
+                            pred_masks=out[1].clone())
+            return out
+        return eval_step
+
+    def recording_test(self):
+        seen["trainer"] = self
+        seen["metrics"] = real["test"](self)
+        return seen["metrics"]
+
+    def timed_collate(self, batch):
+        t = time.perf_counter()
+        out = real["collate"](self, batch)
+        collate_s.append(time.perf_counter() - t)
+        return out
+
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "data")
+        t = time.perf_counter()
+        scenes = write_entry_dataset(np, root)
+        log(f"test entry: wrote {len(scenes)} scenes in "
+            f"{time.perf_counter() - t:.2f} s")
+        trainer_mod.make_eval_step = recording_make
+        cls.test = recording_test
+        collate_mod.VoxelizeCollate.__call__ = timed_collate
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            t = time.perf_counter()
+            rc = cli.main(["test", "--device", "cuda",
+                           f"data.data_root={root}",
+                           f"data.test_batch_size={ENTRY_BATCH}",
+                           f"general.save_dir={tmp}/saved"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches = {k: fn.launches for k, fn in counters.items()}
+        finally:
+            trainer_mod.make_eval_step = real["make"]
+            cls.test = real["test"]
+            collate_mod.VoxelizeCollate.__call__ = real["collate"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        assert rc == 0, rc
+        metrics = seen["metrics"]
+        trainer = seen["trainer"]
+
+        # the native voxelizer against its numpy path on every scene
+        for split, ds in trainer.datasets.items():
+            for i in range(len(ds)):
+                coords = ds[i]["coordinates"]
+                nat = collate_mod.voxelize_item(coords)
+                ref = collate_mod.voxelize_item(coords, use_native=False)
+                assert all(np.array_equal(a, b) for a, b in zip(nat, ref)), (
+                    split, ds[i]["scene"])
+
+    n_batches = -(-ENTRY_TEST_SCENES // ENTRY_BATCH)
+    log(f"test entry: cli test over {ENTRY_TEST_SCENES} scenes in "
+        f"{secs:.2f} s; kernel launches {launches}; peak device memory "
+        f"{peak:.2f} GiB on {card}")
+    n_levels = 3 * 4 + 1  # num_decoders x hlevels + the final output
+    losses = ["loss_ce", "loss_mask", "loss_dice"] + [
+        f"loss_{w}_mask_module_{i}" for i in range(n_levels - 1)
+        for w in ("ce", "mask", "dice")] + ["loss"]
+    want = {f"test_{k}" for k in losses + ["batch_overflow"]} | {
+        f"test_{k}" for k in ENTRY_EVAL_KEYS}
+    log(f"test entry metrics: {json.dumps(metrics, sort_keys=True)}")
+    assert set(metrics) == want, sorted(set(metrics) ^ want)
+    finite = [k for k in metrics if "loss" in k or "mean_ap" in k]
+    assert all(np.isfinite(metrics[k]) for k in finite), metrics
+    assert metrics["test_batch_overflow"] == 0.0, metrics
+    assert launches["masked_attention"] == n_batches * 12 and \
+        launches["row_gather"] == n_batches * 13, launches
+
+    # the entry's forward on its first batch against `infer` on that batch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, _ = mt.infer(seen["model"], seen["batch"], seen["cfg"],
+                      aux_masks=True, device="cuda")
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t
+    same = torch.equal(out.pred_class, seen["pred_class"]) and \
+        torch.equal(out.pred_masks, seen["pred_masks"])
+    if same:
+        log("test entry forward on batch 1 vs infer(aux_masks=True): "
+            "bitwise equal")
+    else:
+        errs = [float((a - b).abs().max()) / max(1.0, float(b.std()))
+                for a, b in ((seen["pred_class"], out.pred_class),
+                             (seen["pred_masks"], out.pred_masks))]
+        log(f"test entry forward on batch 1 vs infer(aux_masks=True): not "
+            f"bitwise; max|diff|/max(1,std) {errs} (tol {ENTRY_TOL})")
+        assert max(errs) <= ENTRY_TOL, errs
+
+    # the criterion alone on batch 1's outputs (its LSAP round trip
+    # included), beside the forward alone
+    batch, cfg = seen["batch"], seen["cfg"]
+    targets = batch.target.with_label_offset(cfg.data.prediction_label_offset)
+    point_valid = torch.arange(batch.capacity, device="cuda")[None] \
+        < batch.counts[:, None]
+    criterion_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            trainer.criterion(out, targets, point_valid)
+        torch.cuda.synchronize()
+        criterion_s.append(time.perf_counter() - t)
+
+    stats = meter.get_statistics()
+    per_batch = {
+        "collation (native, 16 threads)": statistics.mean(collate_s),
+        "forward + criterion": stats["model_forward_complete"]["mean"],
+        "forward alone (batch 1, once)": forward_s,
+        "criterion alone (batch 1, median of 3)":
+            statistics.median(criterion_s),
+        "post-process": stats["eval_postprocess"]["mean"],
+        "evaluator": stats["eval_metrics_calc"]["mean"]}
+    log("test entry seconds per batch (mean over "
+        f"{n_batches} test batches; collation over all "
+        f"{len(collate_s)} calls): "
+        f"{json.dumps(per_batch)}; meter {json.dumps(stats)} on {card}")
+    return launches
+
+
 def main():
+    open_log()
     try:
         import numpy as np
         import torch
         import torch.nn.functional as F
     except ImportError as e:
-        print(f"chip_smoke: {e}", file=sys.stderr)
+        log(f"chip_smoke: {e}", file=sys.stderr)
         return 1
     if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        log("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -703,8 +925,8 @@ def main():
         from mask3d_tpu_torch.sparse import sparse_conv as sc
         from mask3d_tpu_torch.sparse.context import build_sparse_batch
     except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script: {e}",
-              file=sys.stderr)
+        log(f"chip_smoke: the port is not beside this script: {e}",
+            file=sys.stderr)
         return 1
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1305,6 +1527,12 @@ def main():
             "shapes": rows,
         }
 
+    entry_launches = phase("test_entry", lambda: run_test_entry(
+        torch, np, mt, counters, card))
+    if entry_launches is None:
+        failures.append("test entry did not run or failed a check")
+    launches["test_entry"] = entry_launches
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"FAILED phases: {failures}")
@@ -1366,4 +1594,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except BaseException:
+        # whatever escapes main() reaches the log file before the exit
+        log(f"chip_smoke: uncaught exception\n{traceback.format_exc()}",
+            file=sys.stderr)
+        sys.exit(1)
+    sys.exit(rc)

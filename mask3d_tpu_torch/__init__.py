@@ -9,6 +9,7 @@ CUDA raises):
     build_model(cfg, device, seed) -> Mask3D with seeded random weights
     collate(items, device, **collate_kwargs) -> HostBatch
     infer(model, batch, cfg, aux_masks, device) -> (Mask3DOutput, overflow)
+    python -m mask3d_tpu_torch.cli test [--device cuda|cpu] <overrides>
 """
 
 from mask3d_tpu_torch.config import Config, apply_overrides  # noqa: F401

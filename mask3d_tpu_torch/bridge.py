@@ -29,10 +29,11 @@ _LAYER_PREFIX = {"cross": "cross", "self": "self_attn", "ffn": "ffn",
                  "squeeze": "squeeze"}
 
 
-def _flatten(tree, prefix=()):
+def flatten(tree, prefix=()):
+    """(path, numpy leaf) pairs of a nested dict."""
     for k, v in tree.items():
         if isinstance(v, dict) or hasattr(v, "items"):
-            yield from _flatten(v, prefix + (k,))
+            yield from flatten(v, prefix + (k,))
         else:
             yield prefix + (k,), np.asarray(v)
 
@@ -80,6 +81,25 @@ def _param_leaf(path):
     raise KeyError(f"unmapped leaf {'/'.join(path)}")
 
 
+def map_leaf(col: str, path, arr):
+    """Port state_dict key and value of one Flax leaf `path` of collection
+    `col`; raises KeyError or ValueError on a leaf it cannot map."""
+    if col == "buffers":
+        if tuple(path) != ("gauss_B",):
+            raise KeyError(f"unmapped buffer {'/'.join(path)}")
+        key, val = "gauss_B", arr
+    elif col != "params":
+        raise KeyError(f"unexpected variable collection {col}")
+    elif path[0] == "backbone":
+        if len(path) != 2:
+            raise KeyError(f"unmapped leaf {'/'.join(path)}")
+        key, val = _backbone_leaf(path[1], arr)
+    else:
+        key, fn = _param_leaf(path)
+        val = fn(arr)
+    return key, torch.tensor(np.asarray(val, np.float32))
+
+
 def from_flax(variables) -> Dict[str, torch.Tensor]:
     """Map every leaf of the Flax `params` and `buffers` trees to the
     port's state_dict names; raises on a leaf it cannot map or on an
@@ -88,21 +108,11 @@ def from_flax(variables) -> Dict[str, torch.Tensor]:
     for col, tree in variables.items():
         if col not in ("params", "buffers"):
             raise KeyError(f"unexpected variable collection {col}")
-        for path, arr in _flatten(tree):
-            if col == "buffers":
-                if path != ("gauss_B",):
-                    raise KeyError(f"unmapped buffer {'/'.join(path)}")
-                key, val = "gauss_B", arr
-            elif path[0] == "backbone":
-                if len(path) != 2:
-                    raise KeyError(f"unmapped leaf {'/'.join(path)}")
-                key, val = _backbone_leaf(path[1], arr)
-            else:
-                key, fn = _param_leaf(path)
-                val = fn(arr)
+        for path, arr in flatten(tree):
+            key, val = map_leaf(col, path, arr)
             if key in sd:
                 raise KeyError(f"two leaves map to {key}")
-            sd[key] = torch.tensor(np.asarray(val, np.float32))
+            sd[key] = val
     return sd
 
 

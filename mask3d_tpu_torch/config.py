@@ -1,7 +1,7 @@
 """Configuration tree of the port: the same dataclasses, defaults and
 override grammar as the JAX package, so one override list configures both.
 
-# from mask3d_tpu/config.py:21-419 (GeneralConfig .. apply_overrides)
+# from mask3d_tpu/config.py:22-464 GeneralConfig .. from_yaml
 The fields the JAX package marks TPU-specific keep their names and defaults;
 the port reads `model.*` shape fields and `data.*` bucketing, and ignores the
 TPU execution knobs (the port always runs its CUDA kernels on the card).
@@ -9,6 +9,7 @@ TPU execution knobs (the port always runs its CUDA kernels on the card).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Tuple
 
@@ -414,4 +415,53 @@ def apply_overrides(cfg: Config, overrides: Sequence[str]) -> Config:
         if not hasattr(obj, leaf):
             raise KeyError(f"unknown config key: {key}")
         setattr(obj, leaf, _coerce(value.strip(), getattr(obj, leaf)))
+    return cfg
+
+
+# from mask3d_tpu/config.py:422 to_dict
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+# from mask3d_tpu/config.py:426 flatten_dict
+def flatten_dict(d: dict, parent: str = "", sep: str = "_") -> dict:
+    """Reference `mask3d/utils/utils.py:16-27` (logger hyperparams)."""
+    items = {}
+    for k, v in d.items():
+        nk = parent + sep + k if parent else k
+        if isinstance(v, dict):
+            items.update(flatten_dict(v, nk, sep))
+        else:
+            items[nk] = v
+    return items
+
+
+# from mask3d_tpu/config.py:438 to_yaml
+def to_yaml(cfg: Config, path: str):
+    import yaml
+
+    def listify(v):
+        if isinstance(v, dict):
+            return {k: listify(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return [listify(x) for x in v]
+        return v
+
+    with open(path, "w") as f:
+        yaml.safe_dump(listify(to_dict(cfg)), f, sort_keys=False)
+
+
+# from mask3d_tpu/config.py:452 from_yaml
+def from_yaml(path: str) -> Config:
+    import yaml
+
+    with open(path) as f:
+        d = yaml.safe_load(f)
+    cfg = Config()
+    for group, values in (d or {}).items():
+        obj = getattr(cfg, group)
+        for k, v in values.items():
+            if isinstance(v, list):
+                v = tuple(v)
+            setattr(obj, k, v)
     return cfg

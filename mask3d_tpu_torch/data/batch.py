@@ -35,6 +35,13 @@ class Targets:
         return Targets(*(_to(getattr(self, f.name), device)
                          for f in dataclasses.fields(self)))
 
+    # from mask3d_tpu/data/batch.py:38 with_label_offset
+    def with_label_offset(self, offset: int) -> "Targets":
+        """Shift the valid instances' labels by `-offset` (tensors); the
+        padding rows stay untouched."""
+        return dataclasses.replace(self, labels=torch.where(
+            self.valid, self.labels - offset, self.labels))
+
 
 @dataclasses.dataclass
 class DeviceBatch:
@@ -72,5 +79,8 @@ class HostBatch:
 
     device: DeviceBatch
     scenes: List[str]
-    # Original (pre-augmentation) coordinates per padded row: DBSCAN input.
+    # Original (pre-augmentation) coordinates, features and labels per
+    # padded row: DBSCAN input and the .las export's.
     raw_coords: np.ndarray  # f32[B, N, 3]
+    raw_feats: np.ndarray  # f32[B, N, F]
+    raw_labels: Optional[np.ndarray]  # i32[B, N, 2] (semantic, instance)

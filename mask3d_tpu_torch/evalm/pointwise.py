@@ -49,7 +49,7 @@ def pointwise_from_maskwise_gt(labels_gt, masks_gt, num_points):
     return cls, iid
 
 
-# from mask3d_tpu/evalm/pointwise.py:49 renumber_instance_ids
+# from mask3d_tpu/evalm/pointwise.py:48 renumber_instance_ids
 def renumber_instance_ids(ids):
     """Continuous ids starting at 1 (reference utils.py:369-374)."""
     uniq = np.unique(ids)

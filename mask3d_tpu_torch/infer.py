@@ -31,7 +31,8 @@ def _sb_kwargs(cfg):
                 build_pool_parents=True)
 
 
-# from mask3d_tpu/train/loop.py:190-205 (init_state's unit_features check)
+# from mask3d_tpu/train/loop.py:188 init_state (its unit_features check,
+# :190-205)
 def check_unit_features(cfg, batch: DeviceBatch):
     """`model.unit_features` promises constant unit input features (the
     dense stem then reads the occupancy grid): raise where the batch's
@@ -73,3 +74,29 @@ def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
         out = model(sb, batch.feats, batch.coords.float(), batch.grid_dims,
                     aux_masks=aux_masks)
         return out, sb.any_overflow()
+
+
+# from mask3d_tpu/train/loop.py:458 make_eval_step
+def make_eval_step(cfg, model: Mask3D, criterion, device="cuda"):
+    """The eval step: `infer(aux_masks=True)`, then the criterion over
+    every mask-module output on the targets shifted by
+    `data.prediction_label_offset`, and `batch_overflow` (1 where a pyramid
+    level of some item overflowed its capacity, `loop.py:241`). Returns
+    (pred_class, pred_masks, losses) on `device`; the criterion's matching
+    is the one host round trip."""
+    dev = resolve_device(device)
+
+    def eval_step(batch: DeviceBatch):
+        batch = batch.to(dev)
+        out, overflow = infer(model, batch, cfg, aux_masks=True, device=dev)
+        with torch.inference_mode():
+            targets = batch.target.with_label_offset(
+                cfg.data.prediction_label_offset)
+            # == sb.levels[0].valid: the rows below each item's count
+            point_valid = torch.arange(batch.capacity, device=dev)[None] \
+                < batch.counts[:, None]
+            losses = criterion(out, targets, point_valid)
+            losses["batch_overflow"] = overflow.to(torch.int32)
+        return out.pred_class, out.pred_masks, losses
+
+    return eval_step

@@ -375,7 +375,7 @@ class Res16UNetBase(nn.Module):
                                   bin_=bin_, want_q=wq and i < n - 1)
         return x, bin_
 
-    # from mask3d_tpu/models/backbone.py:725 Res16UNetBase.__call__
+    # from mask3d_tpu/models/backbone.py:725 __call__ of Res16UNetBase
     def forward(self, feats, sb: SparseBatch, grid_dims
                 ) -> Tuple[torch.Tensor, List[torch.Tensor],
                            Optional[torch.Tensor]]:
@@ -443,8 +443,8 @@ class Res16UNet34(Res16UNetBase):
     LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
 
 
-# from mask3d_tpu/models/backbone.py:856-929 (basic-block variants:
-# name -> (base, PLANES, LAYERS or None for the base's))
+# from mask3d_tpu/models/backbone.py:856-929 Res16UNet14 .. (the basic-block
+# variants: name -> (base, PLANES, LAYERS or None for the base's))
 _VARIANTS = {
     "Res16UNet34A": (Res16UNet34, (32, 64, 128, 256, 256, 128, 64, 64), None),
     "Res16UNet34B": (Res16UNet34, (32, 64, 128, 256, 256, 128, 64, 32), None),

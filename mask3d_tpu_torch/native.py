@@ -1,0 +1,123 @@
+"""Native host library: builds `csrc/voxelizer.cpp` with g++ and binds it
+with ctypes.
+
+A copy of the JAX package's loader (mask3d_tpu/native.py) for the C++
+voxelizer that collation runs on every item, with one difference: a build
+that fails raises with the compiler's output. Nothing falls back to numpy
+here; `data.collate.voxelize_item(use_native=False)` is the numpy path, run
+only where the caller asks for it.
+
+    g++ -O3 -march=native -shared -fPIC -std=c++17 csrc/voxelizer.cpp \\
+        -o _build/libmask3d_host-<hash>.so
+
+The build runs at first use, into `mask3d_tpu_torch/_build/`; the file name
+carries a hash of the source, the flags and the host CPU's feature flags, so
+an edited source, or another CPU, gets its own build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+PKG_DIR = Path(__file__).resolve().parent
+SRC = PKG_DIR / "csrc" / "voxelizer.cpp"
+BUILD_DIR = PKG_DIR / "_build"
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _cpu_flags() -> bytes:
+    """The host CPU's feature flags: `-march=native` code built on one
+    machine may not run on another that shares the checkout."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((line for line in f if line.startswith(b"flags")),
+                        b"")
+    except OSError:
+        return b""
+
+
+def _so_path() -> Path:
+    digest = hashlib.sha256(
+        SRC.read_bytes() + " ".join(CXX_FLAGS).encode() + _cpu_flags()
+    ).hexdigest()
+    return BUILD_DIR / f"libmask3d_host-{digest[:12]}.so"
+
+
+# from mask3d_tpu/native.py:33 _build
+def _build() -> Path:
+    """Compile the library unless it is built; raise on any failure."""
+    so = _so_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Written under a private name and renamed: concurrent processes may
+    # build at once, and none may load a half-written library.
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [CXX, *CXX_FLAGS, str(SRC), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"native voxelizer build failed: {' '.join(cmd)}:"
+                           f" {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"native voxelizer build failed (exit {proc.returncode}): "
+            f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+# from mask3d_tpu/native.py:51 get_lib
+def get_lib() -> ctypes.CDLL:
+    """The loaded library, built at first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            lib.voxelize_f32.restype = ctypes.c_int
+            lib.voxelize_f32.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            _lib = lib
+        return _lib
+
+
+def _ptr(arr, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+# from mask3d_tpu/native.py:93 voxelize_native
+def voxelize_native(coordinates: np.ndarray):
+    """C++ path of `collate.voxelize_item`: (coords i32[m, 3] sorted
+    unique, keep i32[m] into the input rows, dims i32[3])."""
+    lib = get_lib()
+    c = np.ascontiguousarray(coordinates, np.float32)
+    if c.ndim != 2 or c.shape[1] != 3:
+        raise ValueError(f"coordinates must be [n, 3], got {c.shape}")
+    n = len(c)
+    out_coords = np.empty((n, 3), np.int32)
+    keep = np.empty(n, np.int32)
+    dims = np.empty(3, np.int32)
+    m = lib.voxelize_f32(
+        _ptr(c, ctypes.c_float), n,
+        _ptr(out_coords, ctypes.c_int32), _ptr(keep, ctypes.c_int32),
+        _ptr(dims, ctypes.c_int32),
+    )
+    return out_coords[:m], keep[:m], dims

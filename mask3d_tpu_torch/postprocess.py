@@ -27,6 +27,8 @@ from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
 from scipy.spatial import cKDTree
 
+from mask3d_tpu_torch.utils import meter
+
 
 # from mask3d_tpu/train/postprocess.py:24 softmax_excl_ignore
 def softmax_excl_ignore(pred_class: np.ndarray) -> np.ndarray:
@@ -109,7 +111,7 @@ def dbscan_filter_masks(pred_masks: np.ndarray, coords: np.ndarray,
     return out
 
 
-# from mask3d_tpu/train/postprocess.py:72 get_mask_and_scores
+# from mask3d_tpu/train/postprocess.py:68 get_mask_and_scores
 def get_mask_and_scores(pred_probs: np.ndarray, pred_masks: np.ndarray,
                         topk_per_image: int = -1):
     """Reference `get_mask_and_scores` (`trainer.py:373-402`).
@@ -138,7 +140,7 @@ def get_mask_and_scores(pred_probs: np.ndarray, pred_masks: np.ndarray,
     return cls_scores * mask_scores, bin_masks, labels, heatmap
 
 
-# from mask3d_tpu/train/postprocess.py:103 sort_by_score
+# from mask3d_tpu/train/postprocess.py:96 sort_by_score
 def sort_by_score(scores, masks, classes, heatmap):
     """Descending score sort (reference `trainer.py:404-413`)."""
     order = np.argsort(-scores, kind="stable")
@@ -150,7 +152,7 @@ def sort_by_score(scores, masks, classes, heatmap):
     )
 
 
-# from mask3d_tpu/train/postprocess.py:114 filter_instances
+# from mask3d_tpu/train/postprocess.py:107 filter_instances
 def filter_instances(sorted_masks: np.ndarray, sort_scores: np.ndarray,
                      scores_threshold: float, iou_threshold: float):
     """Score-threshold + normalized-overlap dedup (reference
@@ -187,13 +189,23 @@ def postprocess_item(
     iou_threshold: float = 1.0,
     topk_per_image: int = -1,
     prediction_label_ids: Optional[np.ndarray] = None,
+    measure: bool = False,
 ) -> dict:
     """Full per-item pipeline -> evaluator-ready prediction dict.
 
     `prediction_label_ids` maps class indices to dataset label ids
     (reference `change_semantic_label_idxs_to_ids`,
     `semseg_structured3d.py:260-268`; default identity + 1 for `is_room`).
+
+    `measure=True` records the reference's per-stage eval segments into
+    `utils.meter`; only valid when items run sequentially.
     """
+    if measure:
+        mark = meter.add_timing
+    else:
+        def mark(_name):
+            return None
+
     probs = softmax_excl_ignore(pred_class)
     # Reference quirk, reproduced deliberately (trainer.py:434): the
     # softmax'd probabilities with the ignore class dropped ([Q, C]) are
@@ -207,17 +219,21 @@ def postprocess_item(
     # tests/test_postprocess_differential.py.
     if probs.shape[-1] == 1 and pred_class.shape[-1] == 2:
         probs = np.broadcast_to(probs, pred_class.shape)
+    mark("eval_prep")
     masks_logits = pred_masks
     if use_dbscan:
         masks_logits = dbscan_filter_masks(
             masks_logits, coords, dbscan_eps, dbscan_min_points
         )
+        mark("eval_dbscan")
     scores, masks, classes, heatmap = get_mask_and_scores(
         probs, masks_logits, topk_per_image
     )
+    mark("eval_get_mask_and_scores")
     classes, masks, scores, heatmap = sort_by_score(
         scores, masks, classes, heatmap
     )
+    mark("eval_sort_predictions_by_score")
     if filter_out_instances:
         kept = filter_instances(
             masks, scores, scores_threshold, iou_threshold
@@ -225,6 +241,7 @@ def postprocess_item(
         classes = classes[kept]
         masks = masks[:, kept]
         scores = scores[kept]
+        mark("eval_filter_out_instances")
     # Reference remap semantics (`change_semantic_label_idxs_to_ids`,
     # semseg_structured3d.py:260-268): label INDEX i is rewritten to the
     # i-th dataset label id; values beyond the id list stay unchanged

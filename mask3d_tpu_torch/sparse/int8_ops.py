@@ -67,8 +67,9 @@ def weight_rows(weight):
         -1, weight.shape[1], weight.shape[0])
 
 
-# from mask3d_tpu/sparse/dense_ops.py:244-247 (and pallas_chain.py:197
-# prep_weights_int8 without the lane embedding)
+# from mask3d_tpu/sparse/dense_ops.py:201 dense_conv_same_int8 (its weight
+# quantization, :244-247; and pallas_chain.py:197 prep_weights_int8 without
+# the lane embedding)
 def quantize_weights(w_rows, sx):
     """Fold the activation scales sx [Cin] into w [K, Cin, Cout], then
     quantize per output channel: returns (wq int8 [K, Cin, Cout], sw f32

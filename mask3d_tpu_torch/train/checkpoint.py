@@ -1,0 +1,234 @@
+"""Checkpoint restore with tolerant key matching: reads the files the JAX
+package's `save_checkpoint` writes (mask3d_tpu/train/checkpoint.py).
+
+A checkpoint is `flax.serialization.to_bytes(TrainState)`: a msgpack map
+whose array leaves are msgpack ext types, plus a `.meta.json` sidecar. The
+port carries its own msgpack decoder (`msgpack_restore`), since neither
+flax nor msgpack is a dependency of the port. The decoded
+`{"params", "buffers"}` tree goes through `bridge` to the port's
+`state_dict` names, where the tolerance rules apply: a missing key keeps
+the fresh init, a key of another shape keeps the init, an excess key (or a
+leaf `bridge` cannot map) is dropped, each with a warning. Saving comes
+with training.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import struct
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from mask3d_tpu_torch import bridge
+
+logger = logging.getLogger(__name__)
+
+# flax.serialization's msgpack ext codes
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+class _Reader:
+    """Decoder of the msgpack subset flax writes: maps, arrays, str/bin,
+    ints, floats, nil/bool and ext types (big-endian, as the format is)."""
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def obj(self):
+        b = self.unpack("B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self.array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        fixed = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in fixed:
+            return fixed[b]
+        scalars = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I",
+                   0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in scalars:
+            return self.unpack(scalars[b])
+        sizes = {0: "B", 1: "H", 2: "I"}
+        if 0xC4 <= b <= 0xC6:  # bin 8/16/32
+            return bytes(self.take(self.unpack(sizes[b - 0xC4])))
+        if 0xD9 <= b <= 0xDB:  # str 8/16/32
+            return str(self.take(self.unpack(sizes[b - 0xD9])), "utf-8")
+        if b in (0xDC, 0xDD):
+            return self.array(self.unpack("H" if b == 0xDC else "I"))
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        if 0xC7 <= b <= 0xC9:  # ext 8/16/32
+            n = self.unpack(sizes[b - 0xC7])
+            return self.ext(self.unpack("b"), n)
+        if 0xD4 <= b <= 0xD8:  # fixext 1/2/4/8/16
+            return self.ext(self.unpack("b"), 1 << (b - 0xD4))
+        raise ValueError(f"msgpack type byte 0x{b:02x} not supported")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.obj()
+            out[k] = self.obj()
+        return out
+
+    def array(self, n: int) -> list:
+        return [self.obj() for _ in range(n)]
+
+    def ext(self, code: int, n: int):
+        payload = bytes(self.take(n))
+        if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            arr = _ndarray_from_bytes(payload)
+            return arr[()] if code == _EXT_NPSCALAR else arr
+        if code == _EXT_COMPLEX:
+            re, im = _Reader(payload).obj()
+            return complex(re, im)
+        raise ValueError(f"msgpack ext type {code} not supported")
+
+
+def _ndarray_from_bytes(payload: bytes) -> np.ndarray:
+    """flax's ndarray encoding: msgpack (shape, dtype name, C-order
+    bytes). bfloat16, which numpy lacks, widens exactly to float32."""
+    shape, name, buf = _Reader(payload).obj()
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(buf, np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _unchunk(tree):
+    """Leaves over 2**30 bytes are written as {"__msgpack_chunked_array__",
+    "shape": {"0": ...}, "chunks": {"0": ...}}; join them back."""
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = tuple(tree["shape"][str(i)]
+                      for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def msgpack_restore(data: bytes):
+    """`flax.serialization.msgpack_restore`: bytes -> nested dicts with
+    numpy array leaves."""
+    reader = _Reader(data)
+    tree = reader.obj()
+    if reader.pos != len(reader.data):
+        raise ValueError("trailing bytes after the msgpack object")
+    return _unchunk(tree)
+
+
+def _read(path: str):
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def _port_tree(source: dict, col: str, prefix: Tuple[str, ...] = ()
+               ) -> Dict[str, torch.Tensor]:
+    """Map a Flax subtree to port state_dict entries; a leaf `bridge`
+    cannot map is dropped as excess, with a warning."""
+    out = {}
+    for path, arr in bridge.flatten(source, prefix):
+        try:
+            key, val = bridge.map_leaf(col, path, arr)
+        except (KeyError, ValueError) as e:
+            logger.warning(f"excessive key dropped: {'/'.join(path)} ({e})")
+            continue
+        out[key] = val
+    return out
+
+
+# from mask3d_tpu/train/checkpoint.py:74 load_params_tolerant
+def load_params_tolerant(path: str, model: torch.nn.Module):
+    """Restore `model`'s parameters (and the `gauss_B` buffer, where the
+    checkpoint holds one) with missing/shape-mismatch/excess tolerance. The
+    checkpoint may hold a full TrainState or a bare params dict."""
+    raw = _read(path)
+    source = _port_tree(raw.get("params", raw), "params")
+    if "params" in raw and "buffers" in raw:
+        # The JAX package restores params only and keeps the buffers of
+        # its own fresh init, which equal the checkpoint's under the same
+        # seed; the port's init differs, so it restores them.
+        source.update(_port_tree(raw["buffers"], "buffers"))
+    merged = load_params_tolerant_from_dict(source, model.state_dict())
+    for key in source:
+        if key not in merged:
+            logger.warning(f"excessive key dropped: {key}")
+    model.load_state_dict(merged, strict=True)
+    return model
+
+
+# from mask3d_tpu/train/checkpoint.py:110 load_backbone_tolerant
+def load_backbone_tolerant(path: str, model: torch.nn.Module):
+    """Backbone-only restore: keys under the `backbone` subtree; everything
+    else keeps the fresh init."""
+    raw = _read(path)
+    source = raw.get("params", raw)
+    src_backbone = source.get("backbone", source)
+    target = model.state_dict()
+    backbone = {k: v for k, v in target.items()
+                if k.startswith("backbone.")}
+    if not backbone:
+        logger.warning("target has no backbone subtree; nothing restored")
+        return model
+    mapped = _port_tree(src_backbone, "params", ("backbone",))
+    target.update(load_params_tolerant_from_dict(mapped, backbone))
+    model.load_state_dict(target, strict=True)
+    return model
+
+
+# from mask3d_tpu/train/checkpoint.py:129 load_params_tolerant_from_dict
+def load_params_tolerant_from_dict(source: Dict[str, Any],
+                                   target: Dict[str, torch.Tensor]):
+    """Every key of `target`, from `source` where it holds that key at the
+    same shape, else the target's own value (with a warning)."""
+    out = {}
+    for key, cur in target.items():
+        if key not in source:
+            logger.warning(f"{key} not in checkpoint; keeping init")
+            out[key] = cur
+        elif tuple(source[key].shape) != tuple(cur.shape):
+            logger.warning(f"incorrect shape {key}: "
+                           f"{tuple(source[key].shape)} vs "
+                           f"{tuple(cur.shape)}; keeping init")
+            out[key] = cur
+        else:
+            out[key] = source[key].to(dtype=cur.dtype)
+    return out
+
+
+# from mask3d_tpu/train/checkpoint.py:62 load_checkpoint
+def load_checkpoint(path: str, model: torch.nn.Module):
+    """Strict restore of params and buffers (every port key filled, every
+    shape equal) and the `.meta.json` sidecar: returns (model, meta)."""
+    raw = _read(path)
+    bridge.load_flax(model, {"params": raw["params"],
+                             "buffers": raw.get("buffers", {})})
+    meta = {}
+    meta_path = path + ".meta.json"
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return model, meta

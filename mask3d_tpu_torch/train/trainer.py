@@ -1,0 +1,320 @@
+"""The test path of the JAX package's trainer
+(mask3d_tpu/train/trainer.py): run directory, datasets, voxelizing
+collation on a prefetch thread, the eval step on the device, host
+post-processing in a thread pool, the evaluator, and the optional exports.
+
+Training (the optimizer, `train_epoch`, `fit`, checkpoint saving, the
+metric logger), the data-parallel mesh and `measure_model_phases` are not
+ported yet (ROADMAP Queue 1 items 4 and 7); the trainer raises where a
+configuration asks for them.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+import time
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from mask3d_tpu_torch.config import Config, to_yaml
+from mask3d_tpu_torch.data.batch import HostBatch
+from mask3d_tpu_torch.data.collate import VoxelizeCollate
+from mask3d_tpu_torch.data.datasets import DATASETS
+from mask3d_tpu_torch.device import resolve_device
+from mask3d_tpu_torch.evalm import Mask3DEvaluator
+from mask3d_tpu_torch.infer import make_eval_step
+from mask3d_tpu_torch.models.mask3d import build_model
+from mask3d_tpu_torch.postprocess import postprocess_item
+from mask3d_tpu_torch.train import checkpoint as ckpt
+from mask3d_tpu_torch.train.criterion import make_criterion
+from mask3d_tpu_torch.train.export import (
+    export_las_prediction_and_gt,
+    export_prediction_generic,
+)
+from mask3d_tpu_torch.utils import meter
+
+logger = logging.getLogger(__name__)
+
+
+# from mask3d_tpu/train/trainer.py:55 _prefetch
+def _prefetch(iterable: Iterable, depth: int = 2):
+    """Background-thread prefetcher: the next batches are collated while
+    the device runs the current one. An exception in the producer is
+    raised in the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+
+    def worker():
+        try:
+            for x in iterable:
+                q.put((x, None))
+        except BaseException as e:  # handed to the consumer, raised there
+            q.put((None, e))
+        finally:
+            q.put((done, None))
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        x, err = q.get()
+        if err is not None:
+            raise err
+        if x is done:
+            break
+        yield x
+
+
+# from mask3d_tpu/train/trainer.py:76 InstanceSegmentationTrainer
+class InstanceSegmentationTrainer:
+    def __init__(self, cfg: Config, datasets: Optional[dict] = None,
+                 device="cuda"):
+        if cfg.trainer.num_data_parallel > 1:
+            raise NotImplementedError(
+                "trainer.num_data_parallel > 1: the data-parallel mesh "
+                "(parallel/*) is not ported yet (ROADMAP Queue 1 item 7)")
+        if cfg.trainer.measure_model_phases:
+            raise NotImplementedError(
+                "trainer.measure_model_phases: not ported yet (ROADMAP "
+                "Queue 1 item 7)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.run_dir = os.path.join(
+            cfg.general.save_dir,
+            cfg.general.experiment_name,
+            cfg.general.experiment_id or time.strftime("%Y-%m-%d_%H-%M-%S"),
+        )
+        os.makedirs(self.run_dir, exist_ok=True)
+        # the composed config, so a run reproduces from its artifacts
+        to_yaml(cfg, os.path.join(self.run_dir, "config.yaml"))
+
+        if datasets is not None:
+            self.datasets = datasets
+        else:
+            ds_cls = DATASETS[cfg.data.dataset]
+            common = dict(
+                data_root=cfg.data.data_root,
+                rasterization_factor=cfg.data.rasterization_factor,
+                valid_scenes_file_path=cfg.data.valid_scenes_file_path,
+                prediction_label_offset=cfg.data.prediction_label_offset,
+                filter_out_classes=cfg.data.filter_out_classes,
+                filter_out_instance_ids=cfg.data.filter_out_instance_ids,
+            )
+            if cfg.data.dataset != "structured3d":
+                common.pop("valid_scenes_file_path")
+            # All three splits, as the JAX package builds them: a data root
+            # is accepted or refused exactly as there.
+            self.datasets = {
+                "train": ds_cls(
+                    mode=cfg.data.train_dataset_mode,
+                    volume_augmentations=cfg.data.volume_augmentations,
+                    data_fraction=cfg.data.data_fraction,
+                    **common,
+                ),
+                "validation": ds_cls(
+                    mode=cfg.data.validation_dataset_mode, **common
+                ),
+                "test": ds_cls(mode=cfg.data.test_dataset_mode, **common),
+            }
+
+        self.collate = VoxelizeCollate(
+            filter_out_classes=cfg.data.filter_out_classes,
+            filter_out_instance_ids=cfg.data.filter_out_instance_ids,
+            prediction_label_offset=cfg.data.prediction_label_offset,
+            point_bucket_multiple=cfg.data.point_bucket_multiple,
+            instance_bucket_multiple=cfg.data.instance_bucket_multiple,
+            num_queries=cfg.model.num_queries,
+            min_grid_dims=cfg.data.min_grid_dims,
+            grid_dims_cap=cfg.data.grid_dims_cap,
+        )
+
+        self.model = build_model(cfg, device=self.device,
+                                 seed=cfg.general.seed)
+        self.criterion = make_criterion(cfg)
+        self.eval_step = make_eval_step(cfg, self.model, self.criterion,
+                                        self.device)
+        self.evaluator = Mask3DEvaluator(
+            debug_best_worst_scenes=cfg.general.debug_best_worst_scenes,
+            debug_mean_average_precision=cfg.general.debug_mean_average_precision,
+        )
+        self.epoch = 0
+
+        if cfg.general.checkpoint:
+            ckpt.load_params_tolerant(cfg.general.checkpoint, self.model)
+        elif cfg.general.backbone_checkpoint:
+            ckpt.load_backbone_tolerant(cfg.general.backbone_checkpoint,
+                                        self.model)
+
+    # from mask3d_tpu/train/trainer.py:188 _batches
+    def _batches(self, split: str, batch_size: int):
+        """The split's batches in order (single process; the shuffled
+        train order comes with training)."""
+        ds = self.datasets[split]
+        for s in range(0, len(ds), batch_size):
+            yield self.collate([ds[i] for i in
+                                range(s, min(s + batch_size, len(ds)))])
+
+    def _to_device(self, host: HostBatch):
+        """The batch's one host-to-device copy, on the caller's thread."""
+        return host.device.to(self.device)
+
+    # from mask3d_tpu/train/trainer.py:218 _postprocess_batch
+    def _postprocess_batch(self, host, pred_class, pred_masks,
+                           measure: bool = False):
+        """Host post-processing fan-out + target extraction for one batch:
+        returns (pred_dicts, target_dicts) ready for the evaluator."""
+        cfg = self.cfg
+        counts = np.asarray(host.device.counts)
+        n_items = len(host.scenes)
+
+        def _post(b, measure=False):
+            n = counts[b]
+            return postprocess_item(
+                pred_class[b],
+                pred_masks[b, :n],
+                host.raw_coords[b, :n],
+                host.scenes[b],
+                use_dbscan=cfg.general.use_dbscan,
+                dbscan_eps=cfg.general.dbscan_eps,
+                dbscan_min_points=cfg.general.dbscan_min_points,
+                filter_out_instances=cfg.general.filter_out_instances,
+                scores_threshold=cfg.general.scores_threshold,
+                iou_threshold=cfg.general.iou_threshold,
+                topk_per_image=cfg.general.topk_per_image,
+                measure=measure,
+            )
+
+        # Per-item post-processing in a pool of up to 8 threads; a batch of
+        # one item runs on this thread and records the per-stage eval
+        # segments.
+        if n_items > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=min(n_items, 8)) as ex:
+                preds = list(ex.map(_post, range(n_items)))
+        else:
+            preds = [_post(0, measure=measure)]
+        targets = []
+        for b in range(n_items):
+            n = counts[b]
+            tv = np.asarray(host.device.target.valid[b])
+            targets.append(
+                {
+                    "labels": np.asarray(host.device.target.labels[b])[tv],
+                    "masks": np.asarray(
+                        host.device.target.masks[b]
+                    )[tv][:, :n],
+                }
+            )
+        return preds, targets
+
+    # from mask3d_tpu/train/trainer.py:355 eval_epoch
+    def eval_epoch(self, split: str, export: bool = False
+                   ) -> Dict[str, float]:
+        cfg = self.cfg
+        prefix = {"validation": "val"}.get(split, split)
+        self.evaluator.notify_new_epoch()
+        bs = (
+            cfg.data.test_batch_size
+            if cfg.data.test_batch_size > 0
+            else cfg.data.batch_size
+        )
+        all_metrics: List[dict] = []
+        loss_acc: Dict[str, list] = {}
+        for host in _prefetch(self._batches(split, bs)):
+            meter.notify_start_item()
+            batch = self._to_device(host)
+            meter.add_timing("data_preparation")
+            pred_class, pred_masks, losses = self.eval_step(batch)
+            pred_class = pred_class.cpu().numpy()
+            pred_masks = pred_masks.cpu().numpy()
+            meter.add_timing("model_forward_complete")
+            # every loss in one device-to-host copy
+            values = torch.stack([v.float() for v in losses.values()]
+                                 ).cpu().numpy()
+            for k, v in zip(losses, values):
+                loss_acc.setdefault(f"{prefix}_{k}", []).append(float(v))
+            meter.add_timing("loss_calculation")
+            if loss_acc.get(f"{prefix}_batch_overflow", [0.0])[-1] > 0:
+                # predictions built on clamped pyramid levels are degraded
+                logger.warning(
+                    "level-capacity overflow in %s batch (scenes=%s): "
+                    "metrics for this batch are unreliable; widen "
+                    "data.level_cap_ratios.",
+                    split, list(host.scenes),
+                )
+
+            counts = np.asarray(host.device.counts)
+            preds, targets = self._postprocess_batch(
+                host, pred_class, pred_masks, measure=True
+            )
+            meter.add_timing("eval_postprocess")
+            m = self.evaluator.evaluate(preds, targets, prefix)
+            m.pop(f"{prefix}_classes", None)
+            all_metrics.append(m)
+            meter.add_timing("eval_metrics_calc")
+
+            if export and (cfg.general.export_las or cfg.general.export):
+                base = os.path.join(
+                    self.run_dir, f"epoch_{self.epoch}", f"{split}_preds"
+                )
+                os.makedirs(base, exist_ok=True)
+                for b in range(len(host.scenes)):
+                    n = counts[b]
+                    if cfg.general.export_las:
+                        export_las_prediction_and_gt(
+                            host.raw_coords[b, :n],
+                            host.raw_feats[b, :n],
+                            targets[b]["labels"],
+                            targets[b]["masks"],
+                            preds[b]["pred_masks"],
+                            preds[b]["pred_classes"],
+                            preds[b]["pred_scores"],
+                            os.path.join(base, f"{host.scenes[b]}.las"),
+                        )
+                    if cfg.general.export:
+                        export_prediction_generic(
+                            base,
+                            host.scenes[b],
+                            preds[b]["pred_masks"],
+                            preds[b]["pred_scores"],
+                            preds[b]["pred_classes"],
+                            cfg.general.generic_export_score_threshold,
+                        )
+                meter.add_timing("eval_export")
+            meter.notify_end_item()
+
+        epoch_means = {
+            k: float(np.mean(v)) for k, v in loss_acc.items()
+        }
+        metric_keys = all_metrics[0].keys() if all_metrics else []
+        for k in metric_keys:
+            vals = [m[k] for m in all_metrics if np.isfinite(m[k])]
+            epoch_means[k] = float(np.mean(vals)) if vals else float("nan")
+        return epoch_means
+
+    # from mask3d_tpu/train/trainer.py:509 test
+    def test(self) -> Dict[str, float]:
+        meter.reset()
+        metrics = self.eval_epoch("test", export=True)
+        meter.log_final_statistics()
+        if self.cfg.general.debug_best_worst_scenes:
+            hi, lo = self.evaluator.get_highest_lowest_metric_scenes(
+                "mean_ap", 10
+            )
+            logger.info("Best scenes:")
+            for name, m in hi:
+                logger.info(f"   ({name}): {m}")
+            logger.info("Worst scenes:")
+            for name, m in lo:
+                logger.info(f"   ({name}): {m}")
+        if self.cfg.general.debug_mean_average_precision:
+            logger.info(
+                "mAP components: "
+                f"{self.evaluator.get_mean_average_precision_components()}"
+            )
+        return metrics

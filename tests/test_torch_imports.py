@@ -1,10 +1,12 @@
 """Import hygiene of the PyTorch port: `mask3d_tpu_torch` and
-`chip_smoke.py` import no jax, no flax and nothing of `mask3d_tpu`, and
-their entry points refuse CUDA where there is none."""
+`chip_smoke.py` import no jax, no flax, no msgpack and nothing of
+`mask3d_tpu`, every source citation names the line that defines what it
+cites, and the entry points refuse CUDA where there is none."""
 
 import ast
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -14,7 +16,10 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "mask3d_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mask3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mask3d_tpu")
+# `# from mask3d_tpu/<file>:<line>[-<end>] <name>`
+CITE = re.compile(r"#\s*from (mask3d_tpu/[\w/]+\.py):(\d+)(?:-\d+)?"
+                  r"\s+\(?(\w+)")
 
 
 def _port_sources():
@@ -63,6 +68,53 @@ def test_port_import_loads_no_jax_modules():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mask3d_tpu_torch.models.mask3d" in loaded
     assert not [m for m in loaded if _forbidden(m)], loaded
+
+
+def _citations():
+    out = []
+    for path in _port_sources():
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            m = CITE.search(line)
+            if m:
+                out.append((f"{path.relative_to(REPO)}:{i}", *m.groups()))
+    return out
+
+
+def test_citations_name_the_line_that_defines_them():
+    """Every `# from mask3d_tpu/<file>:<line> <name>` comment in the port
+    points at the line where `<name>` is defined (`def`/`class <name>`), or
+    for a range or a non-function at a first line that holds `<name>`."""
+    cites = _citations()
+    assert len(cites) > 100, len(cites)
+    bad = []
+    for where, src, line, name in cites:
+        lines = (REPO / src).read_text().splitlines()
+        text = lines[int(line) - 1] if int(line) <= len(lines) else ""
+        defines = re.match(rf"\s*(async\s+)?(def|class)\s+{name}\b", text)
+        if not defines and not re.search(rf"\b{name}\b", text):
+            bad.append(f"{where}: {src}:{line} {name} -> {text.strip()!r}")
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("cite", [
+    "mask3d_tpu_torch/postprocess.py: mask3d_tpu/train/postprocess.py:68 "
+    "get_mask_and_scores",
+    "mask3d_tpu_torch/postprocess.py: mask3d_tpu/train/postprocess.py:96 "
+    "sort_by_score",
+    "mask3d_tpu_torch/postprocess.py: mask3d_tpu/train/postprocess.py:107 "
+    "filter_instances",
+    "mask3d_tpu_torch/evalm/pointwise.py: mask3d_tpu/evalm/pointwise.py:48 "
+    "renumber_instance_ids",
+])
+def test_repaired_citations(cite):
+    """The four citations that once named the wrong line now name the
+    `def` of their function."""
+    port, src, name = cite.split(" ", 2)[0][:-1], *cite.split(" ")[1:]
+    assert any(where.startswith(port + ":") and f"{s}:{line}" == src
+               and n == name for where, s, line, n in _citations())
+    file, line = src.split(":")
+    text = (REPO / file).read_text().splitlines()[int(line) - 1]
+    assert re.match(rf"def {name}\(", text), text
 
 
 def test_small_overrides_match_e2e_small_config():
