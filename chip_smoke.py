@@ -82,6 +82,27 @@ beside this script. Phases:
    scene, seconds per batch of collation, forward + criterion,
    post-process and evaluator, and the peak device memory.
 
+8. `train` (deterministic algorithms on from here, `loop.configure_torch`):
+   (a) the attention kernel against its plain version at the sampled key
+   lengths S in {200, 800, 3200, 12800}, and each autograd Function's
+   backward after its kernel forward against autograd of the plain path:
+   the attention at those lengths and S=3072 (ATTN_TOL), the row gather at
+   the flagship taps in f32 and bf16 (bitwise), the sparse conv at every
+   shape the counted `gather_pallas` forward launched (against the fp32
+   gather-conv, TRAIN_FN_TOL); each backward timed beside its bound;
+   (b) one dense fp32 train step at batch 8 on the main path's scenes, the
+   kernels against the plain path (`cuda_build.plain_versions`): the same
+   loss, every gradient leaf within TRAIN_GRAD_TOL, 12 attention launches
+   (3 at each sampled length) and 13 row gathers; (d) two steps twice from
+   one seed, losses and parameters bitwise equal; (e) two `gather_pallas`
+   steps, finite, 47 sparse-conv launches a forward; (c) `python -m
+   mask3d_tpu_torch.cli train` in process on written PLYs (batch 8 as 2 x 4,
+   TRAIN_STEPS steps, one validation), the counts around the whole call,
+   seconds a call of collation, forward, criterion, backward, optimizer and
+   the train-split post-process and evaluator, the peak device memory, and
+   `cli test` on the `last-epoch.ckpt` it wrote; (f) the peak device
+   memory of one step at batch 16, whole and as 2 x 8.
+
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
 
@@ -145,6 +166,25 @@ ENTRY_EVAL_KEYS = ("mean_ap", "mean_ap_50", "mean_ap_25",
                    "mean_precision_50", "mean_recall_50", "mean_f1_50",
                    "mean_match_IoU", "successfully_detected_rooms")
 ENTRY_TOL = 1e-5  # entry vs `infer` where cuDNN picked another algorithm
+# the train phase: the sampled memories' key lengths (`Config()`'s
+# sample_sizes at hlevels 0-3), the steps of `cli train` (8 train scenes,
+# reps_per_epoch of them), the backwards against autograd of the plain path
+# (f32 sums in another order), and the whole step's gradients, kernels
+# against the plain path, per leaf ||diff|| / ||plain|| (a leaf whose true
+# gradient is 0 against 1e-4 of the largest leaf norm): the CPU parity
+# runs read 2.2e-5 on small_config and 2.1e-3 on parity_config, whose
+# stride-1 InstanceNorms amplify float32 rounding at init (PERF.md)
+TRAIN_ATTN_S = (200, 800, 3200, 12800)
+TRAIN_STEPS = 10
+# `cli train` takes its batches of 8 as 2 micro-batches of 4: the stru3d
+# augmentations rotate the scenes, and the batch's dense grid grows to
+# ~2.9x the unrotated one's cells, past the card's 80 GB at batch 8 whole
+# (PERF.md, the train step)
+TRAIN_ACCUM = 2
+TRAIN_FN_TOL = 1e-5
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-2
+TRAIN_GRAD_FLOOR = 1e-4
 
 
 LOG_FILE = None  # set by open_log
@@ -212,12 +252,13 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(torch, F, ma):
-    """Kernel vs plain at each flagship level; returns per-shape rows."""
+def check_attention(torch, F, ma, lengths=ATTN_S):
+    """Kernel vs plain at each key length (the flagship levels by default);
+    returns per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, nq, d, h = 8, 25, 128, 8
     rows = []
-    for s in ATTN_S:
+    for s in lengths:
         q = torch.randn(b, nq, d, device="cuda", generator=gen)
         k = torch.randn(b, s, d, device="cuda", generator=gen)
         v = torch.randn(b, s, d, device="cuda", generator=gen)
@@ -715,17 +756,17 @@ def chain_tol_ratio(torch, want, got, bound, occ):
 
 
 
-def write_entry_dataset(np, root):
+def write_entry_dataset(np, root, n_train=1, n_test=ENTRY_TEST_SCENES):
     """Structured3D layout (`scene_NNNNN/point_cloud_rasterized_150.ply`,
     binary PLY with float32 x, y, z, so the coordinates round-trip exactly)
-    of the flagship's scenes (`profile_forward.flagship_items`): one train
-    scene, one validation scene and the test scenes 3250..."""
+    of the flagship's scenes (`profile_forward.flagship_items`): the train
+    scenes 0..., one validation scene and the test scenes 3250..."""
     from mask3d_tpu_torch.data.ply import write_ply
     from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 
     rng = np.random.default_rng(0)
-    scenes = ["scene_00000", "scene_03000"] + [
-        f"scene_{3250 + i:05d}" for i in range(ENTRY_TEST_SCENES)]
+    scenes = [f"scene_{i:05d}" for i in range(n_train)] + [
+        "scene_03000"] + [f"scene_{3250 + i:05d}" for i in range(n_test)]
     for scene in scenes:
         item = make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
                                     room_size=36, height=18, jitter=0.3,
@@ -891,7 +932,469 @@ def run_test_entry(torch, np, mt, counters, card):
     return launches
 
 
+def leaf_errors(ref, got):
+    """Per parameter: ||got - ref|| / max(||ref||, 1e-4 of the largest
+    leaf norm) (leaves whose true gradient is 0, the attention's K biases,
+    against the floor)."""
+    floor = TRAIN_GRAD_FLOOR * max(float(v.norm()) for v in ref.values())
+    return {k: float((got[k].double() - r.double()).norm())
+            / max(float(r.double().norm()), floor) for k, r in ref.items()}
+
+
+def time_backward_ms(torch, fn, graph=True):
+    """(device ms, eager ms) of one backward: CUDA-graph replay of 4 calls,
+    twice (`profile_forward.graph_ms`), beside the eager per-call time; or,
+    for a backward of tens of ms (the sparse conv's), where the host's
+    per-call cost does not count, one eager call (CUDA events) for both."""
+    from mask3d_tpu_torch.profile_forward import graph_ms
+
+    if not graph:
+        ms = time_ms(torch, fn, iters=1, warmup=0)
+        return ms, ms
+    return graph_ms(fn, iters=4, replays=2), time_ms(torch, fn, iters=3,
+                                                      warmup=1)
+
+
+def check_backwards(torch, F, ma, rg, sc, ops, dense_ops, host, caps, sb_gp,
+                    spconv_shapes):
+    """(a) Each Function's backward after its kernel forward against
+    autograd of the plain path at the train shapes: the attention at the
+    four sampled key lengths and one eval length, the row gather at the
+    flagship taps in f32 and bf16, the sparse conv at every shape the
+    counted `gather_pallas` forward launched; each backward timed beside
+    its bytes-or-operations bound. Returns rows by kernel."""
+    from mask3d_tpu_torch import cuda_build
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+    def grads(fn, inputs, g):
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    def rel(ref, got):
+        return max(float((a.double() - b.double()).abs().max())
+                   / max(1.0, float(b.double().abs().max()))
+                   for a, b in zip(got, ref))
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {"masked_attention": [], "row_gather": [], "sparse_conv": []}
+    b, nq, d, h = 8, 25, 128, 8
+    for s in TRAIN_ATTN_S + (ATTN_S[0],):
+        q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen)
+                   for n in (nq, s, s))
+        mask = torch.rand(b, nq, s, device="cuda", generator=gen) < 0.4
+        mask[0, 0] = True
+        g = torch.randn(b, nq, d, device="cuda", generator=gen)
+        got = grads(lambda *t: ma.masked_cross_attention(*t, mask, h),
+                    (q, k, v), g)
+        ref = grads(lambda *t: ma.masked_cross_attention_plain(*t, mask, h),
+                    (q, k, v), g)
+        err = rel(ref, got)
+        ms, eager = time_backward_ms(
+            torch, lambda: ma.masked_cross_attention_backward(
+                q, k, v, mask, h, g))
+        bound_ms, by = bound(4 * 2 * (2 * b * nq * d + 2 * b * s * d)
+                             + b * nq * s, 12 * b * nq * s * d)
+        rows["masked_attention"].append(dict(
+            S=s, max_rel_err=err, ok=err <= ATTN_TOL, ms=ms, eager_ms=eager,
+            bound_ms=bound_ms, bound_by=by))
+        log(f"attention backward S={s}: max|err|/max(1,|ref|) {err:.3g} "
+            f"(tol {ATTN_TOL}); {ms:.4f} ms (eager {eager:.4f}) bound "
+            f"{bound_ms:.4f} ms ({by})")
+
+    dev = host.device
+    sb = build_sparse_batch(dev.coords, dev.counts, dev.dims, caps,
+                            dev.grid_dims)
+    for dtype, taps in ((torch.float32, GATHER_C),
+                        (torch.bfloat16, BF16_GATHER_C)):
+        esize = torch.empty((), dtype=dtype).element_size()
+        for c, li in taps.items():
+            gd = dev.grid_dims[li]
+            cells = gd[0] * gd[1] * gd[2]
+            lvl = sb.levels[li]
+            idx = dense_ops.static_keys(lvl, gd).clamp(0, cells - 1).to(
+                torch.int32).contiguous()
+            ok = lvl.valid.contiguous()
+            m = idx.shape[1]
+            src = torch.randn(b, cells, c, device="cuda",
+                              generator=gen).to(dtype)
+            g = torch.randn(b, m, c, device="cuda", generator=gen).to(dtype)
+            (got,) = grads(lambda t: rg.row_gather(t, idx, ok), (src,), g)
+            with cuda_build.plain_versions():
+                (ref,) = grads(lambda t: rg.row_gather(t, idx, ok), (src,), g)
+            equal = bool(torch.equal(got, ref))
+            ms, eager = time_backward_ms(
+                torch, lambda: rg.scatter_add_rows(g, idx, ok, cells).to(
+                    dtype))
+            bound_ms, by = bound(b * m * (c * esize + 5)
+                                 + b * cells * c * esize, 0)
+            rows["row_gather"].append(dict(
+                C=c, level=li, dtype=str(dtype)[6:], equal=equal, ms=ms,
+                eager_ms=eager, bound_ms=bound_ms, bound_by=by))
+            log(f"row_gather backward {str(dtype)[6:]} C={c} level {li}: "
+                f"bitwise equal to the plain path's {equal}; {ms:.4f} ms "
+                f"(eager {eager:.4f}) bound {bound_ms:.4f} ms ({by})")
+
+    for (n, k, cin, cout), n_launch in sorted(
+            spconv_shapes.items(), key=lambda kv: (-kv[0][0],) + kv[0][1:]):
+        level, idx, ok = kernel_map(sb_gp, n, k)
+        feats = torch.randn(b, n, cin, device="cuda", generator=gen)
+        feats *= sb_gp.levels[level].valid[..., None]
+        w = torch.randn(k, cin, cout, device="cuda", generator=gen) / (
+            k * cin) ** 0.5
+        g = torch.randn(b, n, cout, device="cuda", generator=gen)
+        got = grads(lambda f, ww: sc.sparse_conv(f, ww, idx, ok), (feats, w),
+                    g)
+        ref = grads(lambda f, ww: ops.sparse_conv(f, ww, idx, ok), (feats, w),
+                    g)
+        err = rel(ref, got)
+        ms, eager = time_backward_ms(
+            torch, lambda: sc.sparse_conv_backward(feats, w, idx, ok, g),
+            graph=False)
+        n_ok = int(ok.sum())
+        bound_ms, by = bound(
+            b * n * (cout + 2 * cin) * 4 + 2 * k * cin * cout * 4
+            + b * n * k * 5, 4 * n_ok * cin * cout)
+        rows["sparse_conv"].append(dict(
+            level=level, N=n, K=k, Cin=cin, Cout=cout, launches=n_launch,
+            max_rel_err=err, ok=err <= TRAIN_FN_TOL, ms=ms, eager_ms=eager,
+            bound_ms=bound_ms, bound_by=by))
+        log(f"sparse_conv backward L{level} N={n} K={k} {cin}->{cout} "
+            f"x{n_launch}: max|err|/max(1,|ref|) {err:.3g} (tol "
+            f"{TRAIN_FN_TOL}); {ms:.4f} ms (eager {eager:.4f}) bound "
+            f"{bound_ms:.4f} ms ({by}), {ms / bound_ms:.1f}x")
+        del feats, w, g, got, ref
+    sums = {name: sum(r.get("launches", 1) * r["ms"] for r in rs)
+            for name, rs in rows.items()}
+    log(f"backward sums (ms): {json.dumps(sums)}")
+    assert all(r["ok"] for r in rows["masked_attention"]), rows
+    assert all(r["equal"] for r in rows["row_gather"]), rows
+    assert all(r["ok"] for r in rows["sparse_conv"]), rows
+    return rows
+
+
+def train_steps(torch, mt, counters, by_key, cfg, batch, n_steps=1,
+                plain=False, seed=0):
+    """`n_steps` train steps of a fresh flagship state (weights and
+    generator from `seed`) on `batch`, with the counts set to 0 just before
+    and read just after; returns (losses, launches, attention launches by
+    S, state, peak GiB above what was allocated before the state was made,
+    seconds a step)."""
+    import contextlib
+
+    from mask3d_tpu_torch import cuda_build
+    from mask3d_tpu_torch.train.criterion import make_criterion
+    from mask3d_tpu_torch.train.loop import init_state, make_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_state(cfg, seed=seed, device="cuda")
+    step = make_train_step(cfg, make_criterion(cfg), "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    for counts, _ in by_key.values():
+        counts.clear()
+    losses, secs = [], []
+    with cuda_build.plain_versions() if plain else contextlib.nullcontext():
+        for _ in range(n_steps):
+            t = time.perf_counter()
+            out, _ = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append({k: float(v) for k, v in out.items()})
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_s = dict(by_key["attention"][0])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return losses, launches, by_s, state, peak, secs
+
+
+def check_train_step_paths(torch, mt, counters, by_key, cfg, cfg_gp, host,
+                           card):
+    """(b) one dense fp32 step, the kernels against the plain path, leaf by
+    leaf; (d) two steps twice from one seed, bitwise; (e) two
+    `gather_pallas` steps. Returns the counted launches by run."""
+    import numpy as np
+
+    n_dec = cfg.model.num_decoders * len(cfg.model.hlevels)
+    cfg = cfg_mod_replace(cfg, ["trainer.train_split_metrics=false"])
+    cfg_gp = cfg_mod_replace(cfg_gp, ["trainer.train_split_metrics=false"])
+    batch = host.device
+    out = {}
+    res = {}
+    for plain in (False, True):
+        losses, launches, by_s, state, peak, secs = train_steps(
+            torch, mt, counters, by_key, cfg, batch, plain=plain)
+        res[plain] = (losses[0]["loss"],
+                      {k: p.grad.detach().clone()
+                       for k, p in state.model.named_parameters()})
+        tag = "plain" if plain else "kernels"
+        out[f"dense step ({tag})"] = launches
+        log(f"train step dense fp32, batch 8 ({tag}): loss "
+            f"{losses[0]['loss']:.6f}, overflow "
+            f"{losses[0]['batch_overflow']:.0f}, launches {launches}, "
+            f"attention by S {by_s}, {secs[0]:.3f} s, peak {peak:.2f} GiB "
+            f"on {card}")
+        if plain:
+            assert sum(launches.values()) == 0, launches
+        else:
+            assert launches["masked_attention"] == n_dec and \
+                launches["row_gather"] == 13, launches
+            assert by_s == {s: 3 for s in TRAIN_ATTN_S}, by_s
+        del state
+    (lk, gk), (lp, gp) = res[False], res[True]
+    assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), (
+        lk, lp)
+    errs = leaf_errors(gp, gk)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"train step gradients, kernels vs plain path, per leaf "
+        f"||diff||/||plain|| (tol {TRAIN_GRAD_TOL}), worst: {worst}; loss "
+        f"{lk:.6f} vs {lp:.6f}")
+    assert worst[0][1] <= TRAIN_GRAD_TOL, worst
+    del res, gk, gp
+
+    runs = []
+    for _ in range(2):
+        losses, launches, _, state, _, _ = train_steps(
+            torch, mt, counters, by_key, cfg, batch, n_steps=2, seed=1)
+        runs.append(([l["loss"] for l in losses],
+                     {k: p.detach().clone()
+                      for k, p in state.model.named_parameters()}))
+        del state
+    same = runs[0][0] == runs[1][0] and all(
+        torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items())
+    log(f"determinism: two steps twice from one seed, losses {runs[0][0]} "
+        f"and {runs[1][0]}, losses and parameters bitwise equal {same}")
+    assert same
+    out["determinism (2 x 2 steps)"] = launches
+    del runs
+
+    losses, launches, by_s, state, peak, secs = train_steps(
+        torch, mt, counters, by_key, cfg_gp, batch, n_steps=2)
+    out["gather_pallas (2 steps)"] = launches
+    log(f"gather_pallas: two steps, losses "
+        f"{[l['loss'] for l in losses]}, launches {launches}, "
+        f"{[round(x, 3) for x in secs]} s a step, peak {peak:.2f} GiB on "
+        f"{card}")
+    assert all(np.isfinite(l["loss"]) for l in losses), losses
+    assert launches["sparse_conv"] == 2 * 47 and \
+        launches["masked_attention"] == 2 * n_dec, launches
+    del state
+    return out
+
+
+def cfg_mod_replace(cfg, overrides):
+    """A copy of `cfg` with `overrides` applied (apply_overrides edits in
+    place)."""
+    import copy
+
+    from mask3d_tpu_torch.config import apply_overrides
+
+    return apply_overrides(copy.deepcopy(cfg), overrides)
+
+
+def check_batch16_memory(torch, mt, counters, by_key, cfg, card):
+    """(f) the peak device memory of one step at batch 16 (the reference's
+    recipe), whole and as two accumulated micro-batches of 8; a step that
+    does not fit is reported as such."""
+    from mask3d_tpu_torch.profile_forward import flagship_items
+
+    host16 = mt.collate(flagship_items(0) + flagship_items(1), device="cuda",
+                        point_bucket_multiple=BUCKET)
+    out = {}
+    for accum in (1, 2):
+        c = cfg_mod_replace(cfg, [f"trainer.grad_accum_steps={accum}",
+                                  "trainer.train_split_metrics=false"])
+        try:
+            losses, _, _, state, peak, secs = train_steps(
+                torch, mt, counters, by_key, c, host16.device)
+            out[accum] = dict(peak_gib=peak, s=secs[0],
+                              loss=losses[0]["loss"])
+            del state
+        except torch.cuda.OutOfMemoryError as e:
+            out[accum] = dict(
+                fits=False, peak_gib_with_earlier_phases=torch.cuda.
+                max_memory_allocated() / 2**30, error=str(e).splitlines()[0])
+        torch.cuda.empty_cache()
+        log(f"batch 16, grad_accum_steps={accum}: {json.dumps(out[accum])} "
+            f"on {card}")
+    return out
+
+
+def run_train_entry(torch, np, mt, counters, by_key, card):
+    """(c) `python -m mask3d_tpu_torch.cli train` in process at the
+    flagship's full width (`Config()` defaults, batch 8 as TRAIN_ACCUM
+    micro-batches) on written PLYs:
+    8 train scenes x `general.reps_per_epoch` TRAIN_STEPS is TRAIN_STEPS
+    steps, then one validation, `last-epoch.ckpt` and `best_*.ckpt`; then
+    `cli test` on that checkpoint. Prints seconds a step by phase and the
+    peak device memory; returns the kernels' launches in the train run."""
+    import tempfile
+
+    from mask3d_tpu_torch import cli
+    from mask3d_tpu_torch.data import collate as collate_mod
+    from mask3d_tpu_torch.evalm import evaluator as evaluator_mod
+    from mask3d_tpu_torch.models import mask3d as model_mod
+    from mask3d_tpu_torch.train import criterion as criterion_mod
+    from mask3d_tpu_torch.train import trainer as trainer_mod
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    secs = {}  # phase -> seconds of each call
+    seen = {}
+
+    def timed(name, fn, when=lambda *a, **k: True, sync=True):
+        """`fn` with its seconds recorded under `name` where `when` holds;
+        device work is fenced on both sides unless `sync` is false (the
+        collator, which runs on the prefetch thread and does no device
+        work)."""
+        def wrapper(*a, **k):
+            if not when(*a, **k):
+                return fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            secs.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return wrapper
+
+    cls = trainer_mod.InstanceSegmentationTrainer
+    real_make = trainer_mod.make_train_step
+
+    def recording_make(cfg, criterion, device):
+        step = real_make(cfg, criterion, device)
+
+        def train_step(state, batch):
+            out = step(state, batch)
+            seen.setdefault("losses", []).append(
+                {k: float(v) for k, v in out[0].items()})
+            seen.setdefault("grids", []).append(
+                (batch.capacity, tuple(batch.grid_dims[0])))
+            return out
+        return timed("whole train step", train_step)
+
+    real_fit = cls.fit
+
+    def recording_fit(self):
+        seen["trainer"] = self
+        return real_fit(self)
+
+    patches = [
+        (trainer_mod, "make_train_step", recording_make),
+        (cls, "fit", recording_fit),
+        (collate_mod.VoxelizeCollate, "__call__", timed(
+            "collation (prefetch thread)",
+            collate_mod.VoxelizeCollate.__call__, sync=False)),
+        (model_mod.Mask3D, "forward", timed(
+            "forward", model_mod.Mask3D.forward,
+            lambda self, *a, **k: self.training)),
+        (criterion_mod.SetCriterion, "__call__", timed(
+            "criterion", criterion_mod.SetCriterion.__call__,
+            lambda *a, **k: torch.is_grad_enabled())),
+        (torch.Tensor, "backward", timed("backward", torch.Tensor.backward)),
+        (torch.optim.AdamW, "step", timed("optimizer",
+                                         torch.optim.AdamW.step)),
+        (cls, "_postprocess_batch", timed(
+            "train-split post-process", cls._postprocess_batch,
+            lambda *a, measure=False, **k: not measure)),
+        (evaluator_mod.Mask3DEvaluator, "evaluate", timed(
+            "train-split evaluator", evaluator_mod.Mask3DEvaluator.evaluate,
+            lambda self, p, t, prefix, *a, **k: prefix == "train")),
+    ]
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "data")
+        t = time.perf_counter()
+        write_entry_dataset(np, root, n_train=ENTRY_BATCH, n_test=1)
+        log(f"train entry: wrote {ENTRY_BATCH + 2} scenes in "
+            f"{time.perf_counter() - t:.2f} s")
+        saved = [(owner, name, getattr(owner, name))
+                 for owner, name, _ in patches]
+        for owner, name, fake in patches:
+            setattr(owner, name, fake)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            for fn in counters.values():
+                fn.launches = 0
+            for counts, _ in by_key.values():
+                counts.clear()
+            t = time.perf_counter()
+            rc = cli.main(["train", "--device", "cuda",
+                           f"data.data_root={root}",
+                           f"data.batch_size={ENTRY_BATCH}",
+                           f"trainer.grad_accum_steps={TRAIN_ACCUM}",
+                           f"general.reps_per_epoch={TRAIN_STEPS}",
+                           "trainer.max_epochs=1",
+                           "general.experiment_id=train",
+                           f"general.save_dir={tmp}/saved"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {k: fn.launches for k, fn in counters.items()}
+            by_s = dict(by_key["attention"][0])
+        finally:
+            for owner, name, real in saved:
+                setattr(owner, name, real)
+        # the run's own peak, above what earlier phases still hold
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        assert rc == 0, rc
+        trainer = seen["trainer"]
+        run_dir = trainer.run_dir
+        files = sorted(os.listdir(run_dir))
+        log(f"train entry: cli train {TRAIN_STEPS} steps + 1 validation in "
+            f"{wall:.2f} s; run dir {files}; kernel launches {launches}, "
+            f"attention by S {by_s}; peak device memory {peak:.2f} GiB on "
+            f"{card}")
+        n_dec = trainer.cfg.model.num_decoders * len(
+            trainer.cfg.model.hlevels)
+        steps = len(seen["losses"])
+        assert steps == TRAIN_STEPS == trainer.state.step, steps
+        assert all(np.isfinite(x["loss"]) for x in seen["losses"]), seen
+        log(f"train entry losses: "
+            f"{[round(x['loss'], 4) for x in seen['losses']]}; (capacity, "
+            f"level-0 grid) a step: {seen['grids']}")
+        # a forward per micro-batch, one validation batch
+        forwards = steps * TRAIN_ACCUM + 1
+        assert launches["masked_attention"] == n_dec * forwards, launches
+        assert launches["row_gather"] == 13 * forwards, launches
+        for s in TRAIN_ATTN_S:
+            assert by_s.get(s) == 3 * steps * TRAIN_ACCUM, (s, by_s)
+        assert "last-epoch.ckpt" in files, files
+
+        metrics = {}
+        real_test = cls.test
+
+        def test(self):
+            metrics.update(real_test(self))
+            return metrics
+
+        cls.test = test
+        try:
+            rc = cli.main(["test", "--device", "cuda",
+                           f"data.data_root={root}",
+                           "data.test_dataset_mode=validation",
+                           f"general.checkpoint={run_dir}/last-epoch.ckpt",
+                           f"general.save_dir={tmp}/test"])
+        finally:
+            cls.test = real_test
+        assert rc == 0, rc
+        log(f"cli test on the trained last-epoch.ckpt: "
+            f"{json.dumps(metrics, sort_keys=True)}")
+        assert np.isfinite(metrics["test_loss"]), metrics
+    per_step = {k: dict(median=statistics.median(v), calls=len(v),
+                        first=v[0]) for k, v in secs.items()}
+    log(f"train entry seconds a call (batch {ENTRY_BATCH}): "
+        f"{json.dumps(per_step)} on {card}")
+    return dict(launches=launches, attention_by_s=by_s, seconds=per_step,
+                peak_gib=peak)
+
+
 def main():
+    # deterministic cuBLAS for the train phase (`loop.configure_torch`),
+    # set before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     open_log()
     try:
         import numpy as np
@@ -1533,6 +2036,49 @@ def main():
         failures.append("test entry did not run or failed a check")
     launches["test_entry"] = entry_launches
 
+    # --- the train path (deterministic algorithms from here on) ---
+    from mask3d_tpu_torch.train.loop import configure_torch
+
+    configure_torch(True)
+    train = {}
+
+    def train_forward_lengths():
+        rows = check_attention(torch, F, ma, TRAIN_ATTN_S)
+        assert all(r["ok"] for r in rows), rows
+        return rows
+
+    train["attention_forward"] = phase(
+        "train: attention kernel vs plain at the sampled key lengths",
+        train_forward_lengths)
+
+    def backwards():
+        dev = host.device
+        sb_gp = build_sparse_batch(
+            dev.coords, dev.counts, dev.dims,
+            level_capacities(cfg_gp, dev.capacity), dev.grid_dims,
+            **_sb_kwargs(cfg_gp))
+        return check_backwards(
+            torch, F, ma, rg, sc, sparse_ops, dense_ops, host,
+            level_capacities(cfg, host.device.capacity), sb_gp,
+            shape_launches["gather_pallas"])
+
+    train["backward"] = phase("train: backwards vs the plain path",
+                              backwards)
+    train["step_launches"] = phase(
+        "train: step gradients, determinism, gather_pallas",
+        lambda: check_train_step_paths(torch, mt, counters, by_key, cfg,
+                                       cfg_gp, host, card))
+    train["entry"] = phase("train: cli train end to end",
+                           lambda: run_train_entry(torch, np, mt, counters,
+                                                   by_key, card))
+    train["batch16"] = phase("train: batch 16 memory",
+                             lambda: check_batch16_memory(
+                                 torch, mt, counters, by_key, cfg, card))
+    for name, value in train.items():
+        if value is None:
+            failures.append(f"train phase {name} did not run or failed a "
+                            f"check")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"FAILED phases: {failures}")
@@ -1586,7 +2132,7 @@ def main():
                      **forward_sums(spconv_rows)),
         *int8_entries,
     ], "launches_by_path": launches, "int8_steps_by_path": step_launches,
-        "peak_gib": peak_gib, "forward_ms": fwd_ms}))
+        "peak_gib": peak_gib, "forward_ms": fwd_ms, "train": train}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

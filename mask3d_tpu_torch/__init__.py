@@ -9,7 +9,9 @@ CUDA raises):
     build_model(cfg, device, seed) -> Mask3D with seeded random weights
     collate(items, device, **collate_kwargs) -> HostBatch
     infer(model, batch, cfg, aux_masks, device) -> (Mask3DOutput, overflow)
-    python -m mask3d_tpu_torch.cli test [--device cuda|cpu] <overrides>
+    train.loop.init_state(cfg, example, seed, device) -> TrainState
+    train.loop.make_train_step(cfg, criterion, device) -> train_step
+    python -m mask3d_tpu_torch.cli train|test [--device cuda|cpu] <overrides>
 """
 
 from mask3d_tpu_torch.config import Config, apply_overrides  # noqa: F401

@@ -1,5 +1,8 @@
-"""Entry point: test (and, once ported, train) with Hydra-style override
-strings, as the JAX package's `python -m mask3d_tpu.cli`:
+"""Entry point: train and test with Hydra-style override strings, as the
+JAX package's `python -m mask3d_tpu.cli`:
+
+    python -m mask3d_tpu_torch.cli train data.data_root=<root> \\
+        general.experiment_name=run trainer.max_epochs=30
 
     python -m mask3d_tpu_torch.cli test \\
         general.checkpoint="saved/.../best_val_mean_ap_50.ckpt" \\
@@ -8,9 +11,13 @@ strings, as the JAX package's `python -m mask3d_tpu.cli`:
     python -m mask3d_tpu_torch.cli --device cpu general.train_mode=false ...
 
 `--device {cuda,cpu}` (default cuda) picks where the model runs; it is
-taken out of the arguments before the overrides are read. The checkpoint is
-one the JAX package wrote (`train/checkpoint.py` reads it). `test` prints
-`k: v` for every metric, sorted. `train` is not ported yet.
+taken out of the arguments before the overrides are read. `train` fits the
+model (resuming from the run directory's `last-epoch.ckpt`), writing
+checkpoints and `metrics.csv` under `general.save_dir`. The checkpoint of
+`test` is one the port or the JAX package wrote (`train/checkpoint.py`
+reads both). `test` prints `k: v` for every metric, sorted. On CUDA the
+run's convs and matmuls are full float32, and `trainer.deterministic`
+(default true) asks for deterministic algorithms (`loop.configure_torch`).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ def main(argv=None):
         command, overrides = None, argv
 
     from mask3d_tpu_torch.config import Config, apply_overrides
+    from mask3d_tpu_torch.train.loop import configure_torch
     from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
 
     cfg = Config()
@@ -71,13 +79,15 @@ def main(argv=None):
     if command is None:
         command = "train" if cfg.general.train_mode else "test"
     cfg.general.train_mode = command == "train"
-    if command == "train":
-        raise NotImplementedError(
-            "train is not ported yet (ROADMAP Queue 1 item 4); run "
-            "`python -m mask3d_tpu.cli train` and test its checkpoint here")
     seed_everything(cfg.general.seed)
+    if device == "cuda":
+        # before the trainer's first CUDA op (the cuBLAS workspace setting)
+        configure_torch(cfg.trainer.deterministic)
 
     trainer = InstanceSegmentationTrainer(cfg, device=device)
+    if command == "train":
+        trainer.fit()
+        return 0
     metrics = trainer.test()
     for k, v in sorted(metrics.items()):
         print(f"{k}: {v:.4f}")

@@ -14,6 +14,7 @@ Nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -127,6 +128,35 @@ def load_source(source) -> ctypes.CDLL:
             os.replace(tmp, out)
         _libs[key] = ctypes.CDLL(key)
     return _libs[key]
+
+
+_plain_on_cuda = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block the train path's kernel wrappers (attention, row
+    gather, sparse conv) run their plain PyTorch versions on CUDA tensors
+    too and count no launch: the reference that `chip_smoke.py` and the
+    card tests hold a whole model's kernel path against. Nothing else
+    enters it."""
+    global _plain_on_cuda
+    prev, _plain_on_cuda = _plain_on_cuda, True
+    try:
+        yield
+    finally:
+        _plain_on_cuda = prev
+
+
+def use_kernel(t, what: str) -> bool:
+    """Whether a wrapper launches its kernel on tensor `t`: on a CUDA
+    tensor yes (outside `plain_versions`), on a CPU tensor no (the plain
+    version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return not _plain_on_cuda
 
 
 def check(err: int, what: str):

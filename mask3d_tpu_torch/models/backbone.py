@@ -287,12 +287,12 @@ class Res16UNetBase(nn.Module):
                 norm.bias.zero_()
 
     # from mask3d_tpu/models/backbone.py:498 _act_bound
-    def _act_bound(self, norm: Norm):
+    def _act_bound(self, ctx, norm: Norm):
         """Static per-channel bound sigma*|gamma| + |beta| on the output of
-        a norm (+ relu), for int8 activation scales; None unless the int8
-        stack runs with `int8_act_sigma` > 0."""
+        a norm (+ relu), for int8 activation scales; None unless this
+        forward's context runs the int8 stack with `int8_act_sigma` > 0."""
         s = self.int8_act_sigma
-        if s <= 0 or self.impl != "dense" or not self.int8_stride1:
+        if s <= 0 or not getattr(ctx, "int8_l0", False):
             return None
         return act_bound(s, norm.weight, norm.bias)
 
@@ -312,16 +312,16 @@ class Res16UNetBase(nn.Module):
                         bound=bin_)
         out = torch.relu(ctx.norm(out, n1, level_idx))
         out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx,
-                        bound=self._act_bound(n1))
+                        bound=self._act_bound(ctx, n1))
         out = ctx.norm(out, n2, level_idx)
-        bout = self._act_bound(n2)
+        bout = self._act_bound(ctx, n2)
         if f"{name}_downsample" in self.convs:
             nd = self.norms[f"{name}_downsample_norm"]
             residual = ctx.conv1x1(residual,
                                    self.convs[f"{name}_downsample"],
                                    level_idx, bound=bin_)
             residual = ctx.norm(residual, nd, level_idx)
-            bres = self._act_bound(nd)
+            bres = self._act_bound(ctx, nd)
         else:
             bres = bin_
         bout = None if bout is None or bres is None else bout + bres
@@ -376,12 +376,15 @@ class Res16UNetBase(nn.Module):
         return x, bin_
 
     # from mask3d_tpu/models/backbone.py:725 __call__ of Res16UNetBase
-    def forward(self, feats, sb: SparseBatch, grid_dims
+    def forward(self, feats, sb: SparseBatch, grid_dims, int8: bool = True
                 ) -> Tuple[torch.Tensor, List[torch.Tensor],
                            Optional[torch.Tensor]]:
+        """`int8=False` runs the fp32/bf16 convs whatever `int8_stride1`
+        says: the model's train mode (the JAX package builds its backbone
+        with `int8_stride1 and is_eval`, mask3d.py:406)."""
         if self.impl == "dense":
             ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
-                            int8_stride1=self.int8_stride1,
+                            int8_stride1=self.int8_stride1 and int8,
                             int8_act_sigma=self.int8_act_sigma,
                             int8_residual=self.int8_residual)
             if self.unit_features and self.in_channels == 1:
@@ -397,13 +400,13 @@ class Res16UNetBase(nn.Module):
         # dense impl runs the same arithmetic as a fused z-folded conv).
         out = ctx.conv_in(x, self.convs["conv0p1s1"])
         out_p1 = torch.relu(ctx.norm(out, self.norms["bn0"], 0))
-        b_p1 = self._act_bound(self.norms["bn0"])
+        b_p1 = self._act_bound(ctx, self.norms["bn0"])
 
         def down(name, x_in, fine_idx):
             norm = self.norms[name.replace("conv", "bn")]
             out = ctx.conv_down(x_in, self.convs[name], fine_idx)
             return (torch.relu(ctx.norm(out, norm, fine_idx + 1)),
-                    self._act_bound(norm))
+                    self._act_bound(ctx, norm))
 
         skips: Dict[int, torch.Tensor] = {0: out_p1}
         skip_bounds = {0: b_p1}
@@ -422,7 +425,7 @@ class Res16UNetBase(nn.Module):
             norm = self.norms[name.replace("convtr", "bntr")]
             out = ctx.conv_tr(out, self.convs[name], coarse)
             out = torch.relu(ctx.norm(out, norm, coarse - 1))
-            bnd = self._cat_bound(self._act_bound(norm),
+            bnd = self._cat_bound(self._act_bound(ctx, norm),
                                   skip_bounds[coarse - 1])
             out = torch.cat([out, skips[coarse - 1]], dim=-1)
             out, _ = self._blocks(ctx, i + 5, out, coarse - 1, bnd)

@@ -2,11 +2,16 @@
 multi-scale backbone features, with a mask module emitting per-point mask
 logits and class logits after every refinement.
 
-The eval path of the JAX package's model, batched over the `[B, N]` padded
-layout: the full padded level is the attention memory (padding rows
-blocked), the squeezed memory and its K/V projections are computed once per
-level and reused by every shared decoder round, and every masked
-cross-attention runs the CUDA kernel of `ops/masked_attention.py`.
+The JAX package's model, batched over the `[B, N]` padded layout. In eval
+mode the full padded level is the attention memory (padding rows blocked),
+and the squeezed memory and its K/V projections are computed once per
+level and reused by every shared decoder round. In train mode
+(`model.train()`) each cross-attention attends to a random sample of
+`sample_sizes[hlevel]` rows of its level (`sample_memory_idx`, drawn from
+the caller's `torch.Generator`) unless `max_sample_size`, the int8 convs
+stay off, and `remat_backbone` recomputes the backbone in the backward.
+Every masked cross-attention runs the CUDA kernel of
+`ops/masked_attention.py`.
 Attention masks come from the pooled mask-feature pyramid: on the dense
 grids (pooling commutes with the linear mask head) on the dense backbone,
 by row-space average pooling over the PoolMaps on the gather backbones.
@@ -19,6 +24,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mask3d_tpu_torch.device import resolve_device
 from mask3d_tpu_torch.models.backbone import BACKBONES, IMPLS
@@ -88,10 +94,11 @@ class MultiheadAttention(nn.Module):
 
 # from mask3d_tpu/models/mask3d.py:192 CrossAttentionLayer (post-norm)
 class CrossAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = nn.Dropout(dropout)
 
     def project_kv(self, memory, pos):
         """K attends to memory+pos, V to memory; constant across the
@@ -100,31 +107,35 @@ class CrossAttentionLayer(nn.Module):
 
     def forward(self, tgt, memory_mask, query_pos, kv_proj):
         t2 = self.attn(tgt + query_pos, mask=memory_mask, kv_proj=kv_proj)
-        return self.norm(tgt + t2)
+        return self.norm(tgt + self.drop(t2))
 
 
 # from mask3d_tpu/models/mask3d.py:231 SelfAttentionLayer (post-norm)
 class SelfAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, tgt, query_pos):
         t2 = self.attn(tgt + query_pos, tgt + query_pos, tgt)
-        return self.norm(tgt + t2)
+        return self.norm(tgt + self.drop(t2))
 
 
 # from mask3d_tpu/models/mask3d.py:252 FFNLayer (post-norm)
 class FFNLayer(nn.Module):
-    def __init__(self, d_model: int, dim_feedforward: int):
+    def __init__(self, d_model: int, dim_feedforward: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.lin1 = nn.Linear(d_model, dim_feedforward)
         self.lin2 = nn.Linear(dim_feedforward, d_model)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, tgt):
-        return self.norm(tgt + self.lin2(torch.relu(self.lin1(tgt))))
+        t2 = self.lin2(self.drop(torch.relu(self.lin1(tgt))))
+        return self.norm(tgt + self.drop(t2))
 
 
 # from mask3d_tpu/models/mask3d.py:274 _masked_minmax
@@ -140,16 +151,27 @@ def _masked_minmax(coords, valid):
             torch.where(any_valid, maxs, 0.0))
 
 
-# from mask3d_tpu/models/mask3d.py:288 Mask3D (the eval path, one set of
-# decoder layers shared by every round, post-norm layers)
+# from mask3d_tpu/models/mask3d.py:693-699 uniform (the sampled rows)
+def sample_memory_idx(r, valid, s: int):
+    """The rows a sampled memory takes: r f32[B, cap] uniforms in [0, 1),
+    valid bool[B, cap] -> i64[B, s], the valid rows in the order of their
+    draws, then the invalid rows in row order (r = 2 there; stable
+    sort)."""
+    r = torch.where(valid, r, 2.0)
+    return torch.argsort(r, dim=-1, stable=True)[:, :s]
+
+
+# from mask3d_tpu/models/mask3d.py:288 Mask3D (one set of decoder layers
+# shared by every round, post-norm layers)
 class Mask3D(nn.Module):
     def __init__(self, num_classes=1, hidden_dim=128, dim_feedforward=1024,
-                 num_queries=25, num_heads=8, num_decoders=3,
+                 num_queries=25, num_heads=8, num_decoders=3, dropout=0.0,
                  normalize_pos_enc=True, positional_encoding_type="fourier",
                  gauss_scale=1.0, hlevels=(0, 1, 2, 3),
-                 backbone_name="Res16UNet34C", in_channels=1,
-                 conv1_kernel_size=5, backbone_impl="dense",
-                 **backbone_opts):
+                 sample_sizes=(200, 800, 3200, 12800, 51200),
+                 max_sample_size=False, backbone_name="Res16UNet34C",
+                 in_channels=1, conv1_kernel_size=5, backbone_impl="dense",
+                 remat_backbone=False, **backbone_opts):
         """`backbone_opts`: the backbone's compute dtype and int8 options
         (`Res16UNetBase`)."""
         super().__init__()
@@ -158,10 +180,14 @@ class Mask3D(nn.Module):
         self.num_queries = num_queries
         self.num_heads = num_heads
         self.num_decoders = num_decoders
+        self.dropout = dropout
         self.normalize_pos_enc = normalize_pos_enc
         self.positional_encoding_type = positional_encoding_type
         self.gauss_scale = gauss_scale
         self.hlevels = tuple(hlevels)
+        self.sample_sizes = tuple(sample_sizes)
+        self.max_sample_size = max_sample_size
+        self.remat_backbone = remat_backbone
         self.backbone = BACKBONES[backbone_name](
             in_channels=in_channels, conv1_kernel_size=conv1_kernel_size,
             impl=backbone_impl, **backbone_opts)
@@ -175,11 +201,11 @@ class Mask3D(nn.Module):
         # keys "0_{i}": the JAX package's shared-decoder names cross_0_{i} ...
         keys = [f"0_{i}" for i in range(len(self.hlevels))]
         self.cross = nn.ModuleDict(
-            {k: CrossAttentionLayer(d, num_heads) for k in keys})
+            {k: CrossAttentionLayer(d, num_heads, dropout) for k in keys})
         self.self_attn = nn.ModuleDict(
-            {k: SelfAttentionLayer(d, num_heads) for k in keys})
+            {k: SelfAttentionLayer(d, num_heads, dropout) for k in keys})
         self.ffn = nn.ModuleDict(
-            {k: FFNLayer(d, dim_feedforward) for k in keys})
+            {k: FFNLayer(d, dim_feedforward, dropout) for k in keys})
         self.squeeze = nn.ModuleDict({
             k: nn.Linear(fm_channels[h], d)
             for k, h in zip(keys, self.hlevels)})
@@ -218,17 +244,43 @@ class Mask3D(nn.Module):
                                    normalize=self.normalize_pos_enc)
         raise ValueError(self.positional_encoding_type)
 
+    def _sampled(self, hlevel: int, cap: int) -> int:
+        """Rows of a cross-attention's memory at `hlevel`: the whole padded
+        level in eval mode or with `max_sample_size`, else at most
+        `sample_sizes[hlevel]`."""
+        if not self.training or self.max_sample_size:
+            return cap
+        return min(cap, int(self.sample_sizes[hlevel]))
+
     def forward(self, sb: SparseBatch, feats, raw_coords, grid_dims,
-                aux_masks: bool = True) -> Mask3DOutput:
+                aux_masks: bool = True, generator=None) -> Mask3DOutput:
         """feats [B, N1, in_channels]; raw_coords f32[B, N1, 3] (the voxel
         coordinates, the PE/FPS positions). `aux_masks=False` skips the
         auxiliary full-resolution mask logits; `aux_pred_masks` then holds
-        only the final prediction."""
+        only the final prediction. `generator` (a `torch.Generator` on the
+        model's device) draws the sampled memories of train mode."""
         b = feats.shape[0]
         n_levels = sb.num_levels
         valid0 = sb.levels[0].valid
+        if self.training and self.dropout > 0:
+            # The JAX package's train step passes no "dropout" rng
+            # (train/loop.py:273), so its flax Dropout raises there.
+            raise NotImplementedError(
+                "model.dropout > 0 in training: the JAX package's train step "
+                "cannot run it either (no dropout rng); set model.dropout=0")
 
-        bb_out, feature_maps, bb_grid = self.backbone(feats, sb, grid_dims)
+        # int8 convs at eval only: quantization has no useful gradient
+        int8 = not self.training
+        if self.training and self.remat_backbone:
+            # from mask3d_tpu/models/mask3d.py:389-395 remat_backbone:
+            # recompute the backbone in the backward instead of keeping its
+            # activations
+            bb_out, feature_maps, bb_grid = checkpoint(
+                self.backbone, feats, sb, grid_dims, int8,
+                use_reentrant=False)
+        else:
+            bb_out, feature_maps, bb_grid = self.backbone(feats, sb,
+                                                          grid_dims, int8)
         # feature_maps: [s16, s8, s4, s2, s1]; sparse level of fm[i] = 4-i
         fm_level = [n_levels - 1 - i for i in range(n_levels)]
 
@@ -236,8 +288,12 @@ class Mask3D(nn.Module):
         # promotes bf16 inputs with f32 kernels; nn.Linear would refuse).
         mask_feats = self.mask_features_head(bb_out.float()) * \
             valid0[..., None]
-        coords_pyr = [raw_coords.float()]
-        mask_feats_pyr = [mask_feats]
+        # The coordinate and pooled mask-feature pyramids only place the
+        # positional encodings and threshold the attention masks: no
+        # gradient flows through them (the JAX package's stop_gradients,
+        # mask3d.py:438, :450, :477-478, :494).
+        coords_pyr = [raw_coords.float().detach()]
+        mask_feats_pyr = [mask_feats.detach()]
         if bb_grid is not None:
             # Pooled pyramid on the dense grids: mean-pool the coordinate
             # grid and the backbone grid, gather rows per level, and apply
@@ -245,13 +301,15 @@ class Mask3D(nn.Module):
             coord_grid = dense_ops.cell_coord_grid(
                 grid_dims[0], b, device=feats.device) * sb.occ[0]
             for crow, brow in dense_ops.pooled_row_pyramid(
-                    [coord_grid, bb_grid], sb.occ, sb.levels, grid_dims):
+                    [coord_grid, bb_grid.detach()], sb.occ, sb.levels,
+                    grid_dims):
                 coords_pyr.append(crow)
-                mask_feats_pyr.append(self.mask_features_head(brow.float()))
+                mask_feats_pyr.append(
+                    self.mask_features_head(brow.float()).detach())
         else:
             # from mask3d_tpu/models/mask3d.py:498-506: one row-space mean
             # pool of [coords | mask_feats] per level, split afterwards
-            fused = torch.cat([coords_pyr[0], mask_feats], dim=-1)
+            fused = torch.cat([coords_pyr[0], mask_feats_pyr[0]], dim=-1)
             for i, pool in enumerate(sb.pools):
                 fused = avg_pool(fused, pool, sb.levels[i + 1].capacity)
                 coords_pyr.append(fused[..., :3])
@@ -287,7 +345,7 @@ class Mask3D(nn.Module):
                 return out_class, out_masks, None
             pooled = torch.einsum("bnd,bqd->bnq",
                                   mask_feats_pyr[num_pooling_steps],
-                                  mask_embed)
+                                  mask_embed.detach())
             return out_class, out_masks, torch.sigmoid(pooled) < 0.5
 
         predictions_class, predictions_masks = [], []
@@ -300,20 +358,44 @@ class Mask3D(nn.Module):
                 level = sb.levels[lvl]
                 key = f"0_{li}"
                 cross = self.cross[key]
-                if key not in kv_cache:
-                    src = self.squeeze[key](feature_maps[hlevel].float())
-                    kv_cache[key] = cross.project_kv(src, pe_pyr[lvl])
-                # The memory is the full padded level: unblock queries whose
-                # mask blocks every row, then block the padding rows.
                 cap = level.capacity
-                pad = torch.arange(cap, device=attn.device)[None] \
-                    >= level.count[:, None]
-                all_blocked = attn.sum(dim=1) == cap  # [B, Q]
+                s = self._sampled(hlevel, cap)
+                if s == cap:
+                    # The full padded level: its squeezed memory and K/V
+                    # are the same in every shared-decoder round.
+                    if key not in kv_cache:
+                        src = self.squeeze[key](feature_maps[hlevel].float())
+                        kv_cache[key] = cross.project_kv(src, pe_pyr[lvl])
+                    kvp = kv_cache[key]
+                    n_rows = level.count
+                else:
+                    # from mask3d_tpu/models/mask3d.py:693-716 uniform: a
+                    # fresh sample of the level's valid rows each round
+                    if generator is None:
+                        raise ValueError("a sampled memory needs a "
+                                         "torch.Generator (generator=)")
+                    r = torch.rand((b, cap), generator=generator,
+                                   device=attn.device)
+                    idx = sample_memory_idx(r, level.valid, s)
+
+                    def take(x):
+                        return torch.gather(
+                            x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+                    src = self.squeeze[key](take(feature_maps[hlevel].float()))
+                    kvp = cross.project_kv(src, take(pe_pyr[lvl]))
+                    attn = take(attn)  # [B, S, Q]
+                    n_rows = torch.clamp(level.count, max=s)
+                # Unblock queries whose mask blocks every row, then block
+                # the padding rows.
+                pad = torch.arange(s, device=attn.device)[None] \
+                    >= n_rows[:, None]
+                all_blocked = attn.sum(dim=1) == s  # [B, Q]
                 attn = attn & ~all_blocked[:, None, :]
                 attn = attn | pad[..., None]
                 mem_mask = attn.transpose(1, 2).contiguous()  # [B, Q, S]
 
-                queries = cross(queries, mem_mask, query_pos, kv_cache[key])
+                queries = cross(queries, mem_mask, query_pos, kvp)
                 queries = self.self_attn[key](queries, query_pos)
                 queries = self.ffn[key](queries)
                 predictions_class.append(out_class)
@@ -327,7 +409,8 @@ class Mask3D(nn.Module):
                             aux_pred_masks=torch.stack(predictions_masks))
 
 
-# model options the port has not fully ported -> the values it runs
+# model options the port has not fully ported -> the values it runs (the
+# same in train and eval mode)
 _SUPPORTED_VALUES = {
     "non_parametric_queries": (True,), "random_queries": (False,),
     "random_query_both": (False,), "use_np_features": (False,),
@@ -339,10 +422,14 @@ _SUPPORTED_VALUES = {
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
-    """Entry point: the Mask3D eval model of `cfg.model`, with seeded random
-    weights, on `device`, in eval mode. Load trained weights with
-    `bridge.load_flax`. The model is eval-only, so `int8_stride1` applies
-    as it is (the JAX package passes `int8_stride1 and is_eval`)."""
+    """Entry point: the Mask3D of `cfg.model`, with seeded random weights,
+    on `device`, in eval mode. Load trained weights with
+    `bridge.load_flax` or `train.checkpoint`. `model.train()` puts it in
+    train mode (what `train.loop.init_state` does): sampled memories
+    (`sample_sizes`, `max_sample_size`), `remat_backbone`, and no int8 convs
+    (the JAX package passes `int8_stride1 and is_eval`); `dropout` > 0
+    raises there, as the JAX package's train step does. bf16 training runs
+    on the dense impl only (the gather impls refuse `compute_dtype`)."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
@@ -356,13 +443,14 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
         num_classes=m.num_classes, hidden_dim=m.hidden_dim,
         dim_feedforward=m.dim_feedforward, num_queries=m.num_queries,
         num_heads=m.num_heads, num_decoders=m.num_decoders,
-        normalize_pos_enc=m.normalize_pos_enc,
+        dropout=m.dropout, normalize_pos_enc=m.normalize_pos_enc,
         positional_encoding_type=m.positional_encoding_type,
         gauss_scale=m.gauss_scale, hlevels=m.hlevels,
+        sample_sizes=m.sample_sizes, max_sample_size=m.max_sample_size,
         backbone_name=m.backbone,
         in_channels=cfg.data.in_channels,
         conv1_kernel_size=m.conv1_kernel_size,
-        backbone_impl=m.backbone_impl,
+        backbone_impl=m.backbone_impl, remat_backbone=m.remat_backbone,
         compute_dtype=(torch.bfloat16 if m.compute_dtype == "bfloat16"
                        else None),
         int8_stride1=m.int8_stride1, int8_residual=m.int8_residual,

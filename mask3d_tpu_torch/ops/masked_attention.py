@@ -9,6 +9,13 @@ tensor it launches the hand-written kernel and adds one to
 `masked_cross_attention.launches_by_shape[S]` (the key length); on a CPU
 tensor it runs `masked_cross_attention_plain`, the one-shot softmax in
 plain PyTorch.
+
+It is differentiable in q, k and v (`MaskedCrossAttention`): the forward
+is the kernel (or the plain version on the CPU), the backward the VJP of
+the plain one-shot form, recomputed from the saved inputs, as the JAX
+package's `custom_vjp` takes the VJP of its XLA form
+(`pallas_attention.py:155-170`). The backward is plain PyTorch on both
+devices.
 """
 
 from __future__ import annotations
@@ -144,14 +151,11 @@ def _kernel():
     return _lib.masked_cross_attention_f32
 
 
-def masked_cross_attention(q, k, v, mask, num_heads: int):
-    """q f32[B, Q, D]; k, v f32[B, S, D]; mask [B, Q, S] -> f32[B, Q, D]."""
-    _check(q, k, v, mask, num_heads)
-    if q.device.type == "cpu":
+def _forward(q, k, v, mask, num_heads: int):
+    """The kernel on a CUDA tensor (counted), the plain version on a CPU
+    one."""
+    if not cuda_build.use_kernel(q, "masked_cross_attention"):
         return masked_cross_attention_plain(q, k, v, mask, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_cross_attention: unsupported device "
-                         f"{q.device}")
     b, nq, d = q.shape
     s = k.shape[1]
     hd = d // num_heads
@@ -190,6 +194,44 @@ def masked_cross_attention(q, k, v, mask, num_heads: int):
     masked_cross_attention.launches_by_shape[s] = \
         masked_cross_attention.launches_by_shape.get(s, 0) + 1
     return out
+
+
+# from mask3d_tpu/ops/pallas_attention.py:160 _mca_bwd
+def masked_cross_attention_backward(q, k, v, mask, num_heads: int, g,
+                                    needs=(True, True, True)):
+    """(dq, dk, dv) for the output cotangent g: the VJP of
+    `masked_cross_attention_plain` at (q, k, v), None where `needs` is
+    false."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip((q, k, v), needs)]
+        out = masked_cross_attention_plain(*leaves, mask, num_heads)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class MaskedCrossAttention(torch.autograd.Function):
+    """The kernel's forward with the plain form's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_heads):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.num_heads = num_heads
+        return _forward(q, k, v, mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        grads = masked_cross_attention_backward(
+            q, k, v, mask, ctx.num_heads, g, ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
+def masked_cross_attention(q, k, v, mask, num_heads: int):
+    """q f32[B, Q, D]; k, v f32[B, S, D]; mask [B, Q, S] -> f32[B, Q, D]."""
+    _check(q, k, v, mask, num_heads)
+    return MaskedCrossAttention.apply(q, k, v, mask, num_heads)
 
 
 masked_cross_attention.launches = 0

@@ -4,6 +4,13 @@
 where `ok[b, t]`, else 0, in src's dtype. On a CUDA tensor it launches the
 hand-written kernel (an f32 and a bf16 variant); on a CPU tensor it runs
 `row_gather_plain`, the same function in plain PyTorch.
+
+It is differentiable in src (`RowGather`): the backward is the JAX
+package's (`pallas_gather.py:216-222`), an f32 scatter-add of the output
+cotangent at idx where ok, in plain PyTorch on both devices. The scatter is
+`index_put_(accumulate=True)`, whose CUDA implementation sums in a fixed
+order: every padding row clamps onto one source row, and a run must repeat
+bitwise.
 """
 
 from __future__ import annotations
@@ -57,14 +64,11 @@ def _kernel(dtype):
     return getattr(_lib, _VARIANTS[dtype][0])
 
 
-def row_gather(src, idx, ok):
-    """src f32 or bf16 [B, N, C], idx i32[B, M], ok bool[B, M] ->
-    [B, M, C] in src's dtype."""
-    _check(src, idx, ok)
-    if src.device.type == "cpu":
+def _forward(src, idx, ok):
+    """The kernel on a CUDA tensor (counted), the plain version on a CPU
+    one."""
+    if not cuda_build.use_kernel(src, "row_gather"):
         return row_gather_plain(src, idx, ok)
-    if src.device.type != "cuda":
-        raise ValueError(f"row_gather: unsupported device {src.device}")
     if src.dtype not in _VARIANTS:
         raise TypeError(f"row_gather kernel takes float32 or bfloat16, got "
                         f"{src.dtype}")
@@ -85,6 +89,46 @@ def row_gather(src, idx, ok):
     row_gather.launches_by_dtype[key] = \
         row_gather.launches_by_dtype.get(key, 0) + 1
     return out
+
+
+def scatter_add_rows(g, idx, ok, n_rows: int, out=None):
+    """f32 [B, n_rows, C]: the rows g[b, t] added at idx[b, t] where
+    ok[b, t] (the masking comes first: idx is clamped where not ok), with
+    a deterministic scatter, into `out` where given (in place), else into
+    zeros."""
+    b, _, c = g.shape
+    if out is None:
+        out = torch.zeros((b, n_rows, c), dtype=torch.float32,
+                          device=g.device)
+    contrib = torch.where(ok[..., None], g.float(), 0.0)
+    b_idx = torch.arange(b, device=g.device)[:, None].expand_as(idx)
+    out.index_put_((b_idx, idx.long().clamp(0, n_rows - 1)), contrib,
+                   accumulate=True)
+    return out
+
+
+class RowGather(torch.autograd.Function):
+    """The kernel's forward with the JAX package's scatter-add backward."""
+
+    @staticmethod
+    def forward(ctx, src, idx, ok):
+        ctx.save_for_backward(idx, ok)
+        ctx.src_shape, ctx.src_dtype = src.shape, src.dtype
+        return _forward(src, idx, ok)
+
+    # from mask3d_tpu/sparse/pallas_gather.py:216 _bwd
+    @staticmethod
+    def backward(ctx, g):
+        idx, ok = ctx.saved_tensors
+        dsrc = scatter_add_rows(g, idx, ok, ctx.src_shape[1])
+        return dsrc.to(ctx.src_dtype), None, None
+
+
+def row_gather(src, idx, ok):
+    """src f32 or bf16 [B, N, C], idx i32[B, M], ok bool[B, M] ->
+    [B, M, C] in src's dtype."""
+    _check(src, idx, ok)
+    return RowGather.apply(src, idx, ok)
 
 
 row_gather.launches = 0

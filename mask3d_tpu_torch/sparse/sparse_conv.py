@@ -16,6 +16,14 @@ block; 64- or 128-row tiles; and a split of each tile's active offsets
 over several blocks (split-K) where few tiles would otherwise fill the
 card.
 
+It is differentiable in feats and weight (`SparseConv`): the backward is
+the JAX package's (`pallas_conv.py:336-368`), one pass per kernel offset
+in plain PyTorch on both devices: dF adds g @ W[k]^T at the offset's
+neighbour rows where ok (a fixed-order scatter, `row_gather.
+scatter_add_rows`), dW[k] = gathered(F)^T g. Both are f32 and, as in
+JAX, use the f32 feats and weights, not the bf16-rounded ones of the
+forward.
+
 Which levels take it is the model's numerics, not a fallback: the backbone
 sends a level here only where `supports(N)` holds (the JAX eligibility
 rule); other levels run the fp32 `ops.sparse_conv`. The kernel itself takes
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 
 from mask3d_tpu_torch import cuda_build
 from mask3d_tpu_torch.sparse import ops
+from mask3d_tpu_torch.sparse.row_gather import scatter_add_rows
 
 # 128-row tiles where a launch has at least this many of them, else 64
 WIDE_TILES = 1024
@@ -161,14 +170,11 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def sparse_conv(feats, weight, nbr_idx, nbr_ok):
-    """feats f32[B, N, Cin], weight [K, Cin, Cout] (f32 or bf16),
-    nbr_idx i32 / nbr_ok bool [B, N, K] -> f32[B, N, Cout]."""
-    _check(feats, weight, nbr_idx, nbr_ok)
-    if feats.device.type == "cpu":
+def _forward(feats, weight, nbr_idx, nbr_ok):
+    """The kernel on a CUDA tensor (counted), the plain version on a CPU
+    one."""
+    if not cuda_build.use_kernel(feats, "sparse_conv"):
         return sparse_conv_plain(feats, weight, nbr_idx, nbr_ok)
-    if feats.device.type != "cuda":
-        raise ValueError(f"sparse_conv: unsupported device {feats.device}")
     if feats.dtype != torch.float32:
         raise TypeError(f"sparse_conv kernel takes float32 feats, got "
                         f"{feats.dtype}")
@@ -208,6 +214,50 @@ def sparse_conv(feats, weight, nbr_idx, nbr_ok):
     sparse_conv.launches_by_shape[key] = \
         sparse_conv.launches_by_shape.get(key, 0) + 1
     return out
+
+
+# from mask3d_tpu/sparse/pallas_conv.py:336 _bwd
+def sparse_conv_backward(feats, weight, nbr_idx, nbr_ok, g,
+                         needs=(True, True)):
+    """(dF, dW) for the output cotangent g [B, N, Cout], f32 and cast to
+    feats' and weight's dtypes; None where `needs` is false."""
+    b, n, _ = feats.shape
+    g = g.float()
+    f32, w32 = feats.float(), weight.float()
+    df = torch.zeros_like(f32) if needs[0] else None
+    dw = torch.empty_like(w32) if needs[1] else None
+    for k in range(weight.shape[0]):
+        idx_k, ok_k = nbr_idx[..., k], nbr_ok[..., k]
+        if df is not None:
+            scatter_add_rows(g @ w32[k].t(), idx_k, ok_k, n, out=df)
+        if dw is not None:
+            gath = ops.gather_rows(f32, idx_k, ok_k)
+            dw[k] = torch.einsum("bnc,bnd->cd", gath, g)
+    return (None if df is None else df.to(feats.dtype),
+            None if dw is None else dw.to(weight.dtype))
+
+
+class SparseConv(torch.autograd.Function):
+    """The kernel's forward with the JAX package's per-offset backward."""
+
+    @staticmethod
+    def forward(ctx, feats, weight, nbr_idx, nbr_ok):
+        ctx.save_for_backward(feats, weight, nbr_idx, nbr_ok)
+        return _forward(feats, weight, nbr_idx, nbr_ok)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weight, nbr_idx, nbr_ok = ctx.saved_tensors
+        df, dw = sparse_conv_backward(feats, weight, nbr_idx, nbr_ok, g,
+                                      ctx.needs_input_grad[:2])
+        return df, dw, None, None
+
+
+def sparse_conv(feats, weight, nbr_idx, nbr_ok):
+    """feats f32[B, N, Cin], weight [K, Cin, Cout] (f32 or bf16),
+    nbr_idx i32 / nbr_ok bool [B, N, K] -> f32[B, N, Cout]."""
+    _check(feats, weight, nbr_idx, nbr_ok)
+    return SparseConv.apply(feats, weight, nbr_idx, nbr_ok)
 
 
 sparse_conv.launches = 0

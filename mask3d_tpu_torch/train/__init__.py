@@ -1,2 +1,2 @@
-"""The test entry: set criterion, checkpoint reader, exports and the trainer's
-eval path."""
+"""Training and the test entry: the train step with AdamW (`loop`), the set
+criterion, checkpoints, the metric logger, exports and the trainer."""

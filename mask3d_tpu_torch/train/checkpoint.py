@@ -1,15 +1,19 @@
-"""Checkpoint restore with tolerant key matching: reads the files the JAX
-package's `save_checkpoint` writes (mask3d_tpu/train/checkpoint.py).
+"""Checkpoints: save, the last-epoch / best-metric policy, and restore
+with tolerant key matching (mask3d_tpu/train/checkpoint.py).
 
-A checkpoint is `flax.serialization.to_bytes(TrainState)`: a msgpack map
-whose array leaves are msgpack ext types, plus a `.meta.json` sidecar. The
-port carries its own msgpack decoder (`msgpack_restore`), since neither
-flax nor msgpack is a dependency of the port. The decoded
-`{"params", "buffers"}` tree goes through `bridge` to the port's
-`state_dict` names, where the tolerance rules apply: a missing key keeps
-the fresh init, a key of another shape keeps the init, an excess key (or a
-leaf `bridge` cannot map) is dropped, each with a warning. Saving comes
-with training.
+The port writes its own files: `torch.save` of the model's `state_dict`,
+the optimizer's and the scheduler's, the step, the generator's state and
+the epoch, written atomically (a temporary file, fsync, `os.replace`),
+plus the JAX package's `.meta.json` sidecar. Every reader also takes the
+JAX package's files, `flax.serialization.to_bytes(TrainState)`: a msgpack
+map whose array leaves are msgpack ext types. The port carries its own
+msgpack decoder (`msgpack_restore`), since neither flax nor msgpack is a
+dependency of the port; the decoded `{"params", "buffers"}` tree goes
+through `bridge` to the port's `state_dict` names. A JAX file restores
+parameters and buffers only: resuming a JAX run's optimizer state is not
+ported. In the tolerant readers a missing key keeps the fresh init, a key
+of another shape keeps the init, an excess key (or a leaf `bridge` cannot
+map) is dropped, each with a warning.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import json
 import logging
 import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +30,9 @@ import torch
 from mask3d_tpu_torch import bridge
 
 logger = logging.getLogger(__name__)
+
+PORT_FORMAT = "mask3d_tpu_torch/1"  # the "format" entry of the port's files
+_ZIP_MAGIC = b"PK\x03\x04"  # torch.save's zip container
 
 # flax.serialization's msgpack ext codes
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
@@ -145,6 +152,47 @@ def _read(path: str):
         return msgpack_restore(f.read())
 
 
+def _is_port_file(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(4) == _ZIP_MAGIC
+
+
+def _read_port(path: str, device="cpu") -> dict:
+    payload = torch.load(path, map_location=device, weights_only=True)
+    if payload.get("format") != PORT_FORMAT:
+        raise ValueError(f"{path}: not a {PORT_FORMAT} checkpoint")
+    return payload
+
+
+# from mask3d_tpu/train/checkpoint.py:39 save_checkpoint
+def save_checkpoint(path: str, state, epoch: int = 0,
+                    metadata: Optional[dict] = None):
+    """Write `state` (a `train.loop.TrainState`) to `path` and the
+    `{"epoch", **metadata}` sidecar to `path.meta.json`, each atomically:
+    a save cut short leaves the previous file whole."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {
+        "format": PORT_FORMAT, "epoch": epoch, "step": state.step,
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "generator": state.generator.get_state(),
+    }
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    meta = {"epoch": epoch, **(metadata or {})}
+    meta_tmp = path + ".meta.json.tmp"
+    with open(meta_tmp, "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(meta_tmp, path + ".meta.json")
+
+
 def _port_tree(source: dict, col: str, prefix: Tuple[str, ...] = ()
                ) -> Dict[str, torch.Tensor]:
     """Map a Flax subtree to port state_dict entries; a leaf `bridge`
@@ -163,15 +211,19 @@ def _port_tree(source: dict, col: str, prefix: Tuple[str, ...] = ()
 # from mask3d_tpu/train/checkpoint.py:74 load_params_tolerant
 def load_params_tolerant(path: str, model: torch.nn.Module):
     """Restore `model`'s parameters (and the `gauss_B` buffer, where the
-    checkpoint holds one) with missing/shape-mismatch/excess tolerance. The
-    checkpoint may hold a full TrainState or a bare params dict."""
-    raw = _read(path)
-    source = _port_tree(raw.get("params", raw), "params")
-    if "params" in raw and "buffers" in raw:
-        # The JAX package restores params only and keeps the buffers of
-        # its own fresh init, which equal the checkpoint's under the same
-        # seed; the port's init differs, so it restores them.
-        source.update(_port_tree(raw["buffers"], "buffers"))
+    checkpoint holds one) with missing/shape-mismatch/excess tolerance,
+    from a file of the port or of the JAX package (a full TrainState or a
+    bare params dict)."""
+    if _is_port_file(path):
+        source = _read_port(path)["model"]
+    else:
+        raw = _read(path)
+        source = _port_tree(raw.get("params", raw), "params")
+        if "params" in raw and "buffers" in raw:
+            # The JAX package restores params only and keeps the buffers
+            # of its own fresh init, which equal the checkpoint's under the
+            # same seed; the port's init differs, so it restores them.
+            source.update(_port_tree(raw["buffers"], "buffers"))
     merged = load_params_tolerant_from_dict(source, model.state_dict())
     for key in source:
         if key not in merged:
@@ -184,16 +236,20 @@ def load_params_tolerant(path: str, model: torch.nn.Module):
 def load_backbone_tolerant(path: str, model: torch.nn.Module):
     """Backbone-only restore: keys under the `backbone` subtree; everything
     else keeps the fresh init."""
-    raw = _read(path)
-    source = raw.get("params", raw)
-    src_backbone = source.get("backbone", source)
     target = model.state_dict()
     backbone = {k: v for k, v in target.items()
                 if k.startswith("backbone.")}
     if not backbone:
         logger.warning("target has no backbone subtree; nothing restored")
         return model
-    mapped = _port_tree(src_backbone, "params", ("backbone",))
+    if _is_port_file(path):
+        mapped = {k: v for k, v in _read_port(path)["model"].items()
+                  if k.startswith("backbone.")}
+    else:
+        source = _read(path)
+        source = source.get("params", source)
+        mapped = _port_tree(source.get("backbone", source), "params",
+                            ("backbone",))
     target.update(load_params_tolerant_from_dict(mapped, backbone))
     model.load_state_dict(target, strict=True)
     return model
@@ -220,15 +276,65 @@ def load_params_tolerant_from_dict(source: Dict[str, Any],
 
 
 # from mask3d_tpu/train/checkpoint.py:62 load_checkpoint
-def load_checkpoint(path: str, model: torch.nn.Module):
+def load_checkpoint(path: str, model: torch.nn.Module, state=None):
     """Strict restore of params and buffers (every port key filled, every
-    shape equal) and the `.meta.json` sidecar: returns (model, meta)."""
-    raw = _read(path)
-    bridge.load_flax(model, {"params": raw["params"],
-                             "buffers": raw.get("buffers", {})})
+    shape equal) and the `.meta.json` sidecar: returns (model, meta). With
+    `state` (the `TrainState` of `model`) a file of the port also restores
+    the optimizer, the schedule, the step and the generator; a file of the
+    JAX package holds no state the port can resume and then raises."""
+    if _is_port_file(path):
+        payload = _read_port(path, next(model.parameters()).device)
+        model.load_state_dict(payload["model"], strict=True)
+        if state is not None:
+            state.optimizer.load_state_dict(payload["optimizer"])
+            state.scheduler.load_state_dict(payload["scheduler"])
+            state.step = int(payload["step"])
+            state.generator.set_state(payload["generator"])
+    else:
+        if state is not None:
+            raise ValueError(
+                f"{path} is a JAX package checkpoint: its optimizer state "
+                "cannot be resumed by the port (load its weights with "
+                "general.checkpoint instead)")
+        raw = _read(path)
+        bridge.load_flax(model, {"params": raw["params"],
+                                 "buffers": raw.get("buffers", {})})
     meta = {}
     meta_path = path + ".meta.json"
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
     return model, meta
+
+
+# from mask3d_tpu/train/checkpoint.py:146 CheckpointManager
+class CheckpointManager:
+    """`last-epoch.ckpt` every epoch and `best_<metric>.ckpt` whenever a
+    validation metric improves (the reference's callbacks); the run
+    resumes from `last-epoch.ckpt`."""
+
+    def __init__(self, directory: str,
+                 best_metrics=("val_mean_ap_50", "val_mean_ap")):
+        self.directory = directory
+        self.best_metrics = best_metrics
+        self.best_values = {m: -np.inf for m in best_metrics}
+        os.makedirs(directory, exist_ok=True)
+
+    @property
+    def last_path(self) -> str:
+        return os.path.join(self.directory, "last-epoch.ckpt")
+
+    def save_last(self, state, epoch: int, metrics: Optional[dict] = None):
+        save_checkpoint(self.last_path, state, epoch, metrics)
+
+    def maybe_save_best(self, state, epoch: int, metrics: dict):
+        for m in self.best_metrics:
+            v = metrics.get(m)
+            if v is not None and np.isfinite(v) and v > self.best_values[m]:
+                self.best_values[m] = float(v)
+                path = os.path.join(self.directory, f"best_{m}.ckpt")
+                save_checkpoint(path, state, epoch, {m: float(v)})
+                logger.info(f"new best {m}={v:.4f} at epoch {epoch}")
+
+    def resume_path(self) -> Optional[str]:
+        return self.last_path if os.path.exists(self.last_path) else None

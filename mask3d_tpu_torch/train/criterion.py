@@ -188,11 +188,16 @@ class SetCriterion:
 
     # from mask3d_tpu/train/criterion.py:210 __call__
     def __call__(self, output: Mask3DOutput, targets: Targets,
-                 point_valid) -> Dict[str, torch.Tensor]:
+                 point_valid, ce_scale: float = 1.0
+                 ) -> Dict[str, torch.Tensor]:
         """All-level losses: loss_ce/loss_mask/loss_dice for the final
         output, *_mask_module_{i} for the auxiliary outputs, and the total
         "loss" weighted by the matcher costs (levels in `ignore_mask_idx`
-        weigh 0)."""
+        weigh 0). `ce_scale` multiplies the CE terms in the total only:
+        gradient accumulation over K micro-batches passes 1/K, since the
+        mask and dice losses are sums over items and CE is a batch mean.
+        Only the matching costs are detached; the losses keep their
+        graph."""
         n_levels = output.aux_pred_class.shape[0]
         if output.aux_pred_masks.shape[0] != n_levels:
             raise ValueError(
@@ -216,8 +221,9 @@ class SetCriterion:
             "loss_mask": per_level[-1, 1],
             "loss_dice": per_level[-1, 2],
         }
-        w = torch.tensor([self.cost_class, self.cost_mask, self.cost_dice],
-                         dtype=torch.float32, device=per_level.device)
+        w = torch.tensor(
+            [self.cost_class * ce_scale, self.cost_mask, self.cost_dice],
+            dtype=torch.float32, device=per_level.device)
         ignored = {i % n_levels for i in self.ignore_mask_idx}
         level_w = torch.tensor(
             [0.0 if i in ignored else 1.0 for i in range(n_levels)],

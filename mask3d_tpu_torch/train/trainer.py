@@ -1,12 +1,15 @@
-"""The test path of the JAX package's trainer
-(mask3d_tpu/train/trainer.py): run directory, datasets, voxelizing
-collation on a prefetch thread, the eval step on the device, host
-post-processing in a thread pool, the evaluator, and the optional exports.
+"""The JAX package's trainer (mask3d_tpu/train/trainer.py): run directory,
+datasets, voxelizing collation on a prefetch thread, the train step
+(`train/loop.py`) over a config-seeded shuffled order with train-split
+metrics, validation every `check_val_every_n_epoch` (the eval step on the
+device, host post-processing in a thread pool, the evaluator, the optional
+exports), `last-epoch.ckpt` and `best_*.ckpt`, auto-resume, the metric
+logger, and `test`.
 
-Training (the optimizer, `train_epoch`, `fit`, checkpoint saving, the
-metric logger), the data-parallel mesh and `measure_model_phases` are not
-ported yet (ROADMAP Queue 1 items 4 and 7); the trainer raises where a
-configuration asks for them.
+The data-parallel mesh (`trainer.num_data_parallel > 1`,
+`trainer.distributed`) and `measure_model_phases` are not ported yet
+(ROADMAP Queue 1 item 7); the trainer raises where a configuration asks
+for them.
 """
 
 from __future__ import annotations
@@ -14,21 +17,22 @@ from __future__ import annotations
 import logging
 import os
 import queue
+import signal
 import threading
 import time
+from collections import deque
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from mask3d_tpu_torch.config import Config, to_yaml
+from mask3d_tpu_torch.config import Config, flatten_dict, to_dict, to_yaml
 from mask3d_tpu_torch.data.batch import HostBatch
 from mask3d_tpu_torch.data.collate import VoxelizeCollate
 from mask3d_tpu_torch.data.datasets import DATASETS
 from mask3d_tpu_torch.device import resolve_device
 from mask3d_tpu_torch.evalm import Mask3DEvaluator
 from mask3d_tpu_torch.infer import make_eval_step
-from mask3d_tpu_torch.models.mask3d import build_model
 from mask3d_tpu_torch.postprocess import postprocess_item
 from mask3d_tpu_torch.train import checkpoint as ckpt
 from mask3d_tpu_torch.train.criterion import make_criterion
@@ -36,6 +40,8 @@ from mask3d_tpu_torch.train.export import (
     export_las_prediction_and_gt,
     export_prediction_generic,
 )
+from mask3d_tpu_torch.train.logging_utils import MetricLogger
+from mask3d_tpu_torch.train.loop import init_state, make_train_step
 from mask3d_tpu_torch.utils import meter
 
 logger = logging.getLogger(__name__)
@@ -73,16 +79,21 @@ def _prefetch(iterable: Iterable, depth: int = 2):
 class InstanceSegmentationTrainer:
     def __init__(self, cfg: Config, datasets: Optional[dict] = None,
                  device="cuda"):
-        if cfg.trainer.num_data_parallel > 1:
+        if cfg.trainer.num_data_parallel > 1 or cfg.trainer.distributed:
             raise NotImplementedError(
-                "trainer.num_data_parallel > 1: the data-parallel mesh "
-                "(parallel/*) is not ported yet (ROADMAP Queue 1 item 7)")
+                "trainer.num_data_parallel > 1 / trainer.distributed: the "
+                "data-parallel mesh (parallel/*) is not ported yet (ROADMAP "
+                "Queue 1 item 7)")
         if cfg.trainer.measure_model_phases:
             raise NotImplementedError(
                 "trainer.measure_model_phases: not ported yet (ROADMAP "
                 "Queue 1 item 7)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.trainer.debug_nans:
+            # the JAX package's jax_debug_nans: raise where the backward
+            # makes a NaN
+            torch.autograd.set_detect_anomaly(True)
         self.run_dir = os.path.join(
             cfg.general.save_dir,
             cfg.general.experiment_name,
@@ -132,16 +143,24 @@ class InstanceSegmentationTrainer:
             grid_dims_cap=cfg.data.grid_dims_cap,
         )
 
-        self.model = build_model(cfg, device=self.device,
-                                 seed=cfg.general.seed)
+        # the model and its optimizer state; an example train batch checks
+        # `model.unit_features`
+        example = self.collate([self.datasets["train"][0]]).device
+        self.state = init_state(cfg, example, device=self.device)
+        self.model = self.state.model
         self.criterion = make_criterion(cfg)
+        self.train_step = make_train_step(cfg, self.criterion, self.device)
         self.eval_step = make_eval_step(cfg, self.model, self.criterion,
                                         self.device)
         self.evaluator = Mask3DEvaluator(
             debug_best_worst_scenes=cfg.general.debug_best_worst_scenes,
             debug_mean_average_precision=cfg.general.debug_mean_average_precision,
         )
+        self.ckpt_mgr = ckpt.CheckpointManager(self.run_dir)
+        self.metrics = MetricLogger(
+            self.run_dir, hyperparams=flatten_dict(to_dict(cfg)))
         self.epoch = 0
+        self._rng = np.random.default_rng(cfg.general.seed)
 
         if cfg.general.checkpoint:
             ckpt.load_params_tolerant(cfg.general.checkpoint, self.model)
@@ -150,13 +169,18 @@ class InstanceSegmentationTrainer:
                                         self.model)
 
     # from mask3d_tpu/train/trainer.py:188 _batches
-    def _batches(self, split: str, batch_size: int):
-        """The split's batches in order (single process; the shuffled
-        train order comes with training)."""
+    def _batches(self, split: str, batch_size: int, shuffle: bool):
+        """The split's batches (one process): with `shuffle`, an order
+        drawn from the config-seeded generator (the JAX package's order
+        under the same seed), `general.reps_per_epoch` times."""
         ds = self.datasets[split]
-        for s in range(0, len(ds), batch_size):
-            yield self.collate([ds[i] for i in
-                                range(s, min(s + batch_size, len(ds)))])
+        order = np.arange(len(ds))
+        if shuffle:
+            self._rng.shuffle(order)
+        for _rep in range(self.cfg.general.reps_per_epoch if shuffle else 1):
+            for s in range(0, len(order), batch_size):
+                yield self.collate([ds[int(i)]
+                                    for i in order[s:s + batch_size]])
 
     def _to_device(self, host: HostBatch):
         """The batch's one host-to-device copy, on the caller's thread."""
@@ -212,10 +236,107 @@ class InstanceSegmentationTrainer:
             )
         return preds, targets
 
+    # from mask3d_tpu/train/trainer.py:269 _check_step
+    def _check_step(self, step: int, losses, scenes, counts) -> None:
+        """Per-step guards, read two steps late: a non-finite loss raises
+        FloatingPointError with the batch's scenes; a level-capacity
+        overflow (the step skipped its update) is logged."""
+        loss_val = float(losses["loss"])
+        if int(losses["batch_overflow"]) > 0:
+            logger.warning(
+                "level-capacity overflow at step %d — optimizer update "
+                "skipped: scenes=%s point_counts=%s; widen "
+                "data.level_cap_ratios or the point bucket.",
+                step, list(scenes), counts.tolist(),
+            )
+        if not np.isfinite(loss_val):
+            logger.error(
+                "non-finite train loss at step %d: scenes=%s "
+                "point_counts=%s",
+                step, list(scenes), counts.tolist(),
+            )
+            raise FloatingPointError(
+                f"non-finite train loss at step {step} "
+                f"(scenes={list(scenes)})"
+            )
+
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        prof_dir = os.path.join(self.run_dir, "profile")
+        os.makedirs(prof_dir, exist_ok=True)
+        path = os.path.join(prof_dir, f"trace_step{self.state.step}.json")
+        prof.export_chrome_trace(path)
+        logger.info(f"profiler trace written to {path}")
+
+    # from mask3d_tpu/train/trainer.py:300 train_epoch
+    def train_epoch(self) -> Dict[str, float]:
+        """One pass over the shuffled train split; returns the epoch means
+        that `MetricLogger.log_epoch` wrote. `trainer.profile_steps` traces
+        the steps from `trainer.profile_start` with `torch.profiler`."""
+        cfg = self.cfg
+        self.model.train()
+        pending: deque = deque()  # (step, losses, scenes, counts)
+        check_lag = 2
+        prof = None
+        for host in _prefetch(
+            self._batches("train", cfg.data.batch_size, shuffle=True)
+        ):
+            step_now = self.state.step
+            if cfg.trainer.profile_steps and \
+                    step_now == cfg.trainer.profile_start:
+                prof = self._profiler()
+            meter.notify_start_item()
+            batch = self._to_device(host)
+            meter.add_timing("data_preparation")
+            losses, preds = self.train_step(self.state, batch)
+            if prof is not None and step_now == (
+                    cfg.trainer.profile_start + cfg.trainer.profile_steps):
+                self._stop_profiler(prof)
+                prof = None
+            step = step_now + 1
+            pending.append(
+                (step, losses, host.scenes, np.asarray(host.device.counts)))
+            while len(pending) > check_lag:
+                self._check_step(*pending.popleft())
+            if cfg.trainer.train_split_metrics and preds is not None:
+                # evaluator metrics on the train forward's predictions
+                pd, tg = self._postprocess_batch(
+                    host, preds[0].cpu().numpy(), preds[1].cpu().numpy())
+                m = self.evaluator.evaluate(pd, tg, "train")
+                m.pop("train_classes", None)
+                self.metrics.log_step(
+                    {k: float(v) for k, v in m.items()}, step)
+            if step % cfg.trainer.log_every_n_steps == 0:
+                values = torch.stack(
+                    [v.float() for v in losses.values()]).cpu().numpy()
+                meter.add_timing("model_forward_complete")
+                meter.add_timing("logging_prep")
+                self.metrics.log_step(
+                    {f"train_{k}": float(v) for k, v in zip(losses, values)},
+                    step)
+                meter.add_timing("logging")
+            meter.notify_end_item()
+        if prof is not None:
+            self._stop_profiler(prof)
+        while pending:
+            self._check_step(*pending.popleft())
+        return self.metrics.log_epoch(self.epoch, self.state.step)
+
     # from mask3d_tpu/train/trainer.py:355 eval_epoch
     def eval_epoch(self, split: str, export: bool = False
                    ) -> Dict[str, float]:
         cfg = self.cfg
+        self.model.eval()
         prefix = {"validation": "val"}.get(split, split)
         self.evaluator.notify_new_epoch()
         bs = (
@@ -225,7 +346,7 @@ class InstanceSegmentationTrainer:
         )
         all_metrics: List[dict] = []
         loss_acc: Dict[str, list] = {}
-        for host in _prefetch(self._batches(split, bs)):
+        for host in _prefetch(self._batches(split, bs, shuffle=False)):
             meter.notify_start_item()
             batch = self._to_device(host)
             meter.add_timing("data_preparation")
@@ -296,6 +417,70 @@ class InstanceSegmentationTrainer:
             vals = [m[k] for m in all_metrics if np.isfinite(m[k])]
             epoch_means[k] = float(np.mean(vals)) if vals else float("nan")
         return epoch_means
+
+    # from mask3d_tpu/train/trainer.py:441 fit
+    def fit(self):
+        """Train to `trainer.max_epochs`, resuming from the run directory's
+        `last-epoch.ckpt` where there is one. SIGTERM or Ctrl-C saves
+        `last-epoch.ckpt` at the last finished epoch before it re-raises,
+        so a resumed run replays at most the interrupted epoch."""
+        resume = self.ckpt_mgr.resume_path()
+        if resume:
+            logger.info(f"auto-resuming from {resume}")
+            _, meta = ckpt.load_checkpoint(resume, self.model, self.state)
+            self.epoch = int(meta.get("epoch", 0)) + 1
+
+        def _sigterm(_signum, _frame):
+            raise KeyboardInterrupt
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _sigterm)
+        except ValueError:  # not the main thread
+            prev_handler = None
+        try:
+            self._fit_loop()
+        except KeyboardInterrupt:
+            if self.epoch > 0:
+                logger.warning(
+                    "interrupted — saving last-epoch.ckpt at epoch %d",
+                    self.epoch - 1,
+                )
+                self.ckpt_mgr.save_last(self.state, self.epoch - 1, {})
+            raise
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    # from mask3d_tpu/train/trainer.py:476 _fit_loop
+    def _fit_loop(self):
+        cfg = self.cfg
+        while self.epoch < cfg.trainer.max_epochs:
+            t0 = time.time()
+            train_metrics = self.train_epoch()
+            val_metrics = {}
+            if (self.epoch + 1) % cfg.trainer.check_val_every_n_epoch == 0:
+                val_metrics = self.eval_epoch(
+                    "validation",
+                    export=cfg.general.export_las
+                    and (self.epoch + 1) % cfg.general.export_freq == 0,
+                )
+                self.metrics.log_epoch(
+                    self.epoch, self.state.step, extra=val_metrics
+                )
+            if (
+                (self.epoch + 1) % cfg.trainer.save_last_every_n_epochs == 0
+                or self.epoch + 1 == cfg.trainer.max_epochs
+            ):
+                self.ckpt_mgr.save_last(self.state, self.epoch, val_metrics)
+            self.ckpt_mgr.maybe_save_best(self.state, self.epoch, val_metrics)
+            logger.info(
+                f"epoch {self.epoch}: "
+                f"train_loss={train_metrics.get('train_loss', float('nan')):.4f} "
+                f"val_mAP50={val_metrics.get('val_mean_ap_50', float('nan')):.4f} "
+                f"({time.time() - t0:.1f}s)"
+            )
+            self.epoch += 1
+        self.metrics.close()
 
     # from mask3d_tpu/train/trainer.py:509 test
     def test(self) -> Dict[str, float]:

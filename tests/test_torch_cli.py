@@ -137,16 +137,34 @@ def test_port_host_path_on_jax_outputs_gives_jax_metrics(runs):
             k, ref[k], got[k])
 
 
-def test_cli_forms_and_refusals(tmp_path):
-    """`general.train_mode` picks the command; `train`, an unknown device
-    and the unported trainer options raise."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+def test_cli_forms_and_refusals(tmp_path, monkeypatch):
+    """`general.train_mode` picks the command (`fit` or `test`); an unknown
+    device and the unported trainer options raise."""
+    ran = []
+
+    class Recording:
+        def __init__(self, cfg, device):
+            self.cfg = cfg
+
+        def fit(self):
+            ran.append(("fit", self.cfg.general.train_mode))
+
+        def test(self):
+            ran.append(("test", self.cfg.general.train_mode))
+            return {}
+
+    with monkeypatch.context() as mp:
+        mp.setattr(p_trainer, "InstanceSegmentationTrainer", Recording)
         cli.main(["--device", "cpu", "general.train_mode=true"])
+        cli.main(["--device", "cpu", "general.train_mode=false"])
+        cli.main(["train", "--device", "cpu"])
+    assert ran == [("fit", True), ("test", False), ("fit", True)]
     with pytest.raises(SystemExit):
         cli.main(["test", "--device=tpu"])
     assert cli._take_device(["test", "--device", "cpu", "a=b"]) == (
         "cpu", ["test", "a=b"])
     for override in ("trainer.num_data_parallel=2",
+                     "trainer.distributed=true",
                      "trainer.measure_model_phases=true"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["test", "--device", "cpu", override,

@@ -131,7 +131,7 @@ def test_small_overrides_match_e2e_small_config():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "collate", "infer",
-                                   "device_batch"])
+                                   "device_batch", "init_state"])
 def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
     """A CUDA request where CUDA is absent raises; nothing falls back to
     the CPU."""
@@ -152,6 +152,9 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
             host = mt.collate(items, device="cpu", point_bucket_multiple=512)
             model = mt.build_model(cfg, device="cpu")
             mt.infer(model, host.device, cfg)
+        elif entry == "init_state":
+            from mask3d_tpu_torch.train.loop import init_state
+            init_state(cfg)
         else:
             host = mt.collate(items, device="cpu", point_bucket_multiple=512)
             host.device.to("cuda")
