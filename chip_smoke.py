@@ -72,7 +72,29 @@ beside this script. Phases:
    CPU: each fused stage on one input, median |diff| 0 and within the
    same tolerance (whole-forward maps printed).
 6. Times: each forward's median over 10 runs.
-7. `test_entry`: `python -m mask3d_tpu_torch.cli test` in process at the
+7. `large_scene`: the hall scan of `bench_large_scene.py` (seed 0, bucket
+   65536; its points, grid, occupied bricks and brick capacity must be the
+   JAX tool's: 888,766, 1920x168x72, 5,920, 6,912) through `infer` at the
+   flagship's width in bf16 on `bricked` (32x8x8 bricks), `gather_pallas`
+   and `gather`, the same seeded weights: each counted (attention 3 at each
+   of S = 57,344 / 114,688 / 229,376 / 458,752; row gathers 5 / 0 / 0;
+   sparse convs 0 / 47 / 0), timed (median of HALL_REPS after the counted
+   forward), its points/s and peak memory. Gates on outputs and maps:
+   `gather` fp32 against `bricked` fp32 (the `gather` form, FP32_PATH_TOL),
+   each bf16 path against `bricked` fp32 (mean |diff| within
+   HALL_BF16_MEAN * max(1, std)); the bf16 gather paths against bf16
+   `bricked` in the flagship `gather_pallas` form are read and printed. A
+   planted fault in the hall's `bricked` (every brick's +x halo read from
+   the sentinel) must fail the bf16 gate and, in fp32, the fp32 one. The
+   kernels at the hall's shapes against their plain versions: the
+   attention at those S (B=1), the sparse conv at every shape the counted
+   `gather_pallas` forward launched (bf16 feats), the row gather at the
+   brick tap (96 channels over (NB + 1) * 2048 brick cells). Then one
+   flagship scene (B=1, grid rounded up to 16x16x8 bricks, the JAX tool's
+   capacity rule): `bricked` against `dense` in fp32 (the `gather` form)
+   and in bf16 (the `gather_pallas` form); the same planted fault must
+   fail both, and a brick capacity below the occupied bricks must raise.
+8. `test_entry`: `python -m mask3d_tpu_torch.cli test` in process at the
    flagship's width (`Config()` defaults, fp32 dense, seeded random
    weights) on 16 written test scenes of 3x2 rooms (two batches of 8):
    the metric keys of the JAX package's `test()`, finite losses and mAP,
@@ -82,7 +104,7 @@ beside this script. Phases:
    scene, seconds per batch of collation, forward + criterion,
    post-process and evaluator, and the peak device memory.
 
-8. `train` (deterministic algorithms on from here, `loop.configure_torch`):
+9. `train` (deterministic algorithms on from here, `loop.configure_torch`):
    (a) the attention kernel against its plain version at the sampled key
    lengths S in {200, 800, 3200, 12800}, and each autograd Function's
    backward after its kernel forward against autograd of the plain path:
@@ -185,6 +207,32 @@ TRAIN_FN_TOL = 1e-5
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-2
 TRAIN_GRAD_FLOOR = 1e-4
+# the large-scene phase: the hall scene of `bench_large_scene.py` (seed 0,
+# bucket 65536) with the JAX tool's numbers for it; its bf16 paths, the
+# forwards timed after the counted one, the attention's key lengths there
+# (levels 4..1) and what each counted forward launches (bricked: the four
+# dense taps and the brick tap, in bf16)
+HALL = dict(points=888766, grid=(1920, 168, 72), bricks=5920, slots=11340,
+            capacity=6912)
+HALL_IMPLS = ("bricked", "gather_pallas", "gather")
+HALL_REPS = 3
+HALL_ATTN_S = (57344, 114688, 229376, 458752)
+HALL_LAUNCHES = {"bricked": {"row_gather": 5, "sparse_conv": 0},
+                 "gather_pallas": {"row_gather": 0, "sparse_conv": 47},
+                 "gather": {"row_gather": 0, "sparse_conv": 0}}
+# bricked against dense on one flagship scene (B=1): bricks of 16x16x8
+BRICK_SCENE = (16, 16, 8)
+# the hall's bf16 paths against its fp32 bricked forward: mean |diff| /
+# max(1, std) of outputs and maps, set from the first card run between the
+# sound readings (worst 0.144, gather_pallas's class logits) and the
+# planted halo fault's (0.300). Two bf16 paths differ from each other by
+# about as much as each differs from fp32 (0.17-0.22 of std on the class
+# logits of this random-weight model), so the bf16 gather paths are held
+# to the fp32 function, not to bf16 bricked (read and printed)
+HALL_BF16_MEAN = 0.2
+# the planted brick fault: every brick's +x halo from the sentinel
+# (offset (1, 0, 0) of brick_ops._OFFS)
+BRICK_FAULT_OFFSET = 22
 
 
 LOG_FILE = None  # set by open_log
@@ -252,11 +300,11 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention(torch, F, ma, lengths=ATTN_S):
-    """Kernel vs plain at each key length (the flagship levels by default);
-    returns per-shape rows."""
+def check_attention(torch, F, ma, lengths=ATTN_S, b=8):
+    """Kernel vs plain at each key length (the flagship levels by default)
+    at batch b; returns per-shape rows."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, nq, d, h = 8, 25, 128, 8
+    nq, d, h = 25, 128, 8
     rows = []
     for s in lengths:
         q = torch.randn(b, nq, d, device="cuda", generator=gen)
@@ -267,7 +315,7 @@ def check_attention(torch, F, ma, lengths=ATTN_S):
         mask |= torch.arange(s, device="cuda")[None, None] >= count[:, None,
                                                                    None]
         mask[0, 0] = True  # an all-blocked row: uniform weights
-        mask[1, 1] = False  # a fully open row
+        mask[min(1, b - 1), 1] = False  # a fully open row
         got = ma.masked_cross_attention(q, k, v, mask, h)
         ref = ma.masked_cross_attention_plain(q, k, v, mask, h)
         torch.cuda.synchronize()
@@ -284,7 +332,7 @@ def check_attention(torch, F, ma, lengths=ATTN_S):
         repeat = bool(torch.equal(got, again))
         p = ma.plan(b, nq, s, h, hd)
         row = dict(
-            S=s, max_abs_err=err, ok=ok and repeat, repeat_equal=repeat,
+            S=s, B=b, max_abs_err=err, ok=ok and repeat, repeat_equal=repeat,
             plan=dict(ksl=p.ksl, hg=p.hg, threads=p.threads, chunk=p.chunk,
                       nch=p.nch, queries=p.queries),
             ms=time_graph_ms(torch, lambda: ma.masked_cross_attention(
@@ -298,7 +346,8 @@ def check_attention(torch, F, ma, lengths=ATTN_S):
         )
         nbytes = 4 * (2 * b * nq * d + 2 * b * s * d) + b * nq * s
         row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * b * nq * s * d)
-        log(f"attention S={s}: max|err| {err:.3g} (tol {ATTN_TOL}), second "
+        log(f"attention B={b} S={s}: max|err| {err:.3g} (tol {ATTN_TOL}), "
+            f"second "
             f"launch bitwise equal {repeat}; kernel {row['ms']:.4f} ms "
             f"(eager per call {row['eager_ms']:.4f}) plain "
             f"{row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms bound "
@@ -320,7 +369,6 @@ def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
     from mask3d_tpu_torch.sparse.context import build_sparse_batch
 
     dtype = dtype or torch.float32
-    esize = torch.empty((), dtype=dtype).element_size()
     gen = torch.Generator(device="cuda").manual_seed(1)
     sb = build_sparse_batch(
         batch.coords, batch.counts, batch.dims,
@@ -336,39 +384,9 @@ def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
         b, m = idx.shape
         src = torch.randn(b, cells, c, device="cuda", generator=gen).to(
             dtype)
-        got = rg.row_gather(src, idx, ok)
-        ref = rg.row_gather_plain(src, idx, ok)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(got, ref))
-        flat = src.view(b * cells, c)
-        fidx = (idx.long() + torch.arange(b, device="cuda")[:, None]
-                * cells).view(-1)
-
-        def kernel():
-            return time_graph_ms(torch, lambda: rg.row_gather(src, idx, ok))
-
-        def library():
-            return time_graph_ms(torch, lambda: flat.index_select(0, fidx))
-
-        k1, l1, l2, k2 = kernel(), library(), library(), kernel()
-        spread = max(abs(k1 - k2) / min(k1, k2), abs(l1 - l2) / min(l1, l2))
-        row = dict(
-            C=c, level=li, rows=b * m, dtype=str(dtype)[6:], equal=equal,
-            max_abs_err=(got.float() - ref.float()).abs().max().item(),
-            ms=(k1 + k2) / 2,
-            eager_ms=time_ms(torch, lambda: rg.row_gather(src, idx, ok)),
-            plain_ms=time_ms(torch, lambda: rg.row_gather_plain(
-                src, idx, ok)),
-            library_ms=(l1 + l2) / 2,
-            library_eager_ms=time_ms(
-                torch, lambda: flat.index_select(0, fidx)),
-            timing_spread=spread,
-        )
-        row["ratio_to_library"] = row["ms"] / row["library_ms"]
-        row["fast"] = row["ratio_to_library"] <= 1.0 + spread
-        n_ok = int(ok.sum())
-        nbytes = b * m * 5 + n_ok * c * esize + b * m * c * esize
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+        row = dict(C=c, level=li, rows=b * m, dtype=str(dtype)[6:],
+                   **time_gather(torch, rg, src, idx, ok))
+        equal, spread = row["equal"], row["timing_spread"]
         log(f"row_gather {row['dtype']} C={c} level {li} rows {b * m}: "
             f"bitwise equal "
             f"{equal} kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} "
@@ -382,6 +400,46 @@ def check_gather(torch, rg, dense_ops, batch, caps, dtype=None,
     return rows
 
 
+def time_gather(torch, rg, src, idx, ok):
+    """The row gather against its plain version (bitwise) on src [B, N, C],
+    idx/ok [B, M], and timed beside it, `index_select` on the same rows and
+    the bytes bound (see `check_gather`)."""
+    b, n, c = src.shape
+    m = idx.shape[1]
+    esize = src.element_size()
+    got = rg.row_gather(src, idx, ok)
+    ref = rg.row_gather_plain(src, idx, ok)
+    torch.cuda.synchronize()
+    flat = src.view(b * n, c)
+    fidx = (idx.long() + torch.arange(b, device="cuda")[:, None]
+            * n).view(-1)
+
+    def kernel():
+        return time_graph_ms(torch, lambda: rg.row_gather(src, idx, ok))
+
+    def library():
+        return time_graph_ms(torch, lambda: flat.index_select(0, fidx))
+
+    k1, l1, l2, k2 = kernel(), library(), library(), kernel()
+    spread = max(abs(k1 - k2) / min(k1, k2), abs(l1 - l2) / min(l1, l2))
+    row = dict(
+        equal=bool(torch.equal(got, ref)),
+        max_abs_err=(got.float() - ref.float()).abs().max().item(),
+        ms=(k1 + k2) / 2,
+        eager_ms=time_ms(torch, lambda: rg.row_gather(src, idx, ok)),
+        plain_ms=time_ms(torch, lambda: rg.row_gather_plain(src, idx, ok)),
+        library_ms=(l1 + l2) / 2,
+        library_eager_ms=time_ms(torch, lambda: flat.index_select(0, fidx)),
+        timing_spread=spread,
+    )
+    row["ratio_to_library"] = row["ms"] / row["library_ms"]
+    row["fast"] = row["ratio_to_library"] <= 1.0 + spread
+    n_ok = int(ok.sum())
+    nbytes = b * m * 5 + n_ok * c * esize + b * m * c * esize
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
+    return row
+
+
 def kernel_map(sb, n, k):
     """(level, idx, ok): the batch's kernel map of N rows and K offsets."""
     maps = list(zip(range(sb.num_levels), sb.nbr_idx, sb.nbr_ok))
@@ -392,10 +450,12 @@ def kernel_map(sb, n, k):
     raise LookupError(f"no kernel map with N={n}, K={k}")
 
 
-def check_sparse_conv(torch, sc, sb, shape_launches):
+def check_sparse_conv(torch, sc, sb, shape_launches, dtype=None):
     """Kernel vs plain at each (N, K, Cin, Cout) the counted forward
-    launched, on the real batch's kernel map of that N and K, and a second
-    launch on the same input, which must be bitwise equal to the first;
+    launched, on the real batch's kernel map of that N and K, with feats
+    in `dtype` (f32 by default; the bf16 backbone's rows are bf16), and a
+    second launch on the same input, which must be bitwise equal to the
+    first;
     returns per-shape rows with the share of (row, offset) pairs ok and of
     (16-row m-fragment, offset) pairs with an ok row (the kernel's unit of
     work), ms, bound and ms / bound."""
@@ -407,6 +467,7 @@ def check_sparse_conv(torch, sc, sb, shape_launches):
         b = idx.shape[0]
         feats = torch.randn(b, n, cin, device="cuda", generator=gen)
         feats *= sb.levels[level].valid[..., None]
+        feats = feats.to(dtype or torch.float32)
         w = torch.randn(k, cin, cout, device="cuda", generator=gen) / (
             k * cin) ** 0.5
         got = sc.sparse_conv(feats, w, idx, ok)
@@ -416,6 +477,7 @@ def check_sparse_conv(torch, sc, sb, shape_launches):
         repeat = bool(torch.equal(got, again))
         err = (got - ref).abs().max().item()
         scaled = err / max(1.0, ref.std().item())
+        esize = feats.element_size()
         n_ok = int(ok.sum())
         frag_live = ok.reshape(-1, 16, k).any(dim=1).float().mean().item()
         row = dict(
@@ -433,12 +495,13 @@ def check_sparse_conv(torch, sc, sb, shape_launches):
                 feats, w, idx, ok), iters=3, warmup=1),
             library_ms=None,  # no single PyTorch call is a gather-conv
         )
-        nbytes = b * n * k * 5 + b * n * cin * 4 + k * cin * cout * 2 + \
-            b * n * cout * 4
+        nbytes = b * n * k * 5 + b * n * cin * esize + \
+            k * cin * cout * 2 + b * n * cout * 4
         row["bound_ms"], row["bound_by"] = bound(
             nbytes, 2 * n_ok * cin * cout, BF16_FLOPS_PER_S)
         row["ms_over_bound"] = row["ms"] / row["bound_ms"]
-        log(f"sparse_conv L{level} N={n} K={k} {cin}->{cout} x{n_launch}: "
+        log(f"sparse_conv L{level} N={n} K={k} {cin}->{cout} "
+            f"{str(feats.dtype)[6:]} x{n_launch}: "
             f"max|err| {err:.3g} scaled {scaled:.3g} (tol {SPCONV_TOL}), "
             f"second launch bitwise equal {repeat}; kernel {row['ms']:.4f} "
             f"ms (eager per call {row['eager_ms']:.4f}) plain "
@@ -499,7 +562,7 @@ def backbone_maps(torch, mdl, cfg, dev, sparse):
             **sb_kwargs(cfg))
         _, maps, _ = mdl.backbone(dev.feats, sb, dev.grid_dims)
         n = sb.num_levels
-        return [m[sb.levels[n - 1 - i].valid].cpu().numpy()
+        return [m[sb.levels[n - 1 - i].valid].float().cpu().numpy()
                 for i, m in enumerate(maps)]
 
 
@@ -778,6 +841,316 @@ def write_entry_dataset(np, root, n_train=1, n_test=ENTRY_TEST_SCENES):
                   {"x": c[:, 0], "y": c[:, 1], "z": c[:, 2],
                    "type": lab[:, 0], "room_id": lab[:, 1]}, text=False)
     return scenes
+
+
+def count_forward(torch, mt, counters, by_key, mdl, dev, cfg):
+    """One `infer` with every count set to 0 just before it and read just
+    after: (output, launches, counts by key, peak GiB). Raises where a
+    pyramid level or the level-0 bricks overflowed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    for counts, _ in by_key.values():
+        counts.clear()
+    out, overflow = mt.infer(mdl, dev, cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    keyed = {k: dict(counts) for k, (counts, _) in by_key.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if bool(overflow):
+        raise RuntimeError("a pyramid level or the level-0 bricks "
+                           "overflowed their capacity")
+    return out, launches, keyed, peak
+
+
+def check_brick_tap(torch, rg, bo, sb, spec, c):
+    """The row gather at the bricked path's level-0 tap: rows of the whole
+    flattened brick tensor [(NB + 1) * cells, C] (bf16, random) at the
+    scene's `row_flat` (not monotone), against its plain version, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tables = bo.build_tables(sb.levels[0], spec)
+    n_src = (spec.capacity + 1) * spec.cells
+    src = torch.randn(1, n_src, c, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    idx = tables.row_flat.clamp(0, n_src - 1).to(torch.int32)[None]
+    ok = sb.levels[0].valid.contiguous()
+    row = dict(C=c, level=0, rows=idx.shape[1], source_rows=n_src,
+               dtype="bfloat16", **time_gather(torch, rg, src, idx.contiguous(),
+                                                ok))
+    log(f"row_gather bf16 brick tap C={c}: {row['rows']} rows from "
+        f"{n_src} brick cells, bitwise equal {row['equal']}; kernel "
+        f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms index_select "
+        f"{row['library_ms']:.4f} ms (kernel / index_select "
+        f"{row['ratio_to_library']:.3f}, timing spread "
+        f"{row['timing_spread']:.3f}) bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+class sentinel_halo:
+    """A planted fault, patched in for a `with` block: every level-0
+    brick reads its +x halo from the zero sentinel."""
+
+    def __init__(self, bo):
+        self.bo, self.real = bo, bo.build_tables
+
+    def __enter__(self):
+        real = self.real
+
+        def faulty(level, spec):
+            tables = real(level, spec)
+            tables.nbr[:, BRICK_FAULT_OFFSET] = spec.capacity
+            return tables
+
+        self.bo.build_tables = faulty
+
+    def __exit__(self, *exc):
+        self.bo.build_tables = self.real
+
+
+def run_large_scene(torch, F, np, mt, counters, by_key, sparse, kernels):
+    """The `large_scene` phase (see the docstring's phase 7). Every gate
+    is read before the first failing one raises, at the end."""
+    from mask3d_tpu_torch import bench_large_scene as bls
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from mask3d_tpu_torch.profile_forward import flagship_items
+    from mask3d_tpu_torch.sparse import brick_ops as bo
+
+    ma, rg, sc = kernels
+    build_sparse_batch, level_capacities, sb_kwargs = sparse
+    t = time.perf_counter()
+    host = bls.hall_batch("cpu")
+    lines, brick, cap = bls.geometry_lines(host.device)
+    _, nb, slots, _ = bls.brick_geometry(host.device)
+    got = dict(points=int(host.device.counts.sum()),
+               grid=tuple(host.device.grid_dims[0]), bricks=nb, slots=slots,
+               capacity=cap)
+    log(f"hall scene collated in {time.perf_counter() - t:.2f} s: {got}")
+    for line in lines:
+        log(f"  {line}")
+    assert got == HALL, (got, HALL)
+    dev = host.device.to("cuda")
+    n_pts = got["points"]
+    valid = np.arange(dev.capacity)[None] < \
+        host.device.counts.numpy()[:, None]
+    res = {"scene": got, "brick": brick, "impls": {}, "gates": {}}
+    failed = []
+    runs = {}
+    def outputs_and_maps(mdl, cfg, out=None):
+        """pred_class, the valid rows of pred_masks and the backbone maps
+        of one hall forward (`out`: that of a forward already run)."""
+        with torch.inference_mode():
+            if out is None:
+                out, _ = mt.infer(mdl, dev, cfg, device="cuda")
+            return dict(preds=(out.pred_class.cpu().numpy(),
+                               out.pred_masks.cpu().numpy()[valid]),
+                        maps=backbone_maps(torch, mdl, cfg, dev, sparse))
+
+    for impl in HALL_IMPLS:
+        cfg = bls.variant_cfg(impl, "per_offset", brick, cap)
+        mdl = mt.build_model(cfg, device="cuda", seed=0)
+        out, launches, keyed, peak = count_forward(
+            torch, mt, counters, by_key, mdl, dev, cfg)
+        want = dict(HALL_LAUNCHES[impl], masked_attention=12, int8_conv=0)
+        assert launches == want, (impl, launches, want)
+        assert keyed["attention"] == {s: 3 for s in HALL_ATTN_S}, keyed
+        pc, pm = out.pred_class, out.pred_masks
+        assert tuple(pc.shape) == (1, 25, 2) and tuple(pm.shape) == (
+            1, dev.capacity, 25), (pc.shape, pm.shape)
+        assert bool(torch.isfinite(pc).all()) and bool(
+            torch.isfinite(pm).all()), "non-finite outputs"
+        runs[impl] = outputs_and_maps(mdl, cfg, out)
+        del out, pc, pm
+        ms = []
+        for _ in range(HALL_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mt.infer(mdl, dev, cfg, device="cuda")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(ms)
+        res["impls"][impl] = dict(
+            launches=launches, attention_by_S=keyed["attention"],
+            sparse_conv_by_shape=keyed["sparse_conv"],
+            gather_by_dtype=keyed["gather_dtypes"], ms=med, ms_all=ms,
+            points_per_s=n_pts / med * 1e3, peak_gib=peak)
+        log(f"hall {impl} bf16: launches {launches}, row gathers by dtype "
+            f"{keyed['gather_dtypes']}; {med:.1f} ms a forward (median of "
+            f"{HALL_REPS} after the counted one: "
+            f"{', '.join(f'{m:.1f}' for m in ms)}) = "
+            f"{n_pts / med * 1e3:.0f} pts/s; peak {peak:.2f} GiB")
+        del mdl
+        torch.cuda.empty_cache()
+    # the fp32 references (bricked, gather) and the planted fault (every
+    # brick's +x halo from the sentinel) in bf16 and fp32
+    for name, impl, dtype, fault in (
+            ("bricked fp32", "bricked", None, False),
+            ("gather fp32", "gather", None, False),
+            ("bricked with a planted fault", "bricked", "bfloat16", True),
+            ("bricked fp32 with a planted fault", "bricked", None, True)):
+        cfg = bls.variant_cfg(impl, "per_offset", brick, cap, dtype)
+        mdl = mt.build_model(cfg, device="cuda", seed=0)
+        if fault:
+            with sentinel_halo(bo):
+                runs[name] = outputs_and_maps(mdl, cfg)
+        else:
+            runs[name] = outputs_and_maps(mdl, cfg)
+        del mdl
+        torch.cuda.empty_cache()
+
+    def stats_of(ref, run):
+        stats = {"pred_class": diff_stats(np, ref["preds"][0],
+                                          run["preds"][0]),
+                 "pred_masks": diff_stats(np, ref["preds"][1],
+                                          run["preds"][1])}
+        for i, (r, g) in enumerate(zip(ref["maps"], run["maps"])):
+            stats[f"map{i} (stride {16 >> i})"] = diff_stats(np, r, g)
+        return stats
+
+    def hall_gate(ref, name, fp32):
+        """`name` against `ref`: fp32, the `gather` form (FP32_PATH_TOL);
+        bf16, the mean form (HALL_BF16_MEAN)."""
+        stats = stats_of(runs[ref], runs[name])
+        for what, st in stats.items():
+            log(f"hall {name} vs {ref} {what}: {json.dumps(st)}")
+        return (gate_ratio("gather", stats) if fp32
+                else worst_ratio(stats, "mean", HALL_BF16_MEAN))
+
+    res["gates"]["gather fp32"] = hall_gate("bricked fp32", "gather fp32",
+                                            True)
+    for impl in HALL_IMPLS:
+        res["gates"][f"{impl} bf16"] = hall_gate("bricked fp32", impl, False)
+    log(f"hall gates against bricked fp32 (pass at <= 1): {res['gates']}")
+    if not all(r <= 1.0 for r in res["gates"].values()):
+        failed.append(("hall gates", res["gates"]))
+    # read, not gated: the bf16 gather paths against bf16 bricked, in the
+    # form of the flagship's gather_pallas gate (BF16_PATH_MEAN)
+    res["bf16_vs_bricked_bf16"] = {
+        impl: worst_ratio(stats_of(runs["bricked"], runs[impl]), "mean",
+                          BF16_PATH_MEAN) for impl in HALL_IMPLS[1:]}
+    log(f"hall bf16 gather paths against bf16 bricked, mean |diff| / "
+        f"({BF16_PATH_MEAN} * max(1, std)), read: "
+        f"{res['bf16_vs_bricked_bf16']}")
+    res["hall_fault"] = {
+        "bf16": hall_gate("bricked fp32", "bricked with a planted fault",
+                          False),
+        "fp32": hall_gate("gather fp32", "bricked fp32 with a planted fault",
+                          True)}
+    log(f"planted fault 'the +x halo from the sentinel' on the hall's "
+        f"bricked: gate ratios {res['hall_fault']} (must be > 1)")
+    if not all(not r <= 1.0 for r in res["hall_fault"].values()):
+        failed.append(("planted hall fault passed", res["hall_fault"]))
+    del runs
+
+    # the kernels at the hall scene's shapes
+    res["attention"] = check_attention(torch, F, ma, HALL_ATTN_S, b=1)
+    for r in res["attention"]:
+        r["launches"] = res["impls"]["bricked"]["attention_by_S"][r["S"]]
+    if not all(r["ok"] for r in res["attention"]):
+        failed.append("attention at the hall's key lengths")
+    cfg_gp = bls.variant_cfg("gather_pallas", "per_offset", brick, cap)
+    with torch.inference_mode():
+        sb = build_sparse_batch(
+            dev.coords, dev.counts, dev.dims,
+            level_capacities(cfg_gp, dev.capacity), dev.grid_dims,
+            **sb_kwargs(cfg_gp))
+    shapes = res["impls"]["gather_pallas"]["sparse_conv_by_shape"]
+    log(f"hall sparse_conv launches by (N, K, Cin, Cout): {shapes}")
+    res["sparse_conv"] = check_sparse_conv(torch, sc, sb, shapes,
+                                           torch.bfloat16)
+    if not all(r["ok"] for r in res["sparse_conv"]):
+        failed.append("sparse conv at the hall's shapes")
+    del sb
+    cfg_b = bls.variant_cfg("bricked", "per_offset", brick, cap)
+    with torch.inference_mode():
+        sb = build_sparse_batch(
+            dev.coords, dev.counts, dev.dims,
+            level_capacities(cfg_b, dev.capacity), dev.grid_dims,
+            **sb_kwargs(cfg_b))
+    tap = check_brick_tap(torch, rg, bo, sb,
+                          bo.make_brick_spec(dev.grid_dims[0], brick, cap),
+                          96)
+    tap["launches"] = 1  # a bricked forward's level-0 tap
+    res["brick_tap"] = tap
+    if not tap["equal"]:
+        failed.append("row gather at the brick tap")
+    del sb, dev
+    torch.cuda.empty_cache()
+
+    # bricked against dense on one flagship scene (B=1), fp32 and bf16,
+    # the planted faults after
+    items = flagship_items()[:1]
+    one = mt.collate(items, device="cpu", point_bucket_multiple=BUCKET)
+    # the grid dims rounded up to whole bricks (the collator's floor)
+    floor = [-(-int(g) // b) * b
+             for g, b in zip(one.device.grid_dims[0], BRICK_SCENE)]
+    one = mt.collate(items, device="cuda", point_bucket_multiple=BUCKET,
+                     min_grid_dims=floor).device
+    _, nb1, _, cap1 = bls.brick_geometry(one, BRICK_SCENE)
+    log(f"flagship scene 0: grid {one.grid_dims[0]}, {nb1} occupied "
+        f"{BRICK_SCENE} bricks, capacity {cap1}")
+
+    def cfg_of(impl, dtype, capacity=cap1):
+        ov = [f"data.point_bucket_multiple={BUCKET}",
+              f"model.backbone_impl={impl}",
+              "model.brick_dims=[{},{},{}]".format(*BRICK_SCENE),
+              f"model.brick_capacity={capacity}"]
+        return apply_overrides(Config(), ov + (
+            [f"model.compute_dtype={dtype}"] if dtype else []))
+
+    def run_of(impl, dtype):
+        c = cfg_of(impl, dtype)
+        mdl = mt.build_model(c, device="cuda", seed=0)
+        out, _, _, _ = count_forward(torch, mt, counters, by_key, mdl, one,
+                                     c)
+        v = one.counts.cpu().numpy()
+        v = np.arange(one.capacity)[None] < v[:, None]
+        return dict(preds=(out.pred_class.cpu().numpy(),
+                           out.pred_masks.cpu().numpy()[v]),
+                    maps=backbone_maps(torch, mdl, c, one, sparse))
+
+    def gate(dtype, ref, run):
+        stats = stats_of(ref, run)
+        return (gate_ratio("gather", stats) if dtype is None
+                else worst_ratio(stats, "mean", BF16_PATH_MEAN)), stats
+
+    dense = {}
+    res["brick_gates"], res["brick_faults"] = {}, {}
+    for dtype in (None, "bfloat16"):
+        name = dtype or "fp32"
+        dense[name] = run_of("dense", dtype)
+        ratio, stats = gate(dtype, dense[name], run_of("bricked", dtype))
+        for what, st in stats.items():
+            log(f"flagship scene bricked vs dense {name} {what}: "
+                f"{json.dumps(st)}")
+        res["brick_gates"][name] = ratio
+        log(f"bricked vs dense {name} gate ratio {ratio:.4g} (pass at <= "
+            f"1; fp32: max |diff| of the maps, 99.9% quantile of the "
+            f"outputs, {FP32_PATH_TOL} * max(1, std); bf16: mean |diff|, "
+            f"{BF16_PATH_MEAN} * max(1, std))")
+    if not all(r <= 1.0 for r in res["brick_gates"].values()):
+        failed.append(("bricked vs dense", res["brick_gates"]))
+
+    with sentinel_halo(bo):
+        for dtype in (None, "bfloat16"):
+            name = dtype or "fp32"
+            ratio, _ = gate(dtype, dense[name], run_of("bricked", dtype))
+            res["brick_faults"][name] = ratio
+            log(f"planted fault 'the +x halo from the sentinel' on bricked "
+                f"{name}: gate ratio {ratio:.4g} (must be > 1)")
+    if not all(not r <= 1.0 for r in res["brick_faults"].values()):
+        failed.append(("planted brick fault passed", res["brick_faults"]))
+    c = cfg_of("bricked", None, capacity=nb1 - 1)
+    try:
+        count_forward(torch, mt, counters, by_key,
+                      mt.build_model(c, device="cuda", seed=0), one, c)
+    except RuntimeError as e:
+        log(f"brick_capacity {nb1 - 1} < {nb1} occupied bricks raised: {e}")
+    else:
+        failed.append("a brick capacity below the occupied bricks did not "
+                      "raise")
+    assert not failed, failed
+    return res
 
 
 def run_test_entry(torch, np, mt, counters, card):
@@ -1537,20 +1910,13 @@ def main():
 
     def counted_forward(path, mdl, c):
         """One forward with every count set to 0 just before it and read
-        just after; checks shapes, finiteness and overflow."""
+        just after (`count_forward`: raises on an overflow); checks shapes
+        and finiteness."""
         mt.infer(mdl, host.device, c, device="cuda")  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        for counts, _ in by_key.values():
-            counts.clear()
-        out, overflow = mt.infer(mdl, host.device, c, device="cuda")
-        torch.cuda.synchronize()
-        launches[path] = {k: fn.launches for k, fn in counters.items()}
-        for counts, record in by_key.values():
-            record[path] = dict(counts)
-        peak_gib[path] = torch.cuda.max_memory_allocated() / 2**30
+        out, launches[path], keyed, peak_gib[path] = count_forward(
+            torch, mt, counters, by_key, mdl, host.device, c)
+        for name, (_, record) in by_key.items():
+            record[path] = keyed[name]
         log(f"{path} path launches: {launches[path]}, int8 conv by step "
             f"{step_launches[path]}, row gather by dtype "
             f"{gather_dtypes[path]}; peak device memory "
@@ -1562,7 +1928,6 @@ def main():
         assert tuple(pm.shape) == (b, n, q), pm.shape
         assert bool(torch.isfinite(pc).all()) and bool(
             torch.isfinite(pm).all()), "non-finite outputs"
-        assert not bool(overflow), "a pyramid level overflowed"
         return pc.cpu().numpy(), pm.cpu().numpy()
 
     n_dec = cfg.model.num_decoders * len(cfg.model.hlevels)
@@ -2030,6 +2395,11 @@ def main():
             "shapes": rows,
         }
 
+    large = phase("large_scene", lambda: run_large_scene(
+        torch, F, np, mt, counters, by_key, sparse, (ma, rg, sc)))
+    if large is None:
+        failures.append("large_scene did not run or failed a check")
+
     entry_launches = phase("test_entry", lambda: run_test_entry(
         torch, np, mt, counters, card))
     if entry_launches is None:
@@ -2131,8 +2501,37 @@ def main():
                      launches["gather_pallas"]["sparse_conv"],
                      **forward_sums(spconv_rows)),
         *int8_entries,
+        # the same kernels at the hall scene's shapes (phase large_scene)
+        kernel_entry("masked_attention:hall",
+                     "mask3d_tpu_torch/csrc/masked_attention.cu",
+                     "mask3d_tpu/ops/pallas_attention.py:102",
+                     large["attention"], large["attention"][-1],
+                     large["impls"]["bricked"]["launches"][
+                         "masked_attention"],
+                     **forward_sums(large["attention"])),
+        kernel_entry("row_gather_bf16:brick_tap",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198",
+                     [large["brick_tap"]], large["brick_tap"],
+                     large["impls"]["bricked"]["launches"]["row_gather"]),
+        kernel_entry("sparse_conv:hall",
+                     "mask3d_tpu_torch/csrc/sparse_conv.cu",
+                     "mask3d_tpu/sparse/pallas_conv.py:316",
+                     large["sparse_conv"], heaviest(large["sparse_conv"]),
+                     large["impls"]["gather_pallas"]["launches"][
+                         "sparse_conv"],
+                     **forward_sums(large["sparse_conv"])),
     ], "launches_by_path": launches, "int8_steps_by_path": step_launches,
-        "peak_gib": peak_gib, "forward_ms": fwd_ms, "train": train}))
+        "peak_gib": peak_gib, "forward_ms": fwd_ms, "train": train,
+        "large_scene": {
+            "scene": large["scene"], "gates": large["gates"],
+            "brick_gates": large["brick_gates"],
+            "brick_faults": large["brick_faults"],
+            "hall_fault": large["hall_fault"],
+            "bf16_vs_bricked_bf16": large["bf16_vs_bricked_bf16"],
+            "impls": {k: {f: v[f] for f in ("launches", "ms", "ms_all",
+                                            "points_per_s", "peak_gib")}
+                      for k, v in large["impls"].items()}}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

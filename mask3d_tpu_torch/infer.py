@@ -18,14 +18,18 @@ def level_capacities(cfg, n_points: int) -> List[int]:
     return [max(8, int(n_points * r)) for r in cfg.data.level_cap_ratios]
 
 
-# from mask3d_tpu/train/loop.py:154 _sb_kwargs (no bricked impl)
+# from mask3d_tpu/train/loop.py:154 _sb_kwargs
 def _sb_kwargs(cfg):
     """build_sparse_batch options per backbone impl: the dense path reads
-    the occupancy grids only; the gather paths read kernel maps and the
-    PoolMaps' parents."""
+    the occupancy grids only; the bricked one needs no kernel map either,
+    but its pooled pyramid runs in row space and reads the PoolMaps'
+    parents; the gather paths read kernel maps and parents."""
     if cfg.model.backbone_impl == "dense":
         return dict(build_block_maps=False, conv1_kernel_size=None,
                     build_pool_parents=False)
+    if cfg.model.backbone_impl == "bricked":
+        return dict(build_block_maps=False, conv1_kernel_size=None,
+                    build_pool_parents=True)
     return dict(build_block_maps=True,
                 conv1_kernel_size=cfg.model.conv1_kernel_size,
                 build_pool_parents=True)
@@ -58,7 +62,10 @@ def check_unit_features(cfg, batch: DeviceBatch):
 def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
           device="cuda") -> Tuple[Mask3DOutput, torch.Tensor]:
     """Returns (model output, overflow) where `overflow` is a bool tensor:
-    some pyramid level of some item exceeded its capacity."""
+    some pyramid level of some item exceeded its capacity, or (bricked)
+    the scene has more occupied level-0 bricks than `model.brick_capacity`.
+    A batch whose `grid_dims` is None runs the gather impls on the sorted
+    pyramid."""
     if model.backbone.impl != cfg.model.backbone_impl:
         raise ValueError(f"model built for backbone_impl="
                          f"{model.backbone.impl!r}, cfg says "

@@ -1,9 +1,9 @@
-"""Res16UNet sparse-voxel backbones (fp32 or bf16, with int8 eval convs and
-the fused int8 block chain on `dense`, bf16 gather convs on
-`gather_pallas`).
+"""Res16UNet sparse-voxel backbones (fp32 or bf16 on every impl, with int8
+eval convs and the fused int8 block chain on `dense`, the bf16 sparse-conv
+kernel on `gather_pallas`).
 
 A 4-stage stride-2 encoder and a 4-stage transposed-conv decoder with skip
-concatenations and InstanceNorm everywhere. Three executions share one
+concatenations and InstanceNorm everywhere. Four executions share one
 parameter layout (`impl`, the JAX package's `backbone_impl`):
 
 - `dense`: dense convolutions re-masked by occupancy on per-level grids
@@ -15,14 +15,22 @@ parameter layout (`impl`, the JAX package's `backbone_impl`):
   outputs as int8 `QGrid`s, and `pallas_chain` runs the eligible stride-1
   stages through the fused int8 chain (`sparse/chain.py`);
 - `gather`: row-space gather-matmul convolutions over kernel maps and
-  stride-2 convs over PoolMaps (`sparse/ops.py`), fp32;
+  stride-2 convs over PoolMaps (`sparse/ops.py`), in `compute_dtype`;
 - `gather_pallas`: `gather` whose same-stride convs run the bf16 sparse-conv
   kernel (`sparse/sparse_conv.py`) on every level that `supports()` its
-  capacity.
+  capacity, its f32 output cast back to the input's dtype;
+- `bricked`: `dense` with level 0 as occupied dense bricks
+  (`sparse/brick_ops.py`) and every coarser level a dense grid, for scans
+  whose level-0 grid is too large for `dense`; B=1, no int8.
+
+The JAX package's `pallas_window_mode` and `pallas_conv_select` schedule
+its TPU kernel and leave its outputs as they are: the port runs its one
+sparse-conv kernel for each of their values (`models/mask3d.py` checks
+them).
 
 Returns `(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]],
 the five pyramid outputs as rows at strides [16, 8, 4, 2, 1], and the final
-level-0 grid for the pooled pyramid (None on the gather impls).
+level-0 grid for the pooled pyramid (None on the other impls).
 
 Parameters are named after the JAX package's (`conv0p1s1`, `bn0`,
 `block1_0_conv1`, `block1_0_norm1`, ...): `convs[name].weight` holds the
@@ -38,13 +46,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from mask3d_tpu_torch.sparse import chain, dense_ops, ops
+from mask3d_tpu_torch.sparse import brick_ops, chain, dense_ops, ops
 from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.context import SparseBatch
 from mask3d_tpu_torch.sparse.int8_ops import QGrid, act_bound, \
     dense_conv_same_int8, dequantize, quantize_static, weight_rows
 
-IMPLS = ("dense", "gather", "gather_pallas")
+IMPLS = ("dense", "gather", "gather_pallas", "bricked")
 
 
 class Conv(nn.Module):
@@ -80,17 +88,20 @@ def _kernel_rows_tr(conv: Conv):
     return w.permute(2, 3, 4, 0, 1).reshape(8, w.shape[0], w.shape[1])
 
 
-# from mask3d_tpu/models/backbone.py:54 _GatherCtx (fp32; bf16 sparse-conv
+# from mask3d_tpu/models/backbone.py:54 _GatherCtx (the bf16 sparse-conv
 # kernel on eligible levels with use_kernel)
 class _GatherCtx:
     """Row-form execution over kernel maps: features stay [B, N, C] rows of
     their level. With `use_kernel`, same-stride convs on levels whose
-    capacity `supports()` run the bf16 sparse-conv kernel; the others run
-    the fp32 gather-matmul."""
+    capacity `supports()` run the bf16 sparse-conv kernel, its f32 output
+    cast to the input's dtype; the others, and every stride-2 and 1x1
+    conv, run the gather-matmul in `compute_dtype` (None: the input's)."""
 
-    def __init__(self, sb: SparseBatch, use_kernel: bool):
+    def __init__(self, sb: SparseBatch, use_kernel: bool,
+                 compute_dtype=None):
         self.sb = sb
         self.use_kernel = use_kernel
+        self.dt = compute_dtype
 
     def scatter(self, feats_rows, level_idx):
         return feats_rows  # rows are already per-level
@@ -98,8 +109,8 @@ class _GatherCtx:
     def _conv(self, x, conv: Conv, idx, ok):
         w = _kernel_rows(conv)
         if self.use_kernel and sc.supports(x.shape[1]):
-            return sc.sparse_conv(x, w, idx, ok)
-        return ops.sparse_conv(x, w, idx, ok)
+            return sc.sparse_conv(x, w, idx, ok).to(x.dtype)
+        return ops.sparse_conv(x, w, idx, ok, compute_dtype=self.dt)
 
     def conv_in(self, x, conv: Conv):
         return self._conv(x, conv, self.sb.nbr0_idx, self.sb.nbr0_ok)
@@ -110,17 +121,23 @@ class _GatherCtx:
 
     def conv1x1(self, x, conv: Conv, level_idx, bound=None):
         w = conv.weight
-        return x @ w.reshape(w.shape[0], w.shape[1]).t()
+        w = w.reshape(w.shape[0], w.shape[1]).t()
+        if self.dt is None:
+            return x @ w
+        # bf16 operands, f32 sums, one bf16 write
+        return (x.to(self.dt).float() @ w.to(self.dt).float()).to(self.dt)
 
     def conv_down(self, x, conv: Conv, fine_idx):
         return ops.sparse_conv_down(x, _kernel_rows(conv),
                                     self.sb.pools[fine_idx],
-                                    self.sb.levels[fine_idx + 1].capacity)
+                                    self.sb.levels[fine_idx + 1].capacity,
+                                    compute_dtype=self.dt)
 
     def conv_tr(self, x, conv: Conv, coarse_idx):
         return ops.sparse_conv_tr(x, _kernel_rows_tr(conv),
                                   self.sb.pools[coarse_idx - 1],
-                                  self.sb.levels[coarse_idx - 1].valid)
+                                  self.sb.levels[coarse_idx - 1].valid,
+                                  compute_dtype=self.dt)
 
     def norm(self, x, norm: Norm, level_idx):
         return ops.instance_norm(x, self.sb.levels[level_idx].valid,
@@ -211,6 +228,88 @@ class _DenseCtx:
                                      self.grid_dims[level_idx])
 
 
+# from mask3d_tpu/models/backbone.py:324 _BrickCtx (no global_mean: the
+# port has no squeeze-excitation blocks)
+class _BrickCtx:
+    """Bricked execution: level 0 as occupied dense bricks
+    (`sparse/brick_ops.py`, [NB + 1, bx, by, bz, C]), every coarser level a
+    dense grid as in `_DenseCtx`, in `compute_dtype`. B=1 and no int8.
+    Building the brick tables sets `sb.brick_overflow`."""
+
+    def __init__(self, sb: SparseBatch, grid_dims, compute_dtype=None,
+                 brick_dims=(16, 16, 8), brick_capacity: int = 8192):
+        if sb.levels[0].batch_size != 1:
+            raise ValueError(f"backbone_impl=bricked runs one scene a "
+                             f"forward (B=1), got B={sb.levels[0].batch_size}")
+        self.sb = sb
+        self.dt = compute_dtype
+        self.grid_dims = list(grid_dims)
+        self.spec = brick_ops.make_brick_spec(grid_dims[0], brick_dims,
+                                              brick_capacity)
+        self.tables = brick_ops.build_tables(sb.levels[0], self.spec)
+        sb.brick_overflow = self.tables.overflow
+        self.occ_b = brick_ops.occupancy(self.tables, self.spec,
+                                         sb.levels[0].valid)
+        self.occ = list(sb.occ)  # levels 1-4; level 0's is occ_b
+
+    def scatter(self, feats_rows, level_idx):
+        return brick_ops.scatter_rows(feats_rows, self.tables, self.spec)
+
+    def conv3(self, x, conv: Conv, level_idx, bound=None):
+        if level_idx == 0:
+            return brick_ops.conv_same(x, conv.weight, self.occ_b,
+                                       self.tables, self.spec,
+                                       compute_dtype=self.dt)
+        return dense_ops.dense_conv_same(x, conv.weight, self.occ[level_idx],
+                                         compute_dtype=self.dt)
+
+    def conv_in(self, x, conv: Conv):
+        return self.conv3(x, conv, 0)
+
+    def conv1x1(self, x, conv: Conv, level_idx, bound=None):
+        # a k=1 conv per cell; level 0's bricks take the same dense conv,
+        # re-masked by the brick occupancy (zeros in, zeros out)
+        occ = self.occ_b if level_idx == 0 else self.occ[level_idx]
+        return dense_ops.dense_conv_same(x, conv.weight, occ,
+                                         compute_dtype=self.dt)
+
+    def conv_down(self, x, conv: Conv, fine_idx):
+        if fine_idx == 0:
+            return brick_ops.conv_down(x, conv.weight, self.occ[1],
+                                       self.tables, self.spec,
+                                       self.grid_dims[1],
+                                       compute_dtype=self.dt)
+        return dense_ops.dense_conv_down(x, conv.weight,
+                                         self.occ[fine_idx + 1],
+                                         compute_dtype=self.dt)
+
+    def conv_tr(self, x, conv: Conv, coarse_idx):
+        if coarse_idx == 1:
+            return brick_ops.conv_tr(x, conv.weight, self.occ_b, self.tables,
+                                     self.spec, compute_dtype=self.dt)
+        return dense_ops.dense_conv_tr(x, conv.weight,
+                                       self.occ[coarse_idx - 1],
+                                       compute_dtype=self.dt)
+
+    def norm(self, x, norm: Norm, level_idx):
+        if level_idx == 0:
+            return brick_ops.instance_norm(x, self.occ_b, norm.weight,
+                                           norm.bias)
+        return dense_ops.dense_instance_norm(x, self.occ[level_idx],
+                                             norm.weight, norm.bias)
+
+    def block_join(self, out, residual, level_idx, bound=None,
+                   want_q=False):
+        return torch.relu(out + residual)
+
+    def rows(self, x, level_idx):
+        if level_idx == 0:
+            return brick_ops.gather_rows(x, self.tables, self.spec,
+                                         self.sb.levels[0].valid)
+        return dense_ops.gather_rows(x, self.sb.levels[level_idx],
+                                     self.grid_dims[level_idx])
+
+
 # from mask3d_tpu/models/backbone.py:447 Res16UNetBase
 class Res16UNetBase(nn.Module):
     PLANES: Sequence[int] = (32, 64, 128, 256, 256, 256, 256, 256)
@@ -221,15 +320,19 @@ class Res16UNetBase(nn.Module):
                  impl: str = "dense", compute_dtype=None,
                  int8_stride1: bool = False, int8_residual: bool = False,
                  int8_act_sigma: float = 0.0, pallas_chain: bool = False,
-                 unit_features: bool = False):
+                 unit_features: bool = False, brick_dims=(16, 16, 8),
+                 brick_capacity: int = 8192):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
-        if impl != "dense" and (compute_dtype is not None or int8_stride1
-                                or pallas_chain or unit_features):
+        if impl != "dense" and (int8_stride1 or pallas_chain):
             raise NotImplementedError(
-                "compute_dtype, the int8 stack and unit_features are ported "
-                "on the dense impl only")
+                "the int8 stack (int8_stride1, pallas_chain) runs on the "
+                "dense impl only (the JAX package's bricked impl runs no "
+                "int8 either)")
+        if impl in ("gather", "gather_pallas") and unit_features:
+            raise NotImplementedError(
+                "unit_features is ported on the dense and bricked impls")
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
         self.impl = impl
@@ -239,6 +342,8 @@ class Res16UNetBase(nn.Module):
         self.int8_act_sigma = float(int8_act_sigma)
         self.pallas_chain = pallas_chain
         self.unit_features = unit_features
+        self.brick_dims = tuple(int(d) for d in brick_dims)
+        self.brick_capacity = int(brick_capacity)
         self.convs = nn.ModuleDict()
         self.norms = nn.ModuleDict()
         p, lay, c0 = self.PLANES, self.LAYERS, self.INIT_DIM
@@ -381,7 +486,11 @@ class Res16UNetBase(nn.Module):
                            Optional[torch.Tensor]]:
         """`int8=False` runs the fp32/bf16 convs whatever `int8_stride1`
         says: the model's train mode (the JAX package builds its backbone
-        with `int8_stride1 and is_eval`, mask3d.py:406)."""
+        with `int8_stride1 and is_eval`, mask3d.py:406). `grid_dims` None
+        (a batch without static grid dims) runs on the gather impls only."""
+        if grid_dims is None and self.impl in ("dense", "bricked"):
+            raise ValueError(f"backbone_impl={self.impl} needs the batch's "
+                             f"static grid dims")
         if self.impl == "dense":
             ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
                             int8_stride1=self.int8_stride1 and int8,
@@ -392,8 +501,15 @@ class Res16UNetBase(nn.Module):
                 x = ctx.occ[0].to(feats.dtype)
             else:
                 x = ctx.scatter(feats, 0)
+        elif self.impl == "bricked":
+            ctx = _BrickCtx(sb, grid_dims, self.compute_dtype,
+                            self.brick_dims, self.brick_capacity)
+            x = (ctx.occ_b.to(feats.dtype)
+                 if self.unit_features and self.in_channels == 1
+                 else ctx.scatter(feats, 0))
         else:
-            ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas")
+            ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas",
+                             compute_dtype=self.compute_dtype)
             x = ctx.scatter(feats, 0)
 
         # Encoder. The stem is conv -> norm -> relu (the JAX package's

@@ -259,6 +259,13 @@ class Mask3D(nn.Module):
         auxiliary full-resolution mask logits; `aux_pred_masks` then holds
         only the final prediction. `generator` (a `torch.Generator` on the
         model's device) draws the sampled memories of train mode."""
+        bb = self.backbone
+        if self.training and (bb.impl == "bricked" or (
+                bb.impl != "dense" and bb.compute_dtype is not None)):
+            raise NotImplementedError(
+                "training on backbone_impl=bricked, and bf16 training on "
+                "the gather impls, are not ported yet (ROADMAP Queue 1 "
+                "item 4); they run at inference")
         b = feats.shape[0]
         n_levels = sb.num_levels
         valid0 = sb.levels[0].valid
@@ -418,6 +425,10 @@ _SUPPORTED_VALUES = {
     "compute_dtype": (None, "bfloat16"), "sp_axis": (None,),
     "pre_norm": (False,), "shared_decoder": (True,),
     "fold_small_stages": (False,),
+    # schedules of the JAX package's TPU sparse-conv kernel, which leave its
+    # outputs as they are; the port runs its one CUDA kernel for each
+    "pallas_conv_select": ("onehot", "gather"),
+    "pallas_window_mode": ("per_offset", "grouped_dx"),
 }
 
 
@@ -428,8 +439,9 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     train mode (what `train.loop.init_state` does): sampled memories
     (`sample_sizes`, `max_sample_size`), `remat_backbone`, and no int8 convs
     (the JAX package passes `int8_stride1 and is_eval`); `dropout` > 0
-    raises there, as the JAX package's train step does. bf16 training runs
-    on the dense impl only (the gather impls refuse `compute_dtype`)."""
+    raises there, as the JAX package's train step does. Training runs on
+    `dense` (fp32 or bf16) and on the gather impls in fp32; `bricked`, and
+    the gather impls in bf16, run at inference only (train mode raises)."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
@@ -455,7 +467,8 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
                        else None),
         int8_stride1=m.int8_stride1, int8_residual=m.int8_residual,
         int8_act_sigma=m.int8_act_sigma, pallas_chain=m.pallas_chain,
-        unit_features=m.unit_features,
+        unit_features=m.unit_features, brick_dims=tuple(m.brick_dims),
+        brick_capacity=m.brick_capacity,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,13 +1,16 @@
 """Where the flagship forward's device time goes.
 
-    python -m mask3d_tpu_torch.profile_forward [--impl dense|gather_pallas]
-        [--config fp32|bf16|int8|int8_chain] [--out trace.json]
+    python -m mask3d_tpu_torch.profile_forward [--impl IMPL]
+        [--config fp32|bf16|int8|int8_chain] [--scene flagship|hall]
+        [--out trace.json]
 
-Collates the bench's 8 synthetic scenes at bucket 49152, builds the flagship
-model (seeded random weights) on the chosen backbone path
-(`model.backbone_impl`, default dense) in the chosen configuration (default
-fp32; `bf16`, `int8` and `int8_chain` are the JAX bench's inference stack,
-`CONFIGS`, dense only), warms up, then traces one `infer` with
+Collates the bench's 8 synthetic scenes at bucket 49152 (or, `--scene
+hall`, the hall scan of `bench_large_scene.py` at bucket 65536 with its
+brick shape and capacity), builds the flagship model (seeded random
+weights) on the chosen backbone path (`model.backbone_impl`, default
+dense) in the chosen configuration (default fp32; `bf16`, `int8` and
+`int8_chain` are the JAX bench's inference stack, `CONFIGS`; the int8
+ones dense only), warms up, then traces one `infer` with
 `torch.profiler` and prints the device time per kernel group (the port's
 CUDA kernels, convolutions, other PyTorch kernels), the wall time of the
 traced forward and the device's idle share within it. Needs a CUDA card.
@@ -95,21 +98,31 @@ def _group(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--impl", choices=("dense", "gather_pallas"),
+    ap.add_argument("--impl", choices=("dense", "gather", "gather_pallas",
+                                       "bricked"),
                     default="dense", help="model.backbone_impl")
     ap.add_argument("--config", choices=tuple(CONFIGS), default="fp32",
-                    help="inference configuration (bf16/int8: dense only)")
+                    help="inference configuration (int8: dense only)")
+    ap.add_argument("--scene", choices=("flagship", "hall"),
+                    default="flagship")
     ap.add_argument("--out", default=None, help="chrome trace path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152",
-                                     f"model.backbone_impl={args.impl}"]
+    if args.scene == "hall":
+        from mask3d_tpu_torch import bench_large_scene as bls
+
+        host = bls.hall_batch("cuda")
+        _, brick, cap = bls.geometry_lines(host.device)
+        cfg = bls.variant_cfg(args.impl, "per_offset", brick, cap, None)
+    else:
+        cfg = apply_overrides(Config(), ["data.point_bucket_multiple=49152"])
+        host = mt.collate(flagship_items(), device="cuda",
+                          point_bucket_multiple=49152)
+    cfg = apply_overrides(cfg, [f"model.backbone_impl={args.impl}"]
                           + CONFIGS[args.config])
-    host = mt.collate(flagship_items(), device="cuda",
-                      point_bucket_multiple=49152)
     model = mt.build_model(cfg, device="cuda", seed=0)
     for _ in range(2):
         mt.infer(model, host.device, cfg)
@@ -134,7 +147,7 @@ def main(argv=None):
         per_group[_group(evt.key)] += us / 1e3
         per_kernel[evt.key] += us / 1e3
     busy = sum(per_group.values())
-    print(f"traced {args.impl} {args.config} forward on "
+    print(f"traced {args.scene} {args.impl} {args.config} forward on "
           f"{torch.cuda.get_device_name(0)}: "
           f"wall {wall_ms:.2f} ms, device busy {busy:.2f} "
           f"ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}")

@@ -1,10 +1,13 @@
 """SparseBatch: the sparse pyramid, pool maps, kernel maps and occupancy
 grids of one forward.
 
-Levels come from dense-grid pooling (the grid-dims branch of the JAX
-package's context). The dense path reads the occupancy grids; the gather
-path reads the pool maps' parents and the kernel maps, which come from a
-dense voxel->row table per level.
+Where the batch has static grid dims, levels come from dense-grid pooling
+(the grid-dims branch of the JAX package's context): the dense path reads
+the occupancy grids; the gather paths read the pool maps' parents and the
+kernel maps, which come from a dense voxel->row table per level. Without
+grid dims (`grid_dims=None`), the pyramid comes from sorting and the
+kernel maps from a binary search (`core.build_pyramid`, `neighbor_map`):
+only the gather paths run on such a batch.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from mask3d_tpu_torch.sparse.core import build_base_level, build_row_table, \
-    cube_offsets, neighbor_map_table
+from mask3d_tpu_torch.sparse.core import build_base_level, build_pyramid, \
+    build_row_table, cube_offsets, neighbor_map, neighbor_map_table
 from mask3d_tpu_torch.sparse.dense_ops import downsample_level_dense, \
     occupancy
 
@@ -23,9 +26,11 @@ from mask3d_tpu_torch.sparse.dense_ops import downsample_level_dense, \
 @dataclasses.dataclass
 class SparseBatch:
     """levels[0] is stride 1; levels[i] has stride 2**i; pools[i] relates
-    levels[i] to levels[i+1]; occ[i] is f32[B, Gx, Gy, Gz, 1];
-    nbr_idx/nbr_ok[i] is the 3x3x3 kernel map of levels[i] (gather path);
-    nbr0_idx/nbr0_ok the input conv's map of levels[0]."""
+    levels[i] to levels[i+1]; occ[i] is f32[B, Gx, Gy, Gz, 1] (none without
+    grid dims); nbr_idx/nbr_ok[i] is the 3x3x3 kernel map of levels[i]
+    (gather path); nbr0_idx/nbr0_ok the input conv's map of levels[0].
+    `brick_overflow` is set by the bricked backbone: more occupied level-0
+    bricks than its capacity."""
 
     levels: tuple
     occ: tuple
@@ -34,6 +39,7 @@ class SparseBatch:
     nbr_ok: tuple = ()
     nbr0_idx: Optional[torch.Tensor] = None  # i32[B, N0, k0^3]
     nbr0_ok: Optional[torch.Tensor] = None
+    brick_overflow: Optional[torch.Tensor] = None  # bool[]
 
     @property
     def num_levels(self) -> int:
@@ -45,39 +51,54 @@ class SparseBatch:
         return tuple(p.overflow for p in self.pools)
 
     def any_overflow(self):
-        """bool scalar tensor: any level of any item exceeded capacity."""
-        return torch.stack([o.any() for o in self.overflow]).any()
+        """bool scalar tensor: any level of any item exceeded its capacity,
+        or the bricked backbone had more occupied bricks than its
+        capacity."""
+        flags = [o.any() for o in self.overflow]
+        if self.brick_overflow is not None:
+            flags.append(self.brick_overflow)
+        return torch.stack(flags).any()
 
 
 # from mask3d_tpu/sparse/context.py:60 build_sparse_batch (the grid-dims
-# branch, :115-131 and :134-169; no precomputed_levels). The defaults are
-# the dense path's (`_sb_kwargs` in infer.py picks them per backbone impl).
+# branch, :115-131, the sorting one, :132-133, and :134-169; no
+# precomputed_levels). The defaults are the dense path's (`_sb_kwargs` in
+# infer.py picks them per backbone impl).
 def build_sparse_batch(coords, count, dims, level_capacities: Sequence[int],
-                       grid_dims: Sequence, conv1_kernel_size=None,
+                       grid_dims: Optional[Sequence] = None,
+                       conv1_kernel_size=None,
                        build_block_maps: bool = False,
                        build_pool_parents: bool = False) -> SparseBatch:
     """coords i32[B, N, 3] sorted per item with padding at the end;
     count i32[B]; dims i32[B, 3]; `level_capacities` are the row capacities
-    of the coarser levels; `grid_dims` the static per-level grid dims.
-    `build_block_maps` adds every level's 3x3x3 kernel map,
-    `conv1_kernel_size` (odd, or None) the input conv's map of level 0, and
-    `build_pool_parents` the PoolMaps' parents and child counts. The
-    options keep the JAX signature; only two combinations are used: all
-    off (dense) and all on (the gather impls)."""
+    of the coarser levels; `grid_dims` the static per-level grid dims, or
+    None: the pyramid by sorting (its PoolMaps always with parents), no
+    occupancy grids, kernel maps by binary search. `build_block_maps` adds
+    every level's 3x3x3 kernel map, `conv1_kernel_size` (odd, or None) the
+    input conv's map of level 0, and `build_pool_parents` the PoolMaps'
+    parents and child counts. The options keep the JAX signature; three
+    combinations are used: all off (dense), parents only (bricked) and all
+    on (the gather impls)."""
     base = build_base_level(coords, count, dims)
-    levels, pools = [base], []
-    occ = [occupancy(base, grid_dims[0])]
-    for li, cap in enumerate(level_capacities):
-        coarse, pool, occ_c = downsample_level_dense(
-            levels[-1], grid_dims[li], cap, occ_f=occ[-1],
-            with_parent=build_pool_parents)
-        levels.append(coarse)
-        pools.append(pool)
-        occ.append(occ_c)
+    if grid_dims is None:
+        levels, pools = build_pyramid(base, level_capacities)
+        occ = []
+    else:
+        levels, pools = [base], []
+        occ = [occupancy(base, grid_dims[0])]
+        for li, cap in enumerate(level_capacities):
+            coarse, pool, occ_c = downsample_level_dense(
+                levels[-1], grid_dims[li], cap, occ_f=occ[-1],
+                with_parent=build_pool_parents)
+            levels.append(coarse)
+            pools.append(pool)
+            occ.append(occ_c)
 
     tables = {}
 
     def maps_for(li, offsets):
+        if grid_dims is None:
+            return neighbor_map(levels[li], offsets)
         if li not in tables:
             gd = grid_dims[li]
             tables[li] = build_row_table(levels[li], gd[0] * gd[1] * gd[2])

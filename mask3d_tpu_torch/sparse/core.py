@@ -5,8 +5,10 @@ padding rows carry key INT32_MAX and coords 0; `dims` is the per-item grid
 extent at the level. Every tensor has a leading batch axis B and a fixed
 per-item capacity N.
 
-Kernel maps (the gather path) come from a dense voxel->row table per level:
-`build_row_table` + `neighbor_map_table`.
+Kernel maps (the gather path) come from a dense voxel->row table per level
+(`build_row_table` + `neighbor_map_table`) where the batch has static grid
+dims, else from a binary search over the sorted keys (`neighbor_map`), and
+the pyramid then comes from sorting (`downsample_level`).
 """
 
 from __future__ import annotations
@@ -98,6 +100,95 @@ def build_base_level(coords, count, dims) -> SparseLevel:
     key = torch.where(valid, pack_keys(coords, dims[:, None, :]), INT32_MAX)
     return SparseLevel(key=key.to(torch.int32), coords=coords, valid=valid,
                        count=count, dims=dims, stride=1)
+
+
+# from mask3d_tpu/sparse/core.py:144 _downsample_item (batched) and :206
+# downsample_level
+def downsample_level(level: SparseLevel, capacity: int):
+    """The stride-2 coarse level and the fine -> coarse PoolMap by sorting:
+    the coarse rows are the unique `coords >> 1` of each item in key order.
+    Rows past `capacity` are dropped and flagged; their fine rows' parent
+    is `capacity`, as are the padding rows'."""
+    b, n = level.key.shape
+    dev = level.key.device
+    dims_c = ((level.dims - 1) >> 1) + 1
+    cc = level.coords >> 1
+    child_key = torch.where(level.valid, pack_keys(cc, dims_c[:, None, :]),
+                            INT32_MAX).to(torch.int32)
+    order = torch.argsort(child_key, dim=1, stable=True)
+    sorted_key = torch.gather(child_key, 1, order)
+    is_real = sorted_key != INT32_MAX
+    first = torch.ones_like(is_real)
+    first[:, 1:] = sorted_key[:, 1:] != sorted_key[:, :-1]
+    new = is_real & first
+    pos = torch.cumsum(new.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    count_c = new.sum(dim=1, dtype=torch.int32)
+    # every row but the first of each kept coarse row writes the drop slot
+    write = torch.where(new & (pos < capacity), pos, capacity).long()
+    key_c = torch.full((b, capacity + 1), INT32_MAX, dtype=torch.int32,
+                       device=dev)
+    key_c.scatter_(1, write, sorted_key)
+    coords_c = torch.zeros((b, capacity + 1, 3), dtype=torch.int32,
+                           device=dev)
+    sorted_cc = torch.gather(cc, 1, order[..., None].expand(-1, -1, 3))
+    coords_c.scatter_(1, write[..., None].expand(-1, -1, 3),
+                      sorted_cc.to(torch.int32))
+    count = torch.clamp(count_c, max=capacity)
+    valid_c = torch.arange(capacity, device=dev)[None] < count[:, None]
+    coarse = SparseLevel(key=key_c[:, :capacity].contiguous(),
+                         coords=coords_c[:, :capacity].contiguous(),
+                         valid=valid_c,
+                         count=count, dims=dims_c, stride=level.stride * 2)
+    parent_sorted = torch.where(is_real & (pos < capacity), pos, capacity)
+    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
+    parent.scatter_(1, order, parent_sorted)
+    fc = level.coords
+    kidx = ((fc[..., 0] & 1) * 4 + (fc[..., 1] & 1) * 2
+            + (fc[..., 2] & 1)).to(torch.int32)
+    nchild = torch.zeros((b, capacity + 1), dtype=torch.int32, device=dev)
+    nchild.scatter_add_(1, parent.long(), level.valid.to(torch.int32))
+    pool = PoolMap(parent=parent, kidx=kidx, nchild=nchild[:, :capacity],
+                   overflow=count_c > capacity)
+    return coarse, pool
+
+
+# from mask3d_tpu/sparse/core.py:229 build_pyramid
+def build_pyramid(base: SparseLevel, capacities):
+    """(levels, pools): `capacities[i]` rows at level i + 1; `pools[i]`
+    relates levels[i] to levels[i + 1]."""
+    levels, pools = [base], []
+    for cap in capacities:
+        coarse, pool = downsample_level(levels[-1], cap)
+        levels.append(coarse)
+        pools.append(pool)
+    return levels, pools
+
+
+# from mask3d_tpu/sparse/core.py:245 _neighbor_map_item (batched) and :264
+# neighbor_map
+def neighbor_map(level: SparseLevel, offsets, chunk: int = 32):
+    """Kernel map by binary search over each item's sorted keys, for levels
+    without a static grid: (idx i32[B, N, K], ok bool[B, N, K]). Where ok
+    is false idx is the search position, clamped into the level (the JAX
+    package's values, which no consumer reads)."""
+    b, n = level.key.shape
+    dev = level.key.device
+    dims = level.dims[:, None, None, :]
+    offsets = offsets.to(device=dev, dtype=torch.int32)
+    idx_parts, ok_parts = [], []
+    for s in range(0, offsets.shape[0], chunk):
+        offs = offsets[s:s + chunk]
+        ncoords = level.coords[:, :, None, :] + offs[None, None, :, :]
+        in_bounds = (((ncoords >= 0) & (ncoords < dims)).all(dim=-1)
+                     & level.valid[:, :, None])
+        nkey = torch.where(in_bounds, pack_keys(ncoords, dims),
+                           INT32_MAX).to(torch.int32)
+        idx = torch.searchsorted(level.key, nkey.reshape(b, -1),
+                                 out_int32=True).clamp(max=n - 1)
+        got = torch.gather(level.key, 1, idx.long())
+        idx_parts.append(idx.reshape(nkey.shape))
+        ok_parts.append(in_bounds & (got.reshape(nkey.shape) == nkey))
+    return torch.cat(idx_parts, dim=2), torch.cat(ok_parts, dim=2)
 
 
 # from mask3d_tpu/sparse/core.py:283 build_row_table

@@ -1,6 +1,9 @@
-"""Row-space sparse ops of the gather path (fp32): gather-matmul
-convolutions over kernel maps, stride-2 convs and average pooling over
-PoolMaps, InstanceNorm over valid rows.
+"""Row-space sparse ops of the gather path: gather-matmul convolutions over
+kernel maps, stride-2 convs and average pooling over PoolMaps,
+InstanceNorm over valid rows. The convs take `compute_dtype` (None: the
+features' dtype, or bf16): the operands are rounded to it, the products
+summed in f32, and the result written in it, as the JAX package's XLA
+convs do.
 
 Every feature tensor is `[B, N, C]` in the `[B, N]` row layout of
 `sparse/core.py`; conv weights are `[K, Cin, Cout]` in `cube_offsets` order
@@ -28,11 +31,18 @@ def gather_rows(feats, idx, ok):
     return torch.where(ok[..., None], g, 0.0)
 
 
-# from mask3d_tpu/sparse/ops.py:28 sparse_conv (bias-free, fp32)
-def sparse_conv(feats, weight, nbr_idx, nbr_ok):
+def _cast(feats, weight, compute_dtype):
+    if compute_dtype is None:
+        return feats, weight
+    return feats.to(compute_dtype), weight.to(compute_dtype)
+
+
+# from mask3d_tpu/sparse/ops.py:28 sparse_conv (bias-free)
+def sparse_conv(feats, weight, nbr_idx, nbr_ok, compute_dtype=None):
     """Same-stride sparse conv: out[b, p] = sum_k ok[b, p, k] *
     feats[b, nbr_idx[b, p, k]] @ weight[k], accumulated in f32.
     weight [K, Cin, Cout]; nbr_idx/nbr_ok [B, N, K]."""
+    feats, weight = _cast(feats, weight, compute_dtype)
     out = feats.new_zeros(feats.shape[:2] + (weight.shape[-1],),
                           dtype=torch.float32)
     for k in range(weight.shape[0]):
@@ -62,20 +72,24 @@ def _by_child(x, weight, kidx):
     return out
 
 
-# from mask3d_tpu/sparse/ops.py:72 sparse_conv_down (bias-free, fp32)
-def sparse_conv_down(feats, weight, pool: PoolMap, coarse_capacity: int):
+# from mask3d_tpu/sparse/ops.py:72 sparse_conv_down (bias-free)
+def sparse_conv_down(feats, weight, pool: PoolMap, coarse_capacity: int,
+                     compute_dtype=None):
     """Stride-2 kernel-2 conv: out[b, i] = sum over the children j of i of
     feats[b, j] @ weight[kidx(j)]. weight [8, Cin, Cout]."""
+    feats, weight = _cast(feats, weight, compute_dtype)
     per_row = _by_child(feats, weight, pool.kidx)
     return _segment_sum_batched(per_row, pool.parent,
                                 coarse_capacity).to(feats.dtype)
 
 
-# from mask3d_tpu/sparse/ops.py:103 sparse_conv_tr (bias-free, fp32)
-def sparse_conv_tr(feats_coarse, weight, pool: PoolMap, fine_valid):
+# from mask3d_tpu/sparse/ops.py:103 sparse_conv_tr (bias-free)
+def sparse_conv_tr(feats_coarse, weight, pool: PoolMap, fine_valid,
+                   compute_dtype=None):
     """Transposed stride-2 kernel-2 conv onto the finer level:
     out[b, j] = feats_coarse[b, parent(j)] @ weight[kidx(j)] for valid j.
     weight [8, Cin, Cout]."""
+    feats_coarse, weight = _cast(feats_coarse, weight, compute_dtype)
     gathered = gather_rows(feats_coarse, pool.parent, fine_valid)
     return _by_child(gathered, weight, pool.kidx).to(feats_coarse.dtype)
 

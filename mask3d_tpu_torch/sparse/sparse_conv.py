@@ -26,8 +26,10 @@ forward.
 
 Which levels take it is the model's numerics, not a fallback: the backbone
 sends a level here only where `supports(N)` holds (the JAX eligibility
-rule); other levels run the fp32 `ops.sparse_conv`. The kernel itself takes
-any N and Cin.
+rule); other levels run `ops.sparse_conv` in the model's compute dtype.
+The kernel itself takes any N and Cin, and f32 or bf16 feats (a bf16
+backbone's rows go in as they are; the output stays f32 and the backbone
+casts it back, as the JAX package's `_GatherCtx` does).
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def plan(b: int, n: int, k: int, cin: int, cout: int) -> Plan:
 
 
 def bf16_rows(feats, depth: int):
-    """f32 [B, N, Cin] -> contiguous bf16 [B, N, depth], zero past Cin."""
+    """f32 or bf16 [B, N, Cin] -> contiguous bf16 [B, N, depth], zero past
+    Cin."""
     x = feats.to(torch.bfloat16)
     if depth != x.shape[-1]:
         x = F.pad(x, (0, depth - x.shape[-1]))
@@ -175,9 +178,9 @@ def _forward(feats, weight, nbr_idx, nbr_ok):
     one."""
     if not cuda_build.use_kernel(feats, "sparse_conv"):
         return sparse_conv_plain(feats, weight, nbr_idx, nbr_ok)
-    if feats.dtype != torch.float32:
-        raise TypeError(f"sparse_conv kernel takes float32 feats, got "
-                        f"{feats.dtype}")
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sparse_conv kernel takes float32 or bfloat16 "
+                        f"feats, got {feats.dtype}")
     if weight.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"sparse_conv kernel takes float32 or bfloat16 "
                         f"weights, got {weight.dtype}")
@@ -254,7 +257,7 @@ class SparseConv(torch.autograd.Function):
 
 
 def sparse_conv(feats, weight, nbr_idx, nbr_ok):
-    """feats f32[B, N, Cin], weight [K, Cin, Cout] (f32 or bf16),
+    """feats [B, N, Cin] and weight [K, Cin, Cout] (f32 or bf16),
     nbr_idx i32 / nbr_ok bool [B, N, K] -> f32[B, N, Cout]."""
     _check(feats, weight, nbr_idx, nbr_ok)
     return SparseConv.apply(feats, weight, nbr_idx, nbr_ok)

@@ -9,7 +9,8 @@ logger, and `test`.
 The data-parallel mesh (`trainer.num_data_parallel > 1`,
 `trainer.distributed`) and `measure_model_phases` are not ported yet
 (ROADMAP Queue 1 item 7); the trainer raises where a configuration asks
-for them.
+for them. `backbone_impl=bricked` evaluates at `data.test_batch_size=1`
+and raises on a batch whose bricks or levels overflowed.
 """
 
 from __future__ import annotations
@@ -344,6 +345,11 @@ class InstanceSegmentationTrainer:
             if cfg.data.test_batch_size > 0
             else cfg.data.batch_size
         )
+        bricked = cfg.model.backbone_impl == "bricked"
+        if bricked and bs != 1:
+            raise ValueError(
+                f"backbone_impl=bricked runs one scene a forward: set "
+                f"data.test_batch_size=1 (the {split} batch is {bs})")
         all_metrics: List[dict] = []
         loss_acc: Dict[str, list] = {}
         for host in _prefetch(self._batches(split, bs, shuffle=False)):
@@ -360,6 +366,14 @@ class InstanceSegmentationTrainer:
             for k, v in zip(losses, values):
                 loss_acc.setdefault(f"{prefix}_{k}", []).append(float(v))
             meter.add_timing("loss_calculation")
+            if bricked and loss_acc[f"{prefix}_batch_overflow"][-1] > 0:
+                # the voxels of bricks past the capacity would be dropped
+                # silently (the JAX package's bricked path does so)
+                raise RuntimeError(
+                    f"{split} scene {host.scenes[0]}: more occupied level-0 "
+                    f"bricks than model.brick_capacity="
+                    f"{cfg.model.brick_capacity}, or a pyramid level past "
+                    f"its capacity (data.level_cap_ratios)")
             if loss_acc.get(f"{prefix}_batch_overflow", [0.0])[-1] > 0:
                 # predictions built on clamped pyramid levels are degraded
                 logger.warning(
