@@ -125,6 +125,31 @@ beside this script. Phases:
    `cli test` on the `last-epoch.ckpt` it wrote; (f) the peak device
    memory of one step at batch 16, whole and as 2 x 8.
 
+10. `train_large` (deterministic algorithms on): (a) the main path's 8
+   scenes as 8 micro-batches of one scene on `bricked` (16x16x8 bricks,
+   every slot of the grid) in fp32: one step with the kernels (96
+   attention launches, 24 at each sampled length; 40 row gathers: four
+   dense taps and the brick tap a micro-batch) against one on the plain
+   path (loss TRAIN_LOSS_TOL, every leaf TRAIN_GRAD_TOL), two steps twice
+   from one seed bitwise equal; (b) one bf16 step each on `bricked` (8 x
+   1), `gather` (2 x 4) and `gather_pallas` (batch 8; 47 sparse-conv
+   launches)
+   against the fp32 step of the same impl, per leaf and kernel offset
+   within TRAIN_BF16_REL (`bf16_train_gate`), and two planted faults that
+   must fail it (bricked: the brick tap's backward negated;
+   gather_pallas: the centre offset's dW sign-flipped); (c) the hall
+   scan (phase 7's scene) on `bricked` and `gather_pallas` in bf16, one
+   step each (retried with `model.remat_backbone=true` where it does not
+   fit), its seconds and peak memory, and the backwards at the hall's
+   level-0 shapes timed beside their bounds: the sparse conv's (bf16
+   feats) and the brick tap's scatter-add; (d) `cli train` on `bricked`
+   (8^3 bricks) at batch 2 as two micro-batches of one scene, one
+   validation at test_batch_size 1, then a second epoch resumed from its
+   `last-epoch.ckpt`; (e) `cli test` with
+   `trainer.measure_model_phases=true`: every `model_forward_*` segment,
+   their sum within PHASE_SUM_TOL of a fenced forward of the same batch;
+   and the attention at the micro-batches' key lengths (B=1).
+
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
 
@@ -233,6 +258,18 @@ HALL_BF16_MEAN = 0.2
 # the planted brick fault: every brick's +x halo from the sentinel
 # (offset (1, 0, 0) of brick_ops._OFFS)
 BRICK_FAULT_OFFSET = 22
+# the train_large phase: a bf16 step's gradients against the fp32 step
+# of the same impl, per leaf and kernel offset ||bf16 - fp32|| / ||fp32||
+# (`bf16_train_gate`): the CPU tests' JAX bf16 step reads 1.553 at most
+# on small_config (a level-0 norm of bricked; tests/torch_train_parity.py),
+# a sign-flipped piece reads about 2. The cli run: 4 train scenes, 8^3
+# bricks (the collator's grids are multiples of 8), a capacity that covers
+# the augmented scenes' grids; the phase timer's sum against a fenced
+# forward
+TRAIN_BF16_REL = 1.6
+TRAIN_LARGE_SCENES = 4
+TRAIN_LARGE_BRICK_CAPACITY = 2048
+PHASE_SUM_TOL = 0.1
 
 
 LOG_FILE = None  # set by open_log
@@ -1764,6 +1801,483 @@ def run_train_entry(torch, np, mt, counters, by_key, card):
                 peak_gib=peak)
 
 
+def grad_pieces(torch, grads):
+    """Each gradient leaf, and each kernel offset of each conv weight
+    ([Cout, Cin, k, k, k] or a transposed [Cin, Cout, 2, 2, 2]) as a piece
+    of its own: {(leaf, offset or None): f64 tensor}."""
+    out = {}
+    for name, g in grads.items():
+        g = g.double()
+        out[(name, None)] = g
+        if ".convs." in name and g.dim() == 5:
+            for off in torch.cartesian_prod(*(torch.arange(d)
+                                              for d in g.shape[2:])):
+                i, j, k = (int(x) for x in off)
+                out[(name, (i, j, k))] = g[:, :, i, j, k]
+    return out
+
+
+def bf16_train_gate(torch, g16, g32):
+    """The bf16 step held to the fp32 step of the same impl: per leaf and
+    kernel offset (`grad_pieces`), ||g16 - g32|| / ||g32|| over the pieces
+    whose fp32 norm is above TRAIN_GRAD_FLOOR of the largest leaf norm;
+    returns (worst ratio to TRAIN_BF16_REL, its piece, the pieces' median
+    relative error); the gate passes at ratio <= 1."""
+    p16, p32 = grad_pieces(torch, g16), grad_pieces(torch, g32)
+    floor = TRAIN_GRAD_FLOOR * max(float(v.norm()) for k, v in p32.items()
+                                   if k[1] is None)
+    rel = {k: float((p16[k] - v).norm()) / float(v.norm())
+           for k, v in p32.items() if float(v.norm()) > floor}
+    worst = max(rel, key=rel.get)
+    return rel[worst] / TRAIN_BF16_REL, worst, statistics.median(
+        rel.values())
+
+
+def grads_of(state):
+    return {k: p.grad.detach().clone()
+            for k, p in state.model.named_parameters() if p.grad is not None}
+
+
+class flipped_centre_dw:
+    """A planted fault, patched in for a `with` block: the sparse conv's
+    backward returns the centre offset's dW with its sign flipped."""
+
+    def __init__(self, sc):
+        self.sc, self.real = sc, sc.sparse_conv_backward
+
+    def __enter__(self):
+        real = self.real
+
+        def faulty(feats, weight, nbr_idx, nbr_ok, g, needs=(True, True)):
+            df, dw = real(feats, weight, nbr_idx, nbr_ok, g, needs)
+            if dw is not None:
+                dw = dw.clone()
+                dw[dw.shape[0] // 2] *= -1
+            return df, dw
+
+        self.sc.sparse_conv_backward = faulty
+
+    def __exit__(self, *exc):
+        self.sc.sparse_conv_backward = self.real
+
+
+class negated_brick_tap:
+    """A planted fault, patched in for a `with` block: the bricked
+    level-0 tap's backward returns the negated gradient."""
+
+    def __init__(self, torch, bo):
+        self.torch, self.bo, self.real = torch, bo, bo.gather_rows
+
+    def __enter__(self):
+        torch, real = self.torch, self.real
+
+        class Negate(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return -g
+
+        def faulty(bricks, tables, spec, valid):
+            return real(Negate.apply(bricks), tables, spec, valid)
+
+        self.bo.gather_rows = faulty
+
+    def __exit__(self, *exc):
+        self.bo.gather_rows = self.real
+
+
+def one_step(torch, mt, counters, by_key, cfg, batch, card, what,
+             oom_retry=False):
+    """One train step of a fresh state (`train_steps`), logged; with
+    `oom_retry` a step that runs out of device memory is retried with
+    `model.remat_backbone=true`. Returns (loss, grads, launches, by S,
+    seconds, peak GiB, remat)."""
+    remat = False
+    while True:
+        try:
+            losses, launches, by_s, state, peak, secs = train_steps(
+                torch, mt, counters, by_key, cfg, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            torch.cuda.empty_cache()
+            if not oom_retry or remat:
+                raise
+            log(f"{what}: out of device memory without remat_backbone "
+                f"({str(e).splitlines()[0]}); again with it")
+            cfg = cfg_mod_replace(cfg, ["model.remat_backbone=true"])
+            remat = True
+    grads = grads_of(state)
+    del state
+    torch.cuda.empty_cache()
+    loss = losses[0]["loss"]
+    log(f"{what}: loss {loss:.6f}, overflow "
+        f"{losses[0]['batch_overflow']:.0f}, launches {launches}, attention "
+        f"by S {by_s}, {secs[0]:.3f} s, peak {peak:.2f} GiB"
+        f"{' (remat_backbone)' if remat else ''} on {card}")
+    return dict(loss=loss, grads=grads, launches=launches, by_s=by_s,
+                s=secs[0], peak_gib=peak, remat=remat,
+                overflow=losses[0]["batch_overflow"])
+
+
+def run_train_large(torch, F, np, mt, counters, by_key, card, host,
+                    kernels):
+    """The `train_large` phase (see the docstring's phase 10). Every gate is
+    read before the first failing one raises, at the end."""
+    from mask3d_tpu_torch import bench_large_scene as bls
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from mask3d_tpu_torch.sparse import brick_ops as bo
+
+    ma, rg, sc = kernels
+    res, failed = {"steps": {}}, []
+    n_dec = 3 * 4
+    base = [f"data.point_bucket_multiple={BUCKET}",
+            "trainer.train_split_metrics=false"]
+    gd0 = host.device.grid_dims[0]
+    slots = int(np.prod([g // b for g, b in zip(gd0, BRICK_SCENE)]))
+    bricked = ["model.backbone_impl=bricked",
+               "model.brick_dims=[{},{},{}]".format(*BRICK_SCENE),
+               f"model.brick_capacity={slots}", "data.batch_size=8",
+               "trainer.grad_accum_steps=8"]
+
+    def cfg_of(*ov):
+        return apply_overrides(Config(), base + [x for o in ov for x in o])
+
+    batch = host.device
+    # (a) bricked fp32, 8 micro-batches of one scene: kernels vs plain path
+    cfg_b = cfg_of(bricked)
+    runs = {}
+    for plain in (False, True):
+        losses, launches, by_s, state, peak, secs = train_steps(
+            torch, mt, counters, by_key, cfg_b, batch, plain=plain)
+        tag = "plain" if plain else "kernels"
+        runs[tag] = dict(loss=losses[0]["loss"], grads=grads_of(state),
+                         launches=launches, by_s=by_s, s=secs[0],
+                         peak_gib=peak)
+        del state
+        torch.cuda.empty_cache()
+        log(f"train_large bricked fp32, 8 x 1 ({tag}): loss "
+            f"{losses[0]['loss']:.6f}, overflow "
+            f"{losses[0]['batch_overflow']:.0f}, launches {launches}, "
+            f"attention by S {by_s}, {secs[0]:.3f} s, peak {peak:.2f} GiB "
+            f"on {card}")
+    k, p = runs["kernels"], runs["plain"]
+    res["launches"] = {"bricked fp32 (kernels)": k["launches"]}
+    want = {"masked_attention": 8 * n_dec, "row_gather": 8 * 5,
+            "sparse_conv": 0, "int8_conv": 0}
+    if k["launches"] != want or k["by_s"] != {s: 8 * 3
+                                              for s in TRAIN_ATTN_S}:
+        failed.append(("bricked step launches", k["launches"], k["by_s"]))
+    if sum(p["launches"].values()) != 0:
+        failed.append(("plain path launched a kernel", p["launches"]))
+    errs = leaf_errors(p["grads"], k["grads"])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"train_large bricked fp32 gradients, kernels vs plain path, per "
+        f"leaf ||diff||/||plain|| (tol {TRAIN_GRAD_TOL}), worst: {worst}; "
+        f"loss {k['loss']:.6f} vs {p['loss']:.6f}")
+    res["bricked_fp32"] = dict(
+        loss=k["loss"], loss_plain=p["loss"], worst_leaf=worst[0],
+        s=k["s"], s_plain=p["s"], peak_gib=k["peak_gib"])
+    if not (np.isfinite(k["loss"])
+            and abs(k["loss"] - p["loss"]) <= TRAIN_LOSS_TOL * abs(p["loss"])
+            and worst[0][1] <= TRAIN_GRAD_TOL):
+        failed.append(("bricked kernels vs plain", worst[0], k["loss"],
+                       p["loss"]))
+    fp32 = {"bricked": k}
+    del runs, p
+    same_runs = []
+    for _ in range(2):
+        losses, _, _, state, _, _ = train_steps(
+            torch, mt, counters, by_key, cfg_b, batch, n_steps=2, seed=1)
+        same_runs.append(([x["loss"] for x in losses],
+                          {n: q.detach().clone()
+                           for n, q in state.model.named_parameters()}))
+        del state
+    same = same_runs[0][0] == same_runs[1][0] and all(
+        torch.equal(v, same_runs[1][1][n]) for n, v in same_runs[0][1].items())
+    log(f"train_large bricked determinism: two steps twice from one seed, "
+        f"losses {same_runs[0][0]} and {same_runs[1][0]}, bitwise equal "
+        f"{same}")
+    res["bricked_fp32"]["bitwise_repeat"] = same
+    if not same:
+        failed.append("bricked steps do not repeat bitwise")
+    del same_runs
+    torch.cuda.empty_cache()
+
+    # (b) one bf16 step on each impl against its fp32 step
+    # `gather` keeps every offset's gathered rows for its backward: 75.5
+    # GiB at batch 8 whole on the H100 80GB, so it takes the batch as 2 x 4
+    impls = {"bricked": bricked,
+             "gather": ["model.backbone_impl=gather",
+                        "trainer.grad_accum_steps=2"],
+             "gather_pallas": ["model.backbone_impl=gather_pallas"]}
+    bf16 = ["model.compute_dtype=bfloat16"]
+    for impl in ("gather", "gather_pallas"):
+        fp32[impl] = one_step(torch, mt, counters, by_key,
+                              cfg_of(impls[impl]), batch, card,
+                              f"train_large {impl} fp32, batch 8")
+    res["bf16_gates"], res["bf16_faults"] = {}, {}
+    for impl in ("bricked", "gather", "gather_pallas"):
+        run = one_step(torch, mt, counters, by_key,
+                       cfg_of(impls[impl], bf16), batch, card,
+                       f"train_large {impl} bf16, batch 8")
+        ratio, piece, med = bf16_train_gate(torch, run["grads"],
+                                            fp32[impl]["grads"])
+        log(f"train_large {impl} bf16 vs fp32 gradients: worst "
+            f"||diff||/||fp32|| {ratio * TRAIN_BF16_REL:.4g} at {piece} "
+            f"(gate {TRAIN_BF16_REL}, ratio {ratio:.4g}), median over "
+            f"leaves and offsets {med:.4g}")
+        res["bf16_gates"][impl] = ratio
+        res["steps"][f"{impl} bf16"] = {
+            k_: run[k_] for k_ in ("loss", "s", "peak_gib", "launches")}
+        res["steps"][f"{impl} fp32"] = {
+            k_: fp32[impl][k_] for k_ in ("loss", "s", "peak_gib",
+                                          "launches")}
+        if not (np.isfinite(run["loss"]) and ratio <= 1.0):
+            failed.append((f"{impl} bf16 gate", ratio, piece, run["loss"]))
+        if impl == "gather_pallas":
+            res["launches"]["gather_pallas bf16"] = run["launches"]
+            if run["launches"]["sparse_conv"] != 47:
+                failed.append(("gather_pallas bf16 launches",
+                               run["launches"]))
+        if impl in ("bricked", "gather_pallas"):
+            fault = (negated_brick_tap(torch, bo) if impl == "bricked"
+                     else flipped_centre_dw(sc))
+            with fault:
+                bad = one_step(torch, mt, counters, by_key,
+                               cfg_of(impls[impl], bf16), batch, card,
+                               f"train_large {impl} bf16 with a planted "
+                               f"fault")
+            fratio, fpiece, _ = bf16_train_gate(torch, bad["grads"],
+                                                fp32[impl]["grads"])
+            name = ("the brick tap's backward negated" if impl == "bricked"
+                    else "the centre offset's dW sign-flipped")
+            log(f"planted fault '{name}' on {impl} bf16: gate ratio "
+                f"{fratio:.4g} at {fpiece} (must be > 1)")
+            res["bf16_faults"][impl] = fratio
+            if fratio <= 1.0:
+                failed.append((f"planted fault on {impl} passed", fratio))
+            del bad
+        del run
+    del fp32
+    torch.cuda.empty_cache()
+
+    # (c) the hall scene: one bf16 step each on bricked and gather_pallas
+    hall = bls.hall_batch("cpu").device
+    brick, _, _, cap = bls.brick_geometry(hall)
+    hall = hall.to("cuda")
+    res["hall"] = {}
+    for impl in ("bricked", "gather_pallas"):
+        cfg = cfg_mod_replace(bls.variant_cfg(impl, "per_offset", brick,
+                                              cap), base[1:])
+        run = one_step(torch, mt, counters, by_key, cfg, hall, card,
+                       f"train_large hall {impl} bf16", oom_retry=True)
+        res["hall"][impl] = {k_: run[k_] for k_ in (
+            "loss", "s", "peak_gib", "remat", "launches", "overflow")}
+        if not np.isfinite(run["loss"]) or run["overflow"]:
+            failed.append((f"hall {impl} step", run["loss"],
+                           run["overflow"]))
+        del run
+        torch.cuda.empty_cache()
+    # the backwards at the hall's level-0 shapes: the sparse conv's
+    # (bf16 feats, 96 -> 96) and the brick tap's scatter-add
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+    cfg_gp = bls.variant_cfg("gather_pallas", "per_offset", brick, cap)
+    with torch.inference_mode():
+        sb = build_sparse_batch(hall.coords, hall.counts, hall.dims,
+                                level_capacities(cfg_gp, hall.capacity),
+                                hall.grid_dims, **_sb_kwargs(cfg_gp))
+    n, kk, c = hall.capacity, 27, 96
+    idx, ok = sb.nbr_idx[0], sb.nbr_ok[0]
+    feats = (torch.randn(1, n, c, device="cuda", generator=gen)
+             * sb.levels[0].valid[..., None]).to(torch.bfloat16)
+    w = torch.randn(kk, c, c, device="cuda", generator=gen) / (kk * c) ** 0.5
+    g = torch.randn(1, n, c, device="cuda", generator=gen)
+    ms, _ = time_backward_ms(torch, lambda: sc.sparse_conv_backward(
+        feats, w, idx, ok, g), graph=False)
+    n_ok = int(ok.sum())
+    bound_ms, by = bound(n * (c * 4 + 2 * c * 2) + 2 * kk * c * c * 4
+                         + n * kk * 5, 4 * n_ok * c * c)
+    res["hall_sparse_conv_backward"] = dict(
+        N=n, K=kk, Cin=c, Cout=c, dtype="bfloat16", ms=ms,
+        bound_ms=bound_ms, bound_by=by, ok_pairs=n_ok)
+    log(f"hall sparse_conv backward L0 N={n} K={kk} {c}->{c} bf16 feats: "
+        f"{ms:.2f} ms, bound {bound_ms:.4f} ms ({by}), "
+        f"{ms / bound_ms:.0f}x")
+    del sb, feats, w, g, idx, ok
+    cfg_bk = bls.variant_cfg("bricked", "per_offset", brick, cap)
+    with torch.inference_mode():
+        sb = build_sparse_batch(hall.coords, hall.counts, hall.dims,
+                                level_capacities(cfg_bk, hall.capacity),
+                                hall.grid_dims, **_sb_kwargs(cfg_bk))
+    spec = bo.make_brick_spec(hall.grid_dims[0], brick, cap)
+    tables = bo.build_tables(sb.levels[0], spec)
+    n_src = (spec.capacity + 1) * spec.cells
+    tidx = tables.row_flat.clamp(0, n_src - 1).to(torch.int32)[None]
+    tok = sb.levels[0].valid.contiguous()
+    g = torch.randn(1, tidx.shape[1], c, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    ms, eager = time_backward_ms(torch, lambda: rg.scatter_add_rows(
+        g, tidx, tok, n_src).to(torch.bfloat16), graph=False)
+    m_ok = int(tok.sum())
+    bound_ms, by = bound(tidx.shape[1] * 5 + m_ok * c * 2 + n_src * c * 2, 0)
+    res["hall_brick_tap_backward"] = dict(
+        rows=tidx.shape[1], source_rows=n_src, C=c, dtype="bfloat16", ms=ms,
+        eager_ms=eager, bound_ms=bound_ms, bound_by=by)
+    log(f"hall brick tap backward: {tidx.shape[1]} rows into {n_src} brick "
+        f"cells, C={c} bf16: {ms:.4f} ms (eager {eager:.4f}), bound "
+        f"{bound_ms:.4f} ms ({by})")
+    del sb, tables, g, hall
+    torch.cuda.empty_cache()
+
+    # (d) cli train on bricked in micro-batches of one scene, a resume;
+    # (e) cli test with measure_model_phases
+    res["entry"] = run_train_large_entry(torch, np, mt, counters, card,
+                                         failed)
+    # the attention at the micro-batches' sampled key lengths (B=1)
+    res["attention"] = check_attention(torch, F, ma, TRAIN_ATTN_S, b=1)
+    for r in res["attention"]:
+        r["launches"] = res["launches"]["bricked fp32 (kernels)"][
+            "masked_attention"] // len(TRAIN_ATTN_S)
+    if not all(r["ok"] for r in res["attention"]):
+        failed.append("attention at the micro-batches' key lengths")
+    assert not failed, failed
+    return res
+
+
+def run_train_large_entry(torch, np, mt, counters, card, failed):
+    """(d) `cli train` with `model.backbone_impl=bricked` (8^3 bricks, which
+    divide the collator's multiple-of-8 grids), batch 2 as two micro-batches
+    of one scene, TRAIN_LARGE_SCENES train scenes, one validation at
+    `test_batch_size=1`, then a second epoch resumed from its
+    `last-epoch.ckpt`; (e) `cli test` (fp32 dense) with
+    `trainer.measure_model_phases=true`: every `model_forward_*` segment,
+    their sum against a fenced forward of the same batch."""
+    import tempfile
+
+    from mask3d_tpu_torch import cli
+    from mask3d_tpu_torch.train import trainer as trainer_mod
+    from mask3d_tpu_torch.utils import meter
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    cls = trainer_mod.InstanceSegmentationTrainer
+    seen = []
+    real_fit = cls.fit
+
+    def recording_fit(self):
+        seen.append(self)
+        return real_fit(self)
+
+    real_measure = trainer_mod.measure_model_phases
+    fenced_s = []
+
+    def fenced_after(cfg, model, batch, reps=3, device="cuda"):
+        """The phase timer, then one warm-up and three fenced forwards of
+        the same batch (the eval step's, `aux_masks`)."""
+        from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+        from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+        segs = real_measure(cfg, model, batch, reps, device)
+        dev = batch.to(device)
+        with torch.inference_mode():
+            sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                                    level_capacities(cfg, dev.capacity),
+                                    dev.grid_dims, **_sb_kwargs(cfg))
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model.eval()(sb, dev.feats, dev.coords.float(),
+                             dev.grid_dims, aux_masks=True)
+                torch.cuda.synchronize()
+                fenced_s.append(time.perf_counter() - t)
+        return segs
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "data")
+        write_entry_dataset(np, root, n_train=TRAIN_LARGE_SCENES, n_test=2)
+        args = ["train", "--device", "cuda", f"data.data_root={root}",
+                "model.backbone_impl=bricked", "model.brick_dims=[8,8,8]",
+                f"model.brick_capacity={TRAIN_LARGE_BRICK_CAPACITY}",
+                "data.batch_size=2", "trainer.grad_accum_steps=2",
+                "data.test_batch_size=1", "trainer.log_every_n_steps=1",
+                "general.experiment_id=bricked",
+                f"general.save_dir={tmp}/saved"]
+        cls.fit = recording_fit
+        try:
+            for epochs in (1, 2):
+                for fn in counters.values():
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                rc = cli.main(args + [f"trainer.max_epochs={epochs}"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                tr = seen[-1]
+                launches = {k: fn.launches for k, fn in counters.items()}
+                files = sorted(os.listdir(tr.run_dir))
+                out[f"epoch {epochs}"] = dict(
+                    rc=rc, s=wall, step=tr.state.step, epoch=tr.epoch,
+                    launches=launches, files=files,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                log(f"train_large cli train bricked (max_epochs={epochs}): "
+                    f"{json.dumps(out[f'epoch {epochs}'])} on {card}")
+            steps = TRAIN_LARGE_SCENES // 2
+            first, second = out["epoch 1"], out["epoch 2"]
+            # the resumed run trains one more epoch from the first one's
+            # last-epoch.ckpt: its steps start at the first run's count
+            ok = (first["rc"] == second["rc"] == 0
+                  and first["step"] == steps and second["step"] == 2 * steps
+                  and "last-epoch.ckpt" in second["files"]
+                  and first["launches"]["masked_attention"] == 12 * (
+                      2 * steps + 1))
+            if not ok:
+                failed.append(("cli train bricked / resume", out))
+
+            # (e) measure_model_phases through cli test (fp32 dense); the
+            # fenced forwards of the same batch run right after it, so
+            # that both read the card in one state (on the H100, readings
+            # minutes apart differed by 20%)
+            trainer_mod.measure_model_phases = fenced_after
+            meter.reset()
+            rc = cli.main(["test", "--device", "cuda",
+                           f"data.data_root={root}", "data.test_batch_size=2",
+                           "trainer.measure_model_phases=true",
+                           "general.experiment_id=phases",
+                           f"general.save_dir={tmp}/saved"])
+        finally:
+            cls.fit = real_fit
+            trainer_mod.measure_model_phases = real_measure
+        stats = meter.get_statistics()
+        phases = {k: v["mean"] for k, v in stats.items()
+                  if k.startswith("model_forward_")
+                  and k != "model_forward_complete"}
+        fenced = statistics.mean(fenced_s[1:])
+        total = sum(phases.values())
+        out["phases"] = dict(segments=phases, sum_s=total, fenced_s=fenced,
+                             sparse_context_build_s=stats.get(
+                                 "sparse_context_build", {}).get("mean"))
+        for name, sec in phases.items():
+            log(f"  {name}: {sec * 1e3:.3f} ms")
+        log(f"measure_model_phases (cli test, fp32 dense, batch 2): "
+            f"model_forward_* sum {total * 1e3:.3f} ms vs a fenced forward "
+            f"{fenced * 1e3:.3f} ms (tol {PHASE_SUM_TOL:.0%}); "
+            f"sparse_context_build "
+            f"{out['phases']['sparse_context_build_s'] * 1e3:.3f} ms")
+        if not (rc == 0 and len(phases) == 4 + 3 + 1
+                and all(v >= 0 for v in phases.values())
+                and abs(total - fenced) <= PHASE_SUM_TOL * fenced):
+            failed.append(("measure_model_phases", rc, out["phases"]))
+    return out
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -2449,6 +2963,11 @@ def main():
             failures.append(f"train phase {name} did not run or failed a "
                             f"check")
 
+    train_large = phase("train_large", lambda: run_train_large(
+        torch, F, np, mt, counters, by_key, card, host, (ma, rg, sc)))
+    if train_large is None:
+        failures.append("train_large did not run or failed a check")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"FAILED phases: {failures}")
@@ -2521,6 +3040,32 @@ def main():
                      large["impls"]["gather_pallas"]["launches"][
                          "sparse_conv"],
                      **forward_sums(large["sparse_conv"])),
+        # the train_large phase's counted steps: bricked fp32 in 8 x 1
+        # micro-batches (attention, the row gather: 4 dense taps and the
+        # brick tap a micro-batch) and gather_pallas in bf16 (sparse conv)
+        kernel_entry("masked_attention:train_large",
+                     "mask3d_tpu_torch/csrc/masked_attention.cu",
+                     "mask3d_tpu/ops/pallas_attention.py:102",
+                     train_large["attention"], train_large["attention"][-1],
+                     train_large["launches"]["bricked fp32 (kernels)"][
+                         "masked_attention"],
+                     **forward_sums(train_large["attention"])),
+        kernel_entry("row_gather:train_large",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198", gather_rows,
+                     next((r for r in gather_rows if r["C"] == 96), None),
+                     train_large["launches"]["bricked fp32 (kernels)"][
+                         "row_gather"],
+                     hall_brick_tap_backward=train_large[
+                         "hall_brick_tap_backward"]),
+        kernel_entry("sparse_conv:train_large",
+                     "mask3d_tpu_torch/csrc/sparse_conv.cu",
+                     "mask3d_tpu/sparse/pallas_conv.py:316", spconv_rows,
+                     heaviest(spconv_rows),
+                     train_large["launches"]["gather_pallas bf16"][
+                         "sparse_conv"],
+                     hall_backward_l0=train_large[
+                         "hall_sparse_conv_backward"]),
     ], "launches_by_path": launches, "int8_steps_by_path": step_launches,
         "peak_gib": peak_gib, "forward_ms": fwd_ms, "train": train,
         "large_scene": {
@@ -2531,7 +3076,11 @@ def main():
             "bf16_vs_bricked_bf16": large["bf16_vs_bricked_bf16"],
             "impls": {k: {f: v[f] for f in ("launches", "ms", "ms_all",
                                             "points_per_s", "peak_gib")}
-                      for k, v in large["impls"].items()}}}))
+                      for k, v in large["impls"].items()}},
+        "train_large": {k: train_large[k] for k in (
+            "launches", "bricked_fp32", "bf16_gates", "bf16_faults", "steps",
+            "hall", "hall_sparse_conv_backward", "hall_brick_tap_backward")}
+        | {"entry": {k: v for k, v in train_large["entry"].items()}}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

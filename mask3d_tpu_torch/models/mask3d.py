@@ -253,19 +253,18 @@ class Mask3D(nn.Module):
         return min(cap, int(self.sample_sizes[hlevel]))
 
     def forward(self, sb: SparseBatch, feats, raw_coords, grid_dims,
-                aux_masks: bool = True, generator=None) -> Mask3DOutput:
+                aux_masks: bool = True, generator=None,
+                phase_mark=None) -> Mask3DOutput:
         """feats [B, N1, in_channels]; raw_coords f32[B, N1, 3] (the voxel
         coordinates, the PE/FPS positions). `aux_masks=False` skips the
         auxiliary full-resolution mask logits; `aux_pred_masks` then holds
         only the final prediction. `generator` (a `torch.Generator` on the
-        model's device) draws the sampled memories of train mode."""
-        bb = self.backbone
-        if self.training and (bb.impl == "bricked" or (
-                bb.impl != "dense" and bb.compute_dtype is not None)):
-            raise NotImplementedError(
-                "training on backbone_impl=bricked, and bf16 training on "
-                "the gather impls, are not ported yet (ROADMAP Queue 1 "
-                "item 4); they run at inference")
+        model's device) draws the sampled memories of train mode.
+        `phase_mark(name)` is called at each phase boundary of the JAX
+        package's markers (mask3d.py:414-735): "backbone_part1",
+        "backbone_part2", "pos_enc", "queries", then "decoder_<d>" after
+        each decoder round (`train.loop.measure_model_phases`)."""
+        mark = phase_mark or (lambda name: None)
         b = feats.shape[0]
         n_levels = sb.num_levels
         valid0 = sb.levels[0].valid
@@ -288,6 +287,7 @@ class Mask3D(nn.Module):
         else:
             bb_out, feature_maps, bb_grid = self.backbone(feats, sb,
                                                           grid_dims, int8)
+        mark("backbone_part1")
         # feature_maps: [s16, s8, s4, s2, s1]; sparse level of fm[i] = 4-i
         fm_level = [n_levels - 1 - i for i in range(n_levels)]
 
@@ -321,6 +321,7 @@ class Mask3D(nn.Module):
                 fused = avg_pool(fused, pool, sb.levels[i + 1].capacity)
                 coords_pyr.append(fused[..., :3])
                 mask_feats_pyr.append(fused[..., 3:])
+        mark("backbone_part2")
 
         pe_levels = {fm_level[h] for h in self.hlevels}
         pe_pyr, minmax_pyr = [], []
@@ -329,6 +330,7 @@ class Mask3D(nn.Module):
             minmax_pyr.append((mins, maxs))
             pe_pyr.append(self._pos_enc(coords_pyr[li], mins, maxs)
                           if li in pe_levels else None)
+        mark("pos_enc")
 
         # Query initialization: FPS positions -> PE -> MLP.
         fps_idx = furthest_point_sample(coords_pyr[0], valid0,
@@ -339,6 +341,7 @@ class Mask3D(nn.Module):
         qp = torch.relu(self.query_proj_hidden(qp))
         query_pos = torch.relu(self.query_proj_out(qp))
         queries = torch.zeros_like(query_pos)
+        mark("queries")
 
         def mask_module(qs, num_pooling_steps, ret_attn=True,
                         ret_masks=True):
@@ -357,7 +360,7 @@ class Mask3D(nn.Module):
 
         predictions_class, predictions_masks = [], []
         kv_cache = {}
-        for _ in range(self.num_decoders):
+        for dec in range(self.num_decoders):
             for li, hlevel in enumerate(self.hlevels):
                 lvl = fm_level[hlevel]
                 out_class, out_masks, attn = mask_module(
@@ -408,6 +411,7 @@ class Mask3D(nn.Module):
                 predictions_class.append(out_class)
                 if aux_masks:
                     predictions_masks.append(out_masks)
+            mark(f"decoder_{dec}")
 
         out_class, out_masks, _ = mask_module(queries, 0, ret_attn=False)
         predictions_class.append(out_class)
@@ -439,9 +443,10 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     train mode (what `train.loop.init_state` does): sampled memories
     (`sample_sizes`, `max_sample_size`), `remat_backbone`, and no int8 convs
     (the JAX package passes `int8_stride1 and is_eval`); `dropout` > 0
-    raises there, as the JAX package's train step does. Training runs on
-    `dense` (fp32 or bf16) and on the gather impls in fp32; `bricked`, and
-    the gather impls in bf16, run at inference only (train mode raises)."""
+    raises there, as the JAX package's train step does. Every backbone impl
+    trains in fp32 and in bf16; `bricked` runs one scene a forward, so its
+    train step takes micro-batches of one scene (`data.batch_size` equal to
+    `trainer.grad_accum_steps`)."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():

@@ -21,6 +21,18 @@ grids (stride 2 shrinks the cells 8x).
   `conv_tr` gathers each slot's coarse block and transposes it.
 - `instance_norm` sums every brick in f32 in a fixed order of slot chunks.
 
+Every op is differentiable and gives the gradient of the JAX package's
+autodiff: the drop slot and the sentinel slot are sliced off after the
+scatters, so a dropped row's gradient is zero; `index_put_` without
+accumulation and the `index_select` backward are deterministic under
+`torch.use_deterministic_algorithms(True)`; the brick tap's backward is
+`RowGather`'s scatter-add. Where a gradient is wanted, the conv chunks are
+concatenated (`torch.mul(out=)` takes no autograd) and each chunk is
+checkpointed (its halo-padded copy is made again in the backward, not
+kept), and the norm's sums are one Function that keeps only its input
+(`_SumSq`): at the hall's level 0 (6,912 slots of 2,048 cells, 96
+channels in bf16) each kept copy is 2.7-4.5 GB.
+
 Semantics mirror `dense_ops` op for op (submanifold re-masking by the
 occupancy, the two-pass InstanceNorm); `tests/test_torch_brick_ops.py`
 holds each op to the JAX package's and to the port's dense one. Weights
@@ -41,6 +53,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mask3d_tpu_torch.sparse.core import SparseLevel
 from mask3d_tpu_torch.sparse.dense_ops import _bxyzc, _cast, _ncdhw
@@ -240,12 +253,32 @@ def _halo_pad_range(bricks, nbr_rows, spec: BrickSpec, h: int, lo: int,
 # ------------------------------------------------------------------ conv ops
 
 
-def _with_sentinel(like, shape):
-    """An uninitialised [NB + 1, ...] tensor whose sentinel slot NB is
-    zero; the caller writes slots [0, NB)."""
-    out = like.new_empty(shape)
-    out[-1].zero_()
-    return out
+class _Slots:
+    """The [NB + 1, ...] output of a per-chunk op: slots [0, NB) from the
+    chunks in order, then the zero sentinel slot. Without a gradient each
+    chunk is masked into one buffer in place; with one, the masked chunks
+    are concatenated (in-place `out=` writes take no autograd)."""
+
+    def __init__(self, like, shape):
+        self.grad = torch.is_grad_enabled()
+        self.sentinel = (1,) + tuple(shape[1:])
+        self.parts = []
+        if not self.grad:
+            self.out = like.new_empty(shape)
+            self.out[-1].zero_()
+
+    def put(self, lo: int, y, occ):
+        """Slots [lo, lo + len(y)) = y * occ."""
+        if self.grad:
+            self.parts.append(y * occ)
+        else:
+            torch.mul(y, occ, out=self.out[lo: lo + y.shape[0]])
+
+    def done(self):
+        if not self.grad:
+            return self.out
+        zero = self.parts[-1].new_zeros(self.sentinel)
+        return torch.cat(self.parts + [zero])
 
 
 # from mask3d_tpu/sparse/brick_ops.py:266 conv_same
@@ -261,17 +294,27 @@ def conv_same(bricks, weight, occ_bricks, tables: BrickTables,
     x, w = _cast(bricks, weight, compute_dtype)
     nb = spec.capacity
     step = nb if chunk <= 0 else min(chunk, nb)
-    out = _with_sentinel(x, (nb + 1,) + spec.brick_dims + (w.shape[0],))
+    out = _Slots(x, (nb + 1,) + spec.brick_dims + (w.shape[0],))
     for lo in range(0, nb, step):
         size = min(step, nb - lo)
-        xp = _halo_pad_range(x, tables.nbr[lo: lo + size], spec, h, lo,
-                             size)
-        y = F.conv3d(_ncdhw(xp), w).permute(0, 2, 3, 4, 1)
-        if bias is not None:
-            y = y + bias.to(y.dtype)
-        torch.mul(y, occ_bricks[lo: lo + size].to(y.dtype),
-                  out=out[lo: lo + size])
-    return out
+        args = (x, w, bias, tables.nbr[lo: lo + size], spec, h, lo, size)
+        if out.grad:
+            # the backward pads the chunk again instead of keeping its
+            # halo-padded copy (1.7x its cells)
+            y = checkpoint(_conv_chunk, *args, use_reentrant=False)
+        else:
+            y = _conv_chunk(*args)
+        out.put(lo, y, occ_bricks[lo: lo + size].to(y.dtype))
+    return out.done()
+
+
+def _conv_chunk(x, w, bias, nbr_rows, spec: BrickSpec, h: int, lo: int,
+                size: int):
+    """The VALID conv of slots [lo, lo + size) with their halo, [size, bx,
+    by, bz, Cout] (bias added, not masked)."""
+    xp = _halo_pad_range(x, nbr_rows, spec, h, lo, size)
+    y = F.conv3d(_ncdhw(xp), w).permute(0, 2, 3, 4, 1)
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 # from mask3d_tpu/sparse/brick_ops.py:304 conv_down
@@ -329,9 +372,38 @@ def conv_tr(dense, weight, occ_bricks, tables: BrickTables, spec: BrickSpec,
     blk = dense_to_slots(dense, tables, spec, bx // 2, by // 2, bz // 2)
     blk, w = _cast(blk, weight, compute_dtype)
     y = F.conv_transpose3d(_ncdhw(blk), w, stride=2).permute(0, 2, 3, 4, 1)
-    out = _with_sentinel(y, (nb + 1,) + y.shape[1:])
-    torch.mul(y, occ_bricks[:nb].to(y.dtype), out=out[:nb])
-    return out
+    out = _Slots(y, (nb + 1,) + y.shape[1:])
+    out.put(0, y, occ_bricks[:nb].to(y.dtype))
+    return out.done()
+
+
+class _SumSq(torch.autograd.Function):
+    """f32 per-channel sums of x and x * x over every cell, `chunk` slots
+    at a time in slot order. The backward, ds + 2 x dsq in f32 cast to x's
+    dtype, is the autodiff of those sums of `x.float()`; it keeps x alone
+    (which the norm's affine keeps too), not an f32 copy of it."""
+
+    @staticmethod
+    def forward(ctx, x, chunk: int):
+        c = x.shape[-1]
+        s = torch.zeros(c, dtype=torch.float32, device=x.device)
+        sq = torch.zeros_like(s)
+        for lo in range(0, x.shape[0], chunk):
+            x32 = x[lo: lo + chunk].reshape(-1, c).float()
+            s += x32.sum(0)
+            sq += (x32 * x32).sum(0)
+        ctx.save_for_backward(x)
+        ctx.chunk = chunk
+        return s, sq
+
+    @staticmethod
+    def backward(ctx, ds, dsq):
+        (x,) = ctx.saved_tensors
+        dx = torch.empty_like(x)
+        for lo in range(0, x.shape[0], ctx.chunk):
+            x32 = x[lo: lo + ctx.chunk].float()
+            dx[lo: lo + ctx.chunk] = (ds + 2.0 * x32 * dsq).to(x.dtype)
+        return dx, None
 
 
 # from mask3d_tpu/sparse/brick_ops.py:378 instance_norm
@@ -341,13 +413,7 @@ def instance_norm(bricks, occ_bricks, gamma, beta, eps: float = 1e-5,
     affine form of `dense_ops.dense_instance_norm` at B=1 (unoccupied
     cells must be exactly 0). The f32 sums run over `chunk` slots at a
     time, in slot order: one fixed order, so a run repeats bitwise."""
-    c = bricks.shape[-1]
-    s = torch.zeros(c, dtype=torch.float32, device=bricks.device)
-    sq = torch.zeros_like(s)
-    for lo in range(0, bricks.shape[0], chunk):
-        x32 = bricks[lo: lo + chunk].reshape(-1, c).float()
-        s += x32.sum(0)
-        sq += (x32 * x32).sum(0)
+    s, sq = _SumSq.apply(bricks, chunk)
     cnt = occ_bricks.float().sum().clamp_min(1.0)
     mean = s / cnt
     var = (sq / cnt - mean * mean).clamp_min(0.0)

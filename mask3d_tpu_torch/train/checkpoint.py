@@ -9,9 +9,10 @@ JAX package's files, `flax.serialization.to_bytes(TrainState)`: a msgpack
 map whose array leaves are msgpack ext types. The port carries its own
 msgpack decoder (`msgpack_restore`), since neither flax nor msgpack is a
 dependency of the port; the decoded `{"params", "buffers"}` tree goes
-through `bridge` to the port's `state_dict` names. A JAX file restores
-parameters and buffers only: resuming a JAX run's optimizer state is not
-ported. In the tolerant readers a missing key keeps the fresh init, a key
+through `bridge` to the port's `state_dict` names. A JAX file that holds
+a whole `TrainState` also resumes: optax's Adam moments and counts become
+the port's optimizer and schedule state (`load_checkpoint`). In the
+tolerant readers a missing key keeps the fresh init, a key
 of another shape keeps the init, an excess key (or a leaf `bridge` cannot
 map) is dropped, each with a warning.
 """
@@ -275,13 +276,89 @@ def load_params_tolerant_from_dict(source: Dict[str, Any],
     return out
 
 
+def _optax_state(tree, path: str):
+    """(Adam's {"count", "mu", "nu"}, the schedule's count or None) of the
+    flax state dict of the optax chain the JAX package builds
+    (train/loop.py:103-150): `adamw` = {"0": adam, "1": decay (empty),
+    "2": schedule}, `adam` = {"0": adam, "1": schedule}, a constant lr
+    without the schedule's count, and with `general.freeze_backbone` the
+    chain inside {"inner_states": {"train": {"inner_state": ...},
+    "frozen": ...}} (the frozen moments are empty)."""
+    adam, counts = [], []
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return
+        if {"count", "mu", "nu"} <= set(node):
+            adam.append(node)
+        elif set(node) == {"count"}:
+            counts.append(int(node["count"]))
+        else:
+            for key in sorted(node):
+                walk(node[key])
+
+    walk(tree)
+    if len(adam) != 1 or len(counts) > 1:
+        raise ValueError(f"{path}: an optimizer state of {len(adam)} Adam "
+                         f"states and {len(counts)} schedule counts; the "
+                         f"port resumes optax adam/adamw chains")
+    return adam[0], (counts[0] if counts else None)
+
+
+# from mask3d_tpu/train/loop.py:103 make_optimizer (the state it makes)
+def _resume_jax_state(raw: dict, state, path: str, seed: int):
+    """Put a JAX TrainState's optimizer state into the port's `state`:
+    optax's Adam `mu`/`nu` (through `bridge`'s layouts) and `count` become
+    each trained parameter's `exp_avg`/`exp_avg_sq`/`step` (optax's update
+    is `torch.optim.AdamW`'s and `Adam`'s, train/loop.py), the schedule's
+    count the LambdaLR's step and the groups' lr, and `step` the state's
+    step. The JAX rng key has no torch.Generator counterpart: the sampled
+    memories' generator is reseeded from `seed` and the step."""
+    if "opt_state" not in raw or "step" not in raw:
+        raise ValueError(f"{path}: a JAX checkpoint without an optimizer "
+                         f"state (params only) cannot be resumed; load its "
+                         f"weights with general.checkpoint")
+    adam, sched_count = _optax_state(raw["opt_state"], path)
+    count = int(adam["count"])
+    mu = _port_tree(adam["mu"], "params")
+    nu = _port_tree(adam["nu"], "params")
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    opt = state.optimizer
+    for group in opt.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            if name not in mu or name not in nu:
+                raise ValueError(f"{path}: no Adam moments for {name}")
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name].to(p.device, p.dtype).reshape(p.shape),
+                "exp_avg_sq": nu[name].to(p.device,
+                                          p.dtype).reshape(p.shape)}
+    sch = state.scheduler
+    sch.last_epoch = count if sched_count is None else sched_count
+    for group, base, lam in zip(opt.param_groups, sch.base_lrs,
+                                sch.lr_lambdas):
+        group["lr"] = base * lam(sch.last_epoch)
+    sch._last_lr = [group["lr"] for group in opt.param_groups]
+    state.step = int(raw["step"])
+    state.generator.manual_seed(seed + state.step)
+    logger.info(f"{path}: resumed the JAX run's optimizer state at step "
+                f"{state.step} (Adam count {count}, schedule count "
+                f"{sch.last_epoch}); its rng key has no torch.Generator "
+                f"counterpart, so the sampled memories' generator is "
+                f"reseeded from general.seed {seed} + step {state.step}")
+
+
 # from mask3d_tpu/train/checkpoint.py:62 load_checkpoint
-def load_checkpoint(path: str, model: torch.nn.Module, state=None):
+def load_checkpoint(path: str, model: torch.nn.Module, state=None,
+                    seed: int = 0):
     """Strict restore of params and buffers (every port key filled, every
     shape equal) and the `.meta.json` sidecar: returns (model, meta). With
     `state` (the `TrainState` of `model`) a file of the port also restores
-    the optimizer, the schedule, the step and the generator; a file of the
-    JAX package holds no state the port can resume and then raises."""
+    the optimizer, the schedule, the step and the generator, and a whole
+    JAX TrainState its optimizer state, schedule and step
+    (`_resume_jax_state`; the generator from `seed` and the step). A file
+    of neither format raises."""
     if _is_port_file(path):
         payload = _read_port(path, next(model.parameters()).device)
         model.load_state_dict(payload["model"], strict=True)
@@ -289,16 +366,18 @@ def load_checkpoint(path: str, model: torch.nn.Module, state=None):
             state.optimizer.load_state_dict(payload["optimizer"])
             state.scheduler.load_state_dict(payload["scheduler"])
             state.step = int(payload["step"])
-            state.generator.set_state(payload["generator"])
+            # the file was mapped to the model's device; a generator's
+            # state is a CPU byte tensor whatever its device
+            state.generator.set_state(payload["generator"].cpu())
     else:
-        if state is not None:
-            raise ValueError(
-                f"{path} is a JAX package checkpoint: its optimizer state "
-                "cannot be resumed by the port (load its weights with "
-                "general.checkpoint instead)")
         raw = _read(path)
+        if not isinstance(raw, dict) or "params" not in raw:
+            raise ValueError(f"{path}: neither a port checkpoint nor a JAX "
+                             f"package one (no params)")
         bridge.load_flax(model, {"params": raw["params"],
                                  "buffers": raw.get("buffers", {})})
+        if state is not None:
+            _resume_jax_state(raw, state, path, seed)
     meta = {}
     meta_path = path + ".meta.json"
     if os.path.exists(meta_path):

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -168,11 +169,15 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
     of B/K items whose gradients are summed (the mask and dice losses are
     sums over items) with the CE weighted 1/K in each total (CE is a batch
     mean); the reported CE entries are the mean over micro-batches, the
-    other entries sums. Where a pyramid level overflowed its capacity the
-    update is skipped: parameters, optimizer moments and the schedule stay,
-    the step count and the generator advance."""
+    other entries sums. Where a pyramid level overflowed its capacity, or
+    (`bricked`, which trains on micro-batches of one scene) the scene held
+    more occupied level-0 bricks than `model.brick_capacity`, the update is
+    skipped: parameters, optimizer moments and the schedule stay, the step
+    count and the generator advance. (The JAX package computes the brick
+    overflow and never reads it: it trains on the voxels it dropped.)"""
     accum = max(1, int(cfg.trainer.grad_accum_steps))
     return_preds = bool(cfg.trainer.train_split_metrics)
+    bricked = cfg.model.backbone_impl == "bricked"
     dev = resolve_device(device)
 
     def micro_step(state: TrainState, batch: DeviceBatch, ce_scale: float):
@@ -198,6 +203,14 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
                    ) -> Tuple[Dict[str, torch.Tensor], Optional[tuple]]:
         batch = batch.to(dev)
         check_unit_features(cfg, batch)
+        if bricked and batch.coords.shape[0] != accum:
+            # from mask3d_tpu/models/backbone.py:324 _BrickCtx (B=1)
+            raise ValueError(
+                f"backbone_impl=bricked trains one scene a micro-batch: a "
+                f"batch of {batch.coords.shape[0]} scenes needs "
+                f"trainer.grad_accum_steps={batch.coords.shape[0]} (set "
+                f"data.batch_size equal to trainer.grad_accum_steps; "
+                f"grad_accum_steps is {accum})")
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         if accum == 1:
@@ -221,3 +234,68 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
         return losses, preds
 
     return train_step
+
+
+# from mask3d_tpu/train/loop.py:394 measure_model_phases
+def measure_model_phases(cfg, model: Mask3D, batch: DeviceBatch,
+                         reps: int = 3, device="cuda") -> Dict[str, float]:
+    """Seconds of each phase of one eval forward on `batch`, recorded into
+    `utils.meter` under the JAX package's names in its order:
+    "sparse_context_build", then "model_forward_backbone_part1", "_part2",
+    "_pos_enc", "_queries", one "model_forward_decoder_<d>" per decoder
+    and "model_forward_final_mask_module". Returns the `model_forward_*`
+    seconds.
+
+    Eager PyTorch runs the phases in sequence, so one fenced forward
+    gives them all: a CUDA event is recorded at each boundary that
+    `Mask3D.forward(phase_mark=)` reports (host clocks on the CPU), and
+    each phase is the time between its event and the one before, the mean
+    of `reps` eval forwards (`aux_masks`, as the eval step) after a
+    warm-up. (The JAX package times jitted prefixes of the forward
+    instead, since XLA runs it as one executable.)"""
+    from mask3d_tpu_torch.utils import meter
+
+    dev = resolve_device(device)
+    batch = batch.to(dev)
+    caps = level_capacities(cfg, batch.capacity)
+    on_card = dev.type == "cuda"
+    was_training = model.training
+    model.eval()
+    runs = []
+    for _ in range(reps + 1):
+        marks = []
+
+        def mark(name):
+            if on_card:
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
+            else:
+                marks.append((name, time.perf_counter()))
+
+        with torch.inference_mode():
+            if on_card:
+                torch.cuda.synchronize(dev)
+            mark("start")
+            sb = build_sparse_batch(batch.coords, batch.counts, batch.dims,
+                                    caps, batch.grid_dims, **_sb_kwargs(cfg))
+            mark("sparse_context_build")
+            model(sb, batch.feats, batch.coords.float(), batch.grid_dims,
+                  aux_masks=True, phase_mark=mark)
+            mark("final_mask_module")
+        if on_card:
+            torch.cuda.synchronize(dev)
+        runs.append({
+            name: (t0.elapsed_time(t1) / 1e3 if on_card else t1 - t0)
+            for (_, t0), (name, t1) in zip(marks, marks[1:])})
+    model.train(was_training)
+    runs = runs[1:]  # the first is the warm-up
+    segs = {}
+    for name in runs[0]:
+        sec = sum(r[name] for r in runs) / len(runs)
+        key = (name if name == "sparse_context_build"
+               else f"model_forward_{name}")
+        meter.record(key, sec)
+        if key != name:
+            segs[key] = sec
+    return segs

@@ -7,10 +7,13 @@ exports), `last-epoch.ckpt` and `best_*.ckpt`, auto-resume, the metric
 logger, and `test`.
 
 The data-parallel mesh (`trainer.num_data_parallel > 1`,
-`trainer.distributed`) and `measure_model_phases` are not ported yet
-(ROADMAP Queue 1 item 7); the trainer raises where a configuration asks
-for them. `backbone_impl=bricked` evaluates at `data.test_batch_size=1`
-and raises on a batch whose bricks or levels overflowed.
+`trainer.distributed`) is not ported yet (ROADMAP Queue 1 item 7); the
+trainer raises where a configuration asks for it. `backbone_impl=bricked`
+trains on micro-batches of one scene (`data.batch_size` equal to
+`trainer.grad_accum_steps`), evaluates at `data.test_batch_size=1` and
+raises on an eval batch whose bricks or levels overflowed. A run directory
+whose `last-epoch.ckpt` the JAX package wrote resumes with its optimizer
+state (`train/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from mask3d_tpu_torch.train.export import (
     export_prediction_generic,
 )
 from mask3d_tpu_torch.train.logging_utils import MetricLogger
-from mask3d_tpu_torch.train.loop import init_state, make_train_step
+from mask3d_tpu_torch.train.loop import init_state, make_train_step, \
+    measure_model_phases
 from mask3d_tpu_torch.utils import meter
 
 logger = logging.getLogger(__name__)
@@ -84,10 +88,6 @@ class InstanceSegmentationTrainer:
             raise NotImplementedError(
                 "trainer.num_data_parallel > 1 / trainer.distributed: the "
                 "data-parallel mesh (parallel/*) is not ported yet (ROADMAP "
-                "Queue 1 item 7)")
-        if cfg.trainer.measure_model_phases:
-            raise NotImplementedError(
-                "trainer.measure_model_phases: not ported yet (ROADMAP "
                 "Queue 1 item 7)")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -441,7 +441,8 @@ class InstanceSegmentationTrainer:
         resume = self.ckpt_mgr.resume_path()
         if resume:
             logger.info(f"auto-resuming from {resume}")
-            _, meta = ckpt.load_checkpoint(resume, self.model, self.state)
+            _, meta = ckpt.load_checkpoint(resume, self.model, self.state,
+                                           seed=self.cfg.general.seed)
             self.epoch = int(meta.get("epoch", 0)) + 1
 
         def _sigterm(_signum, _frame):
@@ -499,6 +500,15 @@ class InstanceSegmentationTrainer:
     # from mask3d_tpu/train/trainer.py:509 test
     def test(self) -> Dict[str, float]:
         meter.reset()
+        if self.cfg.trainer.measure_model_phases:
+            # from mask3d_tpu/train/trainer.py:511-525 measure_model_phases:
+            # the model_forward_* segments of one test batch
+            bs = (self.cfg.data.test_batch_size
+                  if self.cfg.data.test_batch_size > 0
+                  else self.cfg.data.batch_size)
+            host = next(iter(self._batches("test", bs, shuffle=False)))
+            measure_model_phases(self.cfg, self.model, self._to_device(host),
+                                 device=self.device)
         metrics = self.eval_epoch("test", export=True)
         meter.log_final_statistics()
         if self.cfg.general.debug_best_worst_scenes:

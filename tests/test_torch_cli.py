@@ -164,8 +164,7 @@ def test_cli_forms_and_refusals(tmp_path, monkeypatch):
     assert cli._take_device(["test", "--device", "cpu", "a=b"]) == (
         "cpu", ["test", "a=b"])
     for override in ("trainer.num_data_parallel=2",
-                     "trainer.distributed=true",
-                     "trainer.measure_model_phases=true"):
+                     "trainer.distributed=true"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(["test", "--device", "cpu", override,
                       f"general.save_dir={tmp_path}"])

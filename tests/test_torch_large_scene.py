@@ -264,7 +264,8 @@ def test_bf16_gather_maps_match_jax(bf16_maps, impl):
 @pytest.mark.parametrize("impl", ["gather", "gather_pallas"])
 def test_bf16_gather_infer_runs(impl):
     """small_config in bf16 through `build_model` and `infer` on the CPU:
-    finite outputs of the fp32 shapes; train mode refuses it."""
+    finite outputs of the fp32 shapes; in train mode (sampled memories)
+    too."""
     cfg = apply_overrides(Config(), SMALL_OVERRIDES + [
         f"model.backbone_impl={impl}", "model.compute_dtype=bfloat16",
         f"data.point_bucket_multiple={GP_BUCKET}"])
@@ -275,9 +276,26 @@ def test_bf16_gather_infer_runs(impl):
     b, n = host.device.coords.shape[:2]
     assert tuple(out.pred_masks.shape) == (b, n, cfg.model.num_queries)
     assert bool(torch.isfinite(out.pred_masks).all()) and not bool(overflow)
+    _assert_train_forward_runs(model, cfg, host.device)
+
+
+def _assert_train_forward_runs(model, cfg, dev):
+    """One train-mode forward (sampled memories, autograd on): finite
+    outputs of the eval shapes that carry a gradient (the gradients
+    themselves: tests/test_torch_train_bricked.py, _bf16.py)."""
+    from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+
     model.train()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        model(None, host.device.feats, None, None)
+    sb = t_build(dev.coords, dev.counts, dev.dims,
+                 level_capacities(cfg, dev.capacity), dev.grid_dims,
+                 **_sb_kwargs(cfg))
+    out = model(sb, dev.feats, dev.coords.float(), dev.grid_dims,
+                generator=torch.Generator().manual_seed(0))
+    b, n = dev.coords.shape[:2]
+    assert tuple(out.pred_masks.shape) == (b, n, cfg.model.num_queries)
+    assert bool(torch.isfinite(out.aux_pred_masks).all())
+    assert bool(torch.isfinite(out.aux_pred_class).all())
+    assert out.aux_pred_masks.requires_grad
 
 
 @pytest.mark.parametrize("k0", [3, 5])
@@ -345,7 +363,7 @@ def test_gather_runs_without_grid_dims():
 
 def test_bricked_entry_refusals(tmp_path):
     """`infer` flags a brick overflow; the trainer's test path runs bricked
-    at test_batch_size 1 only; train mode refuses bricked."""
+    at test_batch_size 1 only; train mode runs bricked."""
     from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
 
     items = scene_items(n=1)
@@ -360,9 +378,11 @@ def test_bricked_entry_refusals(tmp_path):
     model = build_model(cfg, device="cpu", seed=0)
     out, overflow = infer(model, host.device, cfg, device="cpu")
     assert not bool(overflow) and bool(torch.isfinite(out.pred_masks).all())
-    model.train()
-    with pytest.raises(NotImplementedError, match="bricked"):
-        model(None, host.device.feats, None, None)
+    # in train mode at a capacity near the scene's 15 occupied bricks:
+    # every slot is computed, and 4096 of them take minutes on the CPU
+    cfg.model.brick_capacity = 32
+    _assert_train_forward_runs(build_model(cfg, device="cpu", seed=0), cfg,
+                               host.device)
     cfg.general.save_dir = str(tmp_path)
     cfg.data.test_batch_size = 2
     trainer = InstanceSegmentationTrainer(

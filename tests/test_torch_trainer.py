@@ -166,10 +166,23 @@ def test_checkpoint_round_trip(data_root, tmp_path):  # noqa: F811
         want = saved[k] if k.startswith("backbone.") else init[k]
         assert torch.equal(v, want), k
 
+    # a JAX package TrainState (two optax updates) resumes with its
+    # optimizer state; a file of neither format raises
+    from mask3d_tpu.config import Config as JConfig
+    from mask3d_tpu.config import apply_overrides as j_apply
+    from tests.test_torch_train_large import write_jax_checkpoint
+
     jax_file = tmp_path / "jax.ckpt"
-    jax_file.write_bytes(b"\x80")  # a msgpack map, as flax writes
-    with pytest.raises(ValueError, match="JAX package checkpoint"):
-        ckpt.load_checkpoint(str(jax_file), other.model, other)
+    write_jax_checkpoint(jax_file, j_apply(JConfig(), TRAINER_OVERRIDES))
+    _, meta = ckpt.load_checkpoint(str(jax_file), other.model, other)
+    assert meta == {"epoch": 1} and other.step == 2
+    assert all(float(s["step"]) == 2.0
+               for s in other.optimizer.state.values())
+    assert other.scheduler.last_epoch == 2
+    junk = tmp_path / "junk.ckpt"
+    junk.write_bytes(b"\x80")  # an empty msgpack map: no params
+    with pytest.raises(ValueError, match="neither"):
+        ckpt.load_checkpoint(str(junk), other.model, other)
 
 
 def test_grad_accumulation_matches_full_batch(data_root, tmp_path):  # noqa: F811
