@@ -150,6 +150,25 @@ beside this script. Phases:
    their sum within PHASE_SUM_TOL of a fenced forward of the same batch;
    and the attention at the micro-batches' key lengths (B=1).
 
+11. `roomformer`, the RoomFormer baseline (`mask3d_tpu_torch/baseline/`,
+   plain PyTorch: no kernel of its own): (a) the JAX tests' tiny
+   configuration with seeded weights, card against CPU: the forward
+   (RF_FWD_TOL), one train step's loss (RF_LOSS_TOL relative) and every
+   gradient leaf (RF_GRAD_TOL * max(1, max |leaf|)); (b) the deformable
+   sampler's gather form against a `F.grid_sample` composition of the same
+   function at RoomFormer()'s shapes (5,440 encoder and 800 decoder
+   queries, batch 8), within RF_SAMPLER_TOL, a planted fault (x and y
+   swapped in the sampler) failing it, both timed; (c) RoomFormer() (12.06M
+   parameters) eval forward on 8 density maps of written Structured3D-layout
+   scenes: the median of 10 fenced forwards, ms by phase (CUDA events at the
+   backbone, encoder and decoder), peak GiB; (d) its train step through the
+   engine (loss_raster at 64^2, AdamW, deterministic): seconds a step, peak
+   GiB, two steps twice from one seed bitwise equal, 20 steps on one batch
+   lowering the loss; (e) `engine train` 2 epochs at batch 8, then `engine
+   eval --checkpoint last-epoch.ckpt --mask3d_bridge --export_las`: the
+   metric keys, one .las per test scene, seconds a batch of data, forward
+   and post-processing.
+
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
 
@@ -270,6 +289,28 @@ TRAIN_BF16_REL = 1.6
 TRAIN_LARGE_SCENES = 4
 TRAIN_LARGE_BRICK_CAPACITY = 2048
 PHASE_SUM_TOL = 0.1
+# the roomformer phase: (a) the JAX tests' tiny configuration
+# (tests/test_roomformer.py:157-166), card against CPU (f32 sums in another
+# order): outputs within RF_FWD_TOL, the train step's loss within
+# RF_LOSS_TOL relative and each gradient leaf within RF_GRAD_TOL * max(1,
+# max |leaf|); (b) the deformable sampler's gather form against its
+# grid_sample form at RoomFormer()'s shapes (8 maps, 8 heads of 32, 4
+# levels of 64^2..8^2, 4 points; 5,440 encoder and 800 decoder queries);
+# (c)-(e) RoomFormer() at batch 8 on 256x256 density maps of written
+# Structured3D-layout scenes, the engine trained for RF_EPOCHS epochs
+RF_TINY = dict(d_model=32, n_heads=4, n_levels=4, n_points=2, enc_layers=1,
+               dec_layers=2, num_polys=3, num_queries=12,
+               backbone_channels=(8, 16, 32))
+RF_FWD_TOL = 1e-4
+RF_LOSS_TOL = 1e-5
+RF_GRAD_TOL = 1e-3
+RF_SAMPLER_TOL = 1e-5
+RF_LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))
+RF_BATCH = 8
+RF_FORWARD_REPS = 10
+RF_OVERFIT_STEPS = 20
+RF_SCENES = {"train": (0, 8), "validation": (3000, 2), "test": (3250, 8)}
+RF_EPOCHS = 2
 
 
 LOG_FILE = None  # set by open_log
@@ -2278,6 +2319,296 @@ def run_train_large_entry(torch, np, mt, counters, card, failed):
     return out
 
 
+def rf_targets(torch, np, rng, b, pt, qp):
+    """Padded polygon targets (`collate_floorplan`'s layout): item i holds
+    i + 1 polygons of 3..qp random corners."""
+    coords = np.zeros((b, pt, 2 * qp), np.float32)
+    labels = np.zeros((b, pt, qp), np.float32)
+    lengths = np.zeros((b, pt), np.int32)
+    valid = np.zeros((b, pt), bool)
+    for i in range(b):
+        for j in range(min(i + 1, pt)):
+            n = int(rng.integers(3, qp + 1))
+            coords[i, j, :2 * n] = rng.uniform(0.05, 0.95, 2 * n)
+            labels[i, j, :n] = 1.0
+            lengths[i, j] = 2 * n
+            valid[i, j] = True
+    return {k: torch.from_numpy(v) for k, v in (
+        ("coords", coords), ("labels", labels), ("lengths", lengths),
+        ("poly_valid", valid))}
+
+
+def rf_small_card_vs_cpu(torch, np):
+    """(a) RF_TINY with seeded port weights (the zero-initialised kernels
+    drawn too, so every sampling offset and coordinate head is live): the
+    forward and one train step's loss and gradients, card against CPU."""
+    import copy
+
+    from mask3d_tpu_torch.baseline.criterion2d import RoomFormerCriterion
+    from mask3d_tpu_torch.baseline.roomformer import RoomFormer
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = RoomFormer(**RF_TINY, generator=gen)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.any():
+                p.normal_(0.0, 0.05, generator=gen)
+    rng = np.random.default_rng(0)
+    density = torch.from_numpy(rng.random((2, 64, 64, 1)).astype(np.float32))
+    targets = rf_targets(torch, np, rng, 2, RF_TINY["num_polys"],
+                         RF_TINY["num_queries"] // RF_TINY["num_polys"])
+    crit = RoomFormerCriterion(raster_res=16)
+
+    def step(model, dev):
+        out = model(density.to(dev))
+        losses = crit(out, {k: v.to(dev) for k, v in targets.items()})
+        losses["loss"].backward()
+        grads = {n: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).detach().cpu().double()
+                 for n, p in model.named_parameters()}
+        return (out.aux_logits.detach().cpu().double(),
+                out.aux_coords.detach().cpu().double(),
+                float(losses["loss"]), grads)
+
+    gpu = copy.deepcopy(cpu).cuda()
+    with torch.backends.mkldnn.flags(enabled=False):
+        ref = step(cpu, "cpu")
+    got = step(gpu, "cuda")
+    fwd = max(float((a - b).abs().max()) for a, b in zip(ref[:2], got[:2]))
+    loss_rel = abs(got[2] - ref[2]) / abs(ref[2])
+    leaf = {n: float((got[3][n] - g).abs().max())
+            / max(1.0, float(g.abs().max())) for n, g in ref[3].items()}
+    worst = max(leaf, key=leaf.get)
+    res = dict(forward_max_abs_diff=fwd, loss_cpu=ref[2], loss_card=got[2],
+               loss_rel_diff=loss_rel, worst_leaf=worst,
+               worst_leaf_err=leaf[worst])
+    log(f"roomformer (a) tiny card vs CPU: {res}")
+    assert fwd <= RF_FWD_TOL and loss_rel <= RF_LOSS_TOL and \
+        leaf[worst] <= RF_GRAD_TOL, res
+    return res
+
+
+def rf_sampler_check(torch, F):
+    """(b) `ms_deform_attn_core`'s gather form against the `F.grid_sample`
+    form at full width, encoder and decoder queries, each timed; with x
+    and y swapped in the sampler the check must fail."""
+    from mask3d_tpu_torch.baseline import deform_attn as da
+
+    rows = []
+    total = sum(h * w for h, w in RF_LEVELS)
+    for name, q in (("encoder", total), ("decoder", 800)):
+        g = torch.Generator(device="cuda").manual_seed(q)
+        b, nh, hd, nl, npt = RF_BATCH, 8, 32, len(RF_LEVELS), 4
+        value = torch.randn(b, total, nh, hd, device="cuda", generator=g)
+        loc = torch.rand(b, q, nh, nl, npt, 2, device="cuda",
+                         generator=g) * 1.2 - 0.1
+        w = torch.softmax(torch.randn(b, q, nh, nl * npt, device="cuda",
+                                      generator=g), -1).reshape(
+            b, q, nh, nl, npt)
+        args = (value, list(RF_LEVELS), loc, w)
+        with torch.no_grad():
+            ref = da.ms_deform_attn_grid_sample(*args)
+            err = float((da.ms_deform_attn_core(*args) - ref).abs().max())
+            real = da.bilinear_sample
+            da.bilinear_sample = lambda v, xy: real(v, xy.flip(-1))
+            try:
+                fault = float((da.ms_deform_attn_core(*args)
+                               - ref).abs().max())
+            finally:
+                da.bilinear_sample = real
+            ms = time_ms(torch, lambda: da.ms_deform_attn_core(*args))
+            grid_ms = time_ms(torch,
+                              lambda: da.ms_deform_attn_grid_sample(*args))
+        row = dict(queries=q, max_abs_err=err, swapped_xy_err=fault,
+                   gather_ms=ms, grid_sample_ms=grid_ms,
+                   ok=err <= RF_SAMPLER_TOL < fault)
+        log(f"roomformer (b) sampler {name}: {row}")
+        rows.append(row)
+    assert all(r["ok"] for r in rows), rows
+    return rows
+
+
+def rf_write_scenes(np, root):
+    """Structured3D-layout scenes of `write_floorplan_scene` (3x2 rooms of
+    24 voxels) for each split of RF_SCENES."""
+    import shutil
+
+    from mask3d_tpu_torch.data.synthetic import write_floorplan_scene
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    for first, n in RF_SCENES.values():
+        for i in range(n):
+            write_floorplan_scene(root, f"scene_{first + i:05d}", rng)
+
+
+def rf_phase_marks(torch, model):
+    """CUDA events at the model's phase boundaries: (hooks, events)."""
+    ev = {}
+
+    def mark(name):
+        def hook(*_):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev[name] = e
+        return hook
+
+    hooks = [model.register_forward_pre_hook(mark("start")),
+             model.backbone.register_forward_hook(mark("backbone")),
+             model.encoder[0].register_forward_pre_hook(mark("enc_start")),
+             model.encoder[-1].register_forward_hook(mark("encoder")),
+             model.decoder[0].register_forward_pre_hook(mark("dec_start")),
+             model.register_forward_hook(mark("end"))]
+    return hooks, ev
+
+
+def rf_forward(torch, batch, card):
+    """(c) RoomFormer() eval forward on 8 density maps: the median of
+    RF_FORWARD_REPS fenced forwards, ms by phase (CUDA events), peak GiB
+    (and above what the earlier phases left allocated)."""
+    from mask3d_tpu_torch.baseline.roomformer import RoomFormer
+
+    model = RoomFormer(generator=torch.Generator().manual_seed(0)).cuda()
+    density = torch.from_numpy(batch["density"]).cuda()
+    with torch.no_grad():
+        for _ in range(2):
+            out = model(density)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(RF_FORWARD_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = model(density)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        hooks, ev = rf_phase_marks(torch, model)
+        model(density)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+    assert tuple(out.aux_logits.shape) == (6, RF_BATCH, 20, 40)
+    assert bool(torch.isfinite(out.aux_coords).all())
+    res = dict(
+        ms_median=statistics.median(times), ms_all=times,
+        peak_gib=peak / 2**30, peak_gib_above_start=(peak - base) / 2**30,
+        backbone_ms=ev["start"].elapsed_time(ev["backbone"]),
+        input_proj_ms=ev["backbone"].elapsed_time(ev["enc_start"]),
+        encoder_ms=ev["enc_start"].elapsed_time(ev["encoder"]),
+        decoder_ms=ev["dec_start"].elapsed_time(ev["end"]))
+    log(f"roomformer (c) forward, batch {RF_BATCH} ({card}): {res}")
+    return res
+
+
+def rf_train(torch, np, items, batch, save_dir, card):
+    """(d) RoomFormer() train steps through the engine (criterion with
+    loss_raster at 64^2, AdamW, deterministic algorithms): seconds a step,
+    peak GiB, two steps twice from one seed bitwise equal, and
+    RF_OVERFIT_STEPS steps on one batch lowering the loss."""
+    from mask3d_tpu_torch.baseline.engine import FloorplanTrainer
+
+    def trainer():
+        return FloorplanTrainer(
+            "unused", save_dir=save_dir, batch_size=RF_BATCH, seed=1,
+            datasets={"train": items, "validation": items, "test": items})
+
+    runs, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        tr = trainer()
+        losses = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(tr.train_step(batch)["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        runs.append((losses, [p.detach().clone() for p in
+                              tr.model.parameters()]))
+    peak = torch.cuda.max_memory_allocated()
+    bitwise = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    losses = runs[1][0]
+    for _ in range(RF_OVERFIT_STEPS - 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(tr.train_step(batch)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    res = dict(s_per_step_median=statistics.median(secs),
+               s_first_step=secs[0], peak_gib=peak / 2**30,
+               peak_gib_above_start=(peak - base) / 2**30,
+               losses_first_run=runs[0][0], bitwise_repeat=bitwise,
+               loss_first=losses[0], loss_last=losses[-1],
+               finite=bool(np.isfinite(losses).all()))
+    log(f"roomformer (d) train step, batch {RF_BATCH} ({card}): {res}")
+    assert res["finite"] and bitwise and losses[-1] < losses[0], res
+    return res
+
+
+def rf_engine(torch, np, root, save_dir, card):
+    """(e) `engine train` for RF_EPOCHS epochs at batch 8, then `engine
+    eval --checkpoint last-epoch.ckpt --mask3d_bridge --export_las`: the
+    metric keys, one .las per test scene, seconds a batch of data, forward
+    and post-processing."""
+    from mask3d_tpu_torch.baseline import engine
+
+    t = time.perf_counter()
+    tr, _ = engine.main(["train", "--data_root", root, "--save_dir",
+                         save_dir, "--batch_size", str(RF_BATCH),
+                         "--max_epochs", str(RF_EPOCHS)])
+    train_s = time.perf_counter() - t
+    assert tr.epoch == RF_EPOCHS - 1 and tr.state.step == RF_EPOCHS
+    las = os.path.join(save_dir, "las")
+    t = time.perf_counter()
+    ev, metrics = engine.main([
+        "eval", "--data_root", root, "--save_dir", save_dir,
+        "--checkpoint", os.path.join(save_dir, "last-epoch.ckpt"),
+        "--mask3d_bridge", "--export_las", "--las_dir", las])
+    eval_s = time.perf_counter() - t
+    keys = {p: sorted(k for k in metrics if k.startswith(p))
+            for p in ("room_", "corner_", "angle_", "bridge_")}
+    n_las = len([f for f in os.listdir(las) if f.endswith(".las")])
+    res = dict(train_s=train_s, eval_s=eval_s, las_files=n_las,
+               metrics=metrics,
+               s_per_batch={k: statistics.mean(v)
+                            for k, v in ev.timings.items()})
+    log(f"roomformer (e) engine ({card}): {res}")
+    assert all(keys.values()), keys
+    assert n_las == RF_SCENES["test"][1], n_las
+    assert all(np.isfinite(v) for k, v in metrics.items()
+               if not k.startswith("bridge_")), metrics
+    return res
+
+
+def run_roomformer(torch, F, np, card):
+    """Phase `roomformer`: (a)-(e) above; the summary for the JSON line."""
+    import shutil
+
+    from mask3d_tpu_torch.baseline.density_dataset import (
+        FloorplanDataset, collate_floorplan)
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    root = os.path.join(build, "roomformer_scenes")
+    save_dir = os.path.join(build, "roomformer_saved")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    out = {"small": rf_small_card_vs_cpu(torch, np),
+           "sampler": rf_sampler_check(torch, F)}
+    rf_write_scenes(np, root)
+    ds = FloorplanDataset(root, "train")
+    items = [ds[i] for i in range(len(ds))]
+    batch = collate_floorplan(items, 20)
+    out["forward"] = rf_forward(torch, batch, card)
+    out["train"] = rf_train(torch, np, items, batch, save_dir, card)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    out["engine"] = rf_engine(torch, np, root, save_dir, card)
+    return out
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -2968,6 +3299,11 @@ def main():
     if train_large is None:
         failures.append("train_large did not run or failed a check")
 
+    roomformer = phase("roomformer", lambda: run_roomformer(
+        torch, F, np, card))
+    if roomformer is None:
+        failures.append("roomformer did not run or failed a check")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"FAILED phases: {failures}")
@@ -3080,7 +3416,8 @@ def main():
         "train_large": {k: train_large[k] for k in (
             "launches", "bricked_fp32", "bf16_gates", "bf16_faults", "steps",
             "hall", "hall_sparse_conv_backward", "hall_brick_tap_backward")}
-        | {"entry": {k: v for k, v in train_large["entry"].items()}}}))
+        | {"entry": {k: v for k, v in train_large["entry"].items()}},
+        "roomformer": roomformer}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -116,6 +116,24 @@ def _item_target_meta(labels: np.ndarray, filter_out_classes,
                 keep_flags=keep, remap=remap)
 
 
+# from mask3d_tpu/data/collate.py:141 build_item_target
+def build_item_target(labels: np.ndarray, filter_out_classes,
+                      filter_out_instance_ids):
+    """Per-instance (label, mask) pairs from point labels [n, 2]
+    (`create_batch_target`, `mask3d/datasets/utils.py:286-329`): index 0 =
+    semantic label, index 1 = instance id; instances whose id or semantic
+    class is filtered are dropped. Returns (labels, list of bool[n] masks,
+    instance ids)."""
+    inst_ids = labels[:, 1]
+    n = len(inst_ids)
+    m = _item_target_meta(labels, filter_out_classes,
+                          filter_out_instance_ids)
+    masks = np.zeros((len(m["labels"]), n), bool)
+    cols = np.flatnonzero(m["keep_flags"][m["inv"]])
+    masks[m["remap"][m["inv"][cols]], cols] = True
+    return [int(v) for v in m["labels"]], list(masks), inst_ids
+
+
 # from mask3d_tpu/data/collate.py:163 VoxelizeCollate
 class VoxelizeCollate:
     """Collate a list of dataset item dicts into a HostBatch.

@@ -94,3 +94,56 @@ def make_synthetic_scene(
         "raw_labels": labels.copy(),
         "scene": f"synthetic_{rng.integers(1 << 30)}",
     }
+
+
+def floorplan_annotation(rooms) -> dict:
+    """A Structured3D `annotation_3d.json` dict holding one floor plane per
+    room: `rooms` is a list of (x0, y0, x1, y1, semantic type) rectangles
+    (junctions at the corners, four lines each)."""
+    n = len(rooms)
+    junctions, semantics, planes = [], [], []
+    plane_lines = [[0] * (4 * n) for _ in range(n)]
+    line_junctions = [[0] * (4 * n) for _ in range(4 * n)]
+    for r, (x0, y0, x1, y1, sem) in enumerate(rooms):
+        for i, (x, y) in enumerate(((x0, y0), (x1, y0), (x1, y1),
+                                    (x0, y1))):
+            junctions.append({"ID": 4 * r + i,
+                              "coordinate": [float(x), float(y), 0.0]})
+            plane_lines[r][4 * r + i] = 1
+            line_junctions[4 * r + i][4 * r + i] = 1
+            line_junctions[4 * r + i][4 * r + (i + 1) % 4] = 1
+        planes.append({"ID": r, "type": "floor"})
+        semantics.append({"ID": r, "planeID": [r], "type": sem})
+    return {"junctions": junctions, "planes": planes,
+            "planeLineMatrix": plane_lines,
+            "lineJunctionMatrix": line_junctions, "semantics": semantics}
+
+
+def write_floorplan_scene(root: str, scene: str, rng: np.random.Generator,
+                          num_rooms_x: int = 3, num_rooms_y: int = 2,
+                          room_size: int = 24, height: int = 10) -> dict:
+    """One scene of the Structured3D layout that `FloorplanDataset` reads:
+    `point_cloud_rasterized_150.ply` (binary float32 x, y, z, int type and
+    room_id) of `make_synthetic_scene` on one floor, and an
+    `annotation_3d.json` whose floor polygons are its rooms in the PLY's
+    frame (room ids count up in the same order). Returns the item."""
+    import json
+    import os
+
+    from mask3d_tpu_torch.data.ply import write_ply
+
+    item = make_synthetic_scene(rng, num_rooms_x, num_rooms_y, room_size,
+                                height, jitter=0.3, dropout=0.3)
+    c, lab = item["coordinates"], item["labels"]
+    d = os.path.join(root, scene)
+    os.makedirs(d, exist_ok=True)
+    write_ply(os.path.join(d, "point_cloud_rasterized_150.ply"),
+              {"x": c[:, 0], "y": c[:, 1], "z": c[:, 2],
+               "type": lab[:, 0], "room_id": lab[:, 1]}, text=False)
+    kinds = ("bedroom", "kitchen", "living room", "bathroom")
+    rooms = [(rx * room_size, ry * room_size, (rx + 1) * room_size - 1,
+              (ry + 1) * room_size - 1, kinds[(rx + ry) % len(kinds)])
+             for rx in range(num_rooms_x) for ry in range(num_rooms_y)]
+    with open(os.path.join(d, "annotation_3d.json"), "w") as f:
+        json.dump(floorplan_annotation(rooms), f)
+    return item

@@ -168,7 +168,8 @@ def _read_port(path: str, device="cpu") -> dict:
 # from mask3d_tpu/train/checkpoint.py:39 save_checkpoint
 def save_checkpoint(path: str, state, epoch: int = 0,
                     metadata: Optional[dict] = None):
-    """Write `state` (a `train.loop.TrainState`) to `path` and the
+    """Write `state` (a `train.loop.TrainState`; the baseline's has no
+    scheduler and no generator) to `path` and the
     `{"epoch", **metadata}` sidecar to `path.meta.json`, each atomically:
     a save cut short leaves the previous file whole."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -176,8 +177,10 @@ def save_checkpoint(path: str, state, epoch: int = 0,
         "format": PORT_FORMAT, "epoch": epoch, "step": state.step,
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
-        "scheduler": state.scheduler.state_dict(),
-        "generator": state.generator.get_state(),
+        "scheduler": (state.scheduler.state_dict()
+                      if state.scheduler is not None else None),
+        "generator": (state.generator.get_state()
+                      if state.generator is not None else None),
     }
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -364,11 +367,13 @@ def load_checkpoint(path: str, model: torch.nn.Module, state=None,
         model.load_state_dict(payload["model"], strict=True)
         if state is not None:
             state.optimizer.load_state_dict(payload["optimizer"])
-            state.scheduler.load_state_dict(payload["scheduler"])
+            if state.scheduler is not None:
+                state.scheduler.load_state_dict(payload["scheduler"])
             state.step = int(payload["step"])
-            # the file was mapped to the model's device; a generator's
-            # state is a CPU byte tensor whatever its device
-            state.generator.set_state(payload["generator"].cpu())
+            if state.generator is not None:
+                # the file was mapped to the model's device; a generator's
+                # state is a CPU byte tensor whatever its device
+                state.generator.set_state(payload["generator"].cpu())
     else:
         raw = _read(path)
         if not isinstance(raw, dict) or "params" not in raw:
@@ -378,12 +383,17 @@ def load_checkpoint(path: str, model: torch.nn.Module, state=None,
                                  "buffers": raw.get("buffers", {})})
         if state is not None:
             _resume_jax_state(raw, state, path, seed)
-    meta = {}
+    return model, read_meta(path)
+
+
+def read_meta(path: str) -> dict:
+    """The `.meta.json` sidecar of a checkpoint of either package ({} where
+    there is none)."""
     meta_path = path + ".meta.json"
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            meta = json.load(f)
-    return model, meta
+    if not os.path.exists(meta_path):
+        return {}
+    with open(meta_path) as f:
+        return json.load(f)
 
 
 # from mask3d_tpu/train/checkpoint.py:146 CheckpointManager
