@@ -6,7 +6,7 @@
 Needs one CUDA card; exits nonzero without one, or when the package is not
 beside this script. Phases:
 
-1. Card and build: prints the card's name and power limit, builds the four
+1. Card and build: prints the card's name and power limit, builds the five
    CUDA kernels from `mask3d_tpu_torch/csrc/` (one nvcc per source, in
    parallel).
 2. Kernels against their plain PyTorch versions on the card, at the
@@ -167,7 +167,30 @@ beside this script. Phases:
    lowering the loss; (e) `engine train` 2 epochs at batch 8, then `engine
    eval --checkpoint last-epoch.ckpt --mask3d_bridge --export_las`: the
    metric keys, one .las per test scene, seconds a batch of data, forward
-   and post-processing.
+   and post-processing. Its criterion matches with the LSAP kernel.
+
+12. `bench_input`, the JAX bench's input path (`bench.py:246-285`) on
+   phase 3's 8 scenes: `encode_batch`'s C++ and numpy buffers
+   byte-identical; the card's decode of the pinned copy equal to the
+   collated keys, counts and dims, and the sparse batch built from the
+   decoded precomputed levels equal to the device build, bit for bit; a
+   planted fault (the base level's last escape record dropped) must fail
+   that gate; `infer_u8` against `infer` on the same weights in fp32 and
+   bf16 with `model.unit_features=true` (ones features), counted (12
+   attention, 13 row gathers; 9 of them bf16 in bf16), bitwise or within
+   1e-6 * max(1, std) with the reason printed; buffer bytes against the
+   coordinates', the host encode's ms (C++, numpy), the pinned copy's, the
+   decode's, the precomputed build's against the device build's, and each
+   forward's.
+13. `lsap`: the Jonker-Volgenant kernel against the plain JV on the card at
+   13 x 8 problems of 25 x I (I the batch's padded instance count), 13 x 8
+   of 100 x 32, RoomFormer's 6 x 8 of 20 x 20 and the tied fixtures of
+   `tests/test_torch_lsap.py`: every assignment equal, a second launch
+   bitwise equal; timed by graph replay beside the eager call, the plain
+   JV, the scipy round trip (`method="host"`) and the bound (the costs'
+   bytes; 4 operations a column at each search step the plain JV took).
+   The criteria of phases 8-11 match with this kernel (`lsap_method`'s
+   default), one launch a criterion call, counted with the others.
 
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
@@ -1029,7 +1052,8 @@ def run_large_scene(torch, F, np, mt, counters, by_key, sparse, kernels):
         mdl = mt.build_model(cfg, device="cuda", seed=0)
         out, launches, keyed, peak = count_forward(
             torch, mt, counters, by_key, mdl, dev, cfg)
-        want = dict(HALL_LAUNCHES[impl], masked_attention=12, int8_conv=0)
+        want = dict(HALL_LAUNCHES[impl], masked_attention=12, int8_conv=0,
+                    lsap=0)
         assert launches == want, (impl, launches, want)
         assert keyed["attention"] == {s: 3 for s in HALL_ATTN_S}, keyed
         pc, pm = out.pred_class, out.pred_masks
@@ -1330,7 +1354,8 @@ def run_test_entry(torch, np, mt, counters, card):
     assert all(np.isfinite(metrics[k]) for k in finite), metrics
     assert metrics["test_batch_overflow"] == 0.0, metrics
     assert launches["masked_attention"] == n_batches * 12 and \
-        launches["row_gather"] == n_batches * 13, launches
+        launches["row_gather"] == n_batches * 13 and \
+        launches["lsap"] == n_batches, launches
 
     # the entry's forward on its first batch against `infer` on that batch
     torch.cuda.synchronize()
@@ -1589,7 +1614,8 @@ def check_train_step_paths(torch, mt, counters, by_key, cfg, cfg_gp, host,
             assert sum(launches.values()) == 0, launches
         else:
             assert launches["masked_attention"] == n_dec and \
-                launches["row_gather"] == 13, launches
+                launches["row_gather"] == 13 and launches["lsap"] == 1, \
+                launches
             assert by_s == {s: 3 for s in TRAIN_ATTN_S}, by_s
         del state
     (lk, gk), (lp, gp) = res[False], res[True]
@@ -1628,7 +1654,8 @@ def check_train_step_paths(torch, mt, counters, by_key, cfg, cfg_gp, host,
         f"{card}")
     assert all(np.isfinite(l["loss"]) for l in losses), losses
     assert launches["sparse_conv"] == 2 * 47 and \
-        launches["masked_attention"] == 2 * n_dec, launches
+        launches["masked_attention"] == 2 * n_dec and \
+        launches["lsap"] == 2, launches
     del state
     return out
 
@@ -1810,6 +1837,7 @@ def run_train_entry(torch, np, mt, counters, by_key, card):
         forwards = steps * TRAIN_ACCUM + 1
         assert launches["masked_attention"] == n_dec * forwards, launches
         assert launches["row_gather"] == 13 * forwards, launches
+        assert launches["lsap"] == forwards, launches  # one a criterion
         for s in TRAIN_ATTN_S:
             assert by_s.get(s) == 3 * steps * TRAIN_ACCUM, (s, by_s)
         assert "last-epoch.ckpt" in files, files
@@ -2007,7 +2035,7 @@ def run_train_large(torch, F, np, mt, counters, by_key, card, host,
     k, p = runs["kernels"], runs["plain"]
     res["launches"] = {"bricked fp32 (kernels)": k["launches"]}
     want = {"masked_attention": 8 * n_dec, "row_gather": 8 * 5,
-            "sparse_conv": 0, "int8_conv": 0}
+            "sparse_conv": 0, "int8_conv": 0, "lsap": 8}
     if k["launches"] != want or k["by_s"] != {s: 8 * 3
                                               for s in TRAIN_ATTN_S}:
         failed.append(("bricked step launches", k["launches"], k["by_s"]))
@@ -2609,6 +2637,260 @@ def run_roomformer(torch, F, np, card):
     return out
 
 
+def host_ms(fn, reps):
+    """Median host ms of `reps` calls of `fn` (host work: the encoders)."""
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def fenced_ms(torch, fn, reps):
+    """Median wall ms of `reps` calls of `fn`, each fenced by
+    `torch.cuda.synchronize()` (the copy, the decode, the builds)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def same_levels(torch, a, b):
+    """The names of the fields where two sparse batches' levels, occupancy
+    grids or overflow flags differ (empty: bit for bit equal)."""
+    bad = []
+    for li, (la, lb) in enumerate(zip(a.levels, b.levels)):
+        bad += [f"level {li} {f}" for f in ("key", "coords", "valid",
+                                            "count", "dims")
+                if not torch.equal(getattr(la, f), getattr(lb, f))]
+    bad += [f"occ {li}" for li, (x, y) in enumerate(zip(a.occ, b.occ))
+            if not torch.equal(x, y)]
+    bad += [f"overflow {li}" for li, (x, y) in enumerate(zip(a.pools,
+                                                            b.pools))
+            if not torch.equal(x.overflow, y.overflow)]
+    return bad
+
+
+def decode_gate(torch, dev, u8, caps):
+    """The card's decode of a bench buffer against the collated batch:
+    keys (on each item's rows), counts and dims, and the sparse batch
+    built from the decoded precomputed levels against the device build,
+    bit for bit. Returns the names of what differs."""
+    from mask3d_tpu_torch.data import transfer
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+    from mask3d_tpu_torch.sparse.core import pack_keys
+
+    b, n = dev.coords.shape[:2]
+    (keys, counts, dims), coarse = transfer.decode_pyramid_u8(u8, b, n, caps)
+    rows = torch.arange(n, device="cuda")[None] < dev.counts[:, None]
+    want = pack_keys(dev.coords, dev.dims[:, None, :]).to(torch.int32)
+    bad = [] if torch.equal(torch.where(rows, keys, 0),
+                            torch.where(rows, want, 0)) else ["base keys"]
+    bad += [] if torch.equal(counts, dev.counts.to(torch.int32)) \
+        else ["counts"]
+    bad += [] if torch.equal(dims, dev.dims.to(torch.int32)) else ["dims"]
+    args = (dev.coords, dev.counts, dev.dims, caps, dev.grid_dims)
+    return bad + same_levels(torch, build_sparse_batch(*args),
+                             build_sparse_batch(*args,
+                                                precomputed_levels=coarse))
+
+
+def run_bench_input(torch, np, mt, cfg_mod, counters, by_key, host, card):
+    """Phase `bench_input`: the JAX bench's input path on phase 3's 8
+    flagship scenes at bucket 49152 (see the module docstring)."""
+    from mask3d_tpu_torch.data import transfer
+    from mask3d_tpu_torch.infer import encode_batch, infer_u8, \
+        level_capacities
+    from mask3d_tpu_torch.profile_forward import CONFIGS
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+    dev = host.device
+    b, n = dev.coords.shape[:2]
+    base = [f"data.point_bucket_multiple={BUCKET}", "model.unit_features=true"]
+    cfg = cfg_mod.apply_overrides(cfg_mod.Config(), list(base))
+    caps = level_capacities(cfg, n)
+    out = {}
+
+    buf, n_cap = encode_batch(dev, cfg)
+    buf_np, _ = encode_batch(dev, cfg, use_native=False)
+    assert n_cap == n and np.array_equal(buf, buf_np), \
+        "C++ and numpy buffers differ"
+    out["buffer_bytes"] = int(buf.nbytes)
+    out["coords_bytes"] = int(b * n * 3 * 4)
+    out["encode_ms_cpp"] = host_ms(lambda: encode_batch(dev, cfg), 5)
+    out["encode_ms_numpy"] = host_ms(
+        lambda: encode_batch(dev, cfg, use_native=False), 2)
+    out["pinned_copy_ms"] = fenced_ms(
+        torch, lambda: transfer.to_device(buf, "cuda"), 5)
+    u8 = transfer.to_device(buf, "cuda")
+    out["decode_ms"] = fenced_ms(
+        torch, lambda: transfer.decode_pyramid_u8(u8, b, n, caps), 5)
+    bad = decode_gate(torch, dev, u8, caps)
+    assert not bad, f"decode differs: {bad}"
+    _, coarse = transfer.decode_pyramid_u8(u8, b, n, caps)
+    args = (dev.coords, dev.counts, dev.dims, caps, dev.grid_dims)
+    out["build_ms_precomputed"] = fenced_ms(
+        torch, lambda: build_sparse_batch(*args, precomputed_levels=coarse),
+        5)
+    out["build_ms_device"] = fenced_ms(
+        torch, lambda: build_sparse_batch(*args), 5)
+
+    # the planted fault: the base level's last escape record dropped
+    rec = buf[b * n: b * n + 4096 * 12].view(np.int32).reshape(-1, 3)
+    real = np.nonzero(rec[:, 1] < n)[0]
+    faulty = buf.copy()
+    faulty[b * n: b * n + 4096 * 12].view(np.int32).reshape(-1, 3)[
+        real[-1], 1] = n
+    fault = decode_gate(torch, dev, transfer.to_device(faulty, "cuda"), caps)
+    out["escape_records"] = int(len(real))
+    out["fault_fails"] = bool(fault)
+    log(f"bench_input: buffer {out['buffer_bytes']} bytes against "
+        f"{out['coords_bytes']} bytes of i32 coordinates "
+        f"({out['escape_records']} base escape records); host encode "
+        f"{out['encode_ms_cpp']:.3f} ms C++, {out['encode_ms_numpy']:.3f} ms "
+        f"numpy (byte-identical); pinned copy {out['pinned_copy_ms']:.3f} "
+        f"ms; decode {out['decode_ms']:.3f} ms (bit-equal to the collated "
+        f"batch and the device build); build precomputed "
+        f"{out['build_ms_precomputed']:.3f} ms vs device "
+        f"{out['build_ms_device']:.3f} ms; a dropped escape record fails "
+        f"the gate: {fault} on {card}")
+    assert fault, "a dropped escape record passed the decode gate"
+
+    out["forward"] = {}
+    for name in ("fp32", "bf16"):
+        c = cfg_mod.apply_overrides(cfg_mod.Config(), base + CONFIGS[name])
+        mdl = mt.build_model(c, device="cuda", seed=0)
+        with torch.inference_mode():
+            ref, _ = mt.infer(mdl, dev, c, device="cuda")
+            infer_u8(mdl, buf, c, b, n, dev.grid_dims)  # warm-up
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            for counts, _ in by_key.values():
+                counts.clear()
+            pc, pm = infer_u8(mdl, buf, c, b, n, dev.grid_dims)
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        dtypes = dict(by_key["gather_dtypes"][0])
+        want = {"masked_attention": 12, "row_gather": 13, "sparse_conv": 0,
+                "int8_conv": 0, "lsap": 0}
+        assert launches == want, (name, launches)
+        if name == "bf16":
+            assert dtypes == GATHER_BY_DTYPE, dtypes
+        row = {"launches": launches, "gather_dtypes": dtypes}
+        for what, r, g in (("pred_class", ref.pred_class, pc),
+                           ("pred_masks", ref.pred_masks, pm)):
+            r, g = r.float(), g.float()
+            err = float((g - r).abs().max()) / max(1.0, float(r.std()))
+            row[what] = err
+            if not torch.equal(r, g):
+                log(f"bench_input {name}: {what} not bitwise equal to "
+                    f"`infer` (max |diff|/max(1,std) {err:.3g}; the "
+                    f"forward's cuDNN and reduction sums may take another "
+                    f"order between calls)")
+            assert err <= 1e-6, (name, what, err)
+        row["infer_u8_ms"] = fenced_ms(
+            torch, lambda: infer_u8(mdl, buf, c, b, n, dev.grid_dims), 3)
+        row["infer_ms"] = fenced_ms(
+            torch, lambda: mt.infer(mdl, dev, c, device="cuda"), 3)
+        out["forward"][name] = row
+        log(f"bench_input {name} (unit_features): infer_u8 vs infer "
+            f"{row['pred_class']:.3g} / {row['pred_masks']:.3g} "
+            f"(max|diff|/max(1,std), tol 1e-6), launches {launches}, row "
+            f"gather by dtype {dtypes}; {row['infer_u8_ms']:.2f} ms vs "
+            f"{row['infer_ms']:.2f} ms a forward (median of 3, fenced) on "
+            f"{card}")
+        del mdl
+    return out
+
+
+# the LSAP phase: a cost on which scipy and JAX's device solver pick
+# different real columns (tests/test_torch_lsap.py TIED_COST, JAX's
+# device assignment), and the tied fixtures of that test at 25 x 8
+LSAP_TIED = ([[1, 0, 1, 1], [1, 2, 2, 1], [2, 2, 1, 1], [2, 1, 1, 2],
+              [0, 0, 0, 0], [2, 0, 0, 1]], [1, 4, 3, 5, 0, 2])
+
+
+def lsap_cases(np, n_inst):
+    """(name, f32 cost) of the LSAP phase."""
+    rng = np.random.default_rng(0)
+    cases = [("13x8 of 25x%d (Mask3D, flagship)" % n_inst,
+              rng.normal(size=(13, 8, 25, n_inst))),
+             ("13x8 of 100x32 (Mask3D, 100 queries)",
+              rng.normal(size=(13, 8, 100, 32))),
+             ("6x8 of 20x20 (RoomFormer)", rng.normal(size=(6, 8, 20, 20))),
+             ("tied fixture", np.array(LSAP_TIED[0])[None])]
+    tied = rng.normal(size=(4, 3, 25, 8))
+    for kind in ("small_integers", "constant_columns", "duplicated_rows",
+                 "all_equal"):
+        c = tied.copy()
+        if kind == "small_integers":
+            c = rng.integers(0, 3, size=c.shape)
+        elif kind == "constant_columns":
+            c[..., 4:] = 1e4
+        elif kind == "duplicated_rows":
+            c[..., 1::2, :] = c[..., 0:1, :]
+        else:
+            c[:] = 0.5
+        cases.append((f"4x3 of 25x8 {kind}", c))
+    return [(name, np.asarray(c, np.float32)) for name, c in cases]
+
+
+def run_lsap(torch, np, lsap, host, card):
+    """Phase `lsap`: the kernel against the plain JV on the card at the
+    criteria's shapes and on the tied fixtures; timed beside the scipy
+    round trip and its bound."""
+    from mask3d_tpu_torch import cuda_build
+
+    n_inst = int(host.device.target.valid.shape[-1])
+    rows = []
+    for name, cost in lsap_cases(np, n_inst):
+        x = torch.from_numpy(cost).cuda()
+        r, c = cost.shape[-2:]
+        nn = max(r, c)
+        a = lsap.linear_sum_assignment(x)
+        b2 = lsap.linear_sum_assignment(x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with cuda_build.plain_versions():
+            p = lsap.linear_sum_assignment(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        steps = lsap.solve_square_plain.steps
+        equal, repeat = torch.equal(a, p), torch.equal(a, b2)
+        sq = lsap.pad_square(x)
+        ms = time_graph_ms(torch, lambda: lsap.solve_square(sq))
+        eager_ms = time_ms(torch, lambda: lsap.linear_sum_assignment(x))
+        scipy_ms = fenced_ms(
+            torch, lambda: lsap.linear_sum_assignment(x, "host"), 5)
+        n_prob = sq.shape[0]
+        # bytes: the square costs read once, col4row written once;
+        # operations: 4 a column (3 adds, 1 compare) at each search step
+        bound_ms, bound_by = bound(n_prob * nn * nn * 4 + n_prob * nn * 4,
+                                   4 * nn * steps)
+        row = dict(shape=name, problems=n_prob, n=nn, equal=equal,
+                   repeat_bitwise=repeat, search_steps=steps,
+                   max_abs_err=float((a - p).abs().max()), ms=ms,
+                   eager_ms=eager_ms, plain_ms=plain_ms, scipy_ms=scipy_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        rows.append(row)
+        log(f"lsap {name}: kernel == plain {equal}, second launch bitwise "
+            f"{repeat}; {ms:.4f} ms (graph replay; eager call with the "
+            f"padding {eager_ms:.4f}), plain JV {plain_ms:.1f} ms, scipy "
+            f"round trip {scipy_ms:.3f} ms, bound {bound_ms:.6f} ms "
+            f"({bound_by}, {steps} search steps) on {card}")
+        assert equal and repeat, name
+    got = lsap.linear_sum_assignment(
+        torch.tensor(LSAP_TIED[0], dtype=torch.float32, device="cuda"))
+    assert got.cpu().tolist() == LSAP_TIED[1], got
+    return rows
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -2635,6 +2917,7 @@ def main():
         from mask3d_tpu_torch.models import backbone as bb_mod
         from mask3d_tpu_torch.models import mask3d as mask3d_mod
         from mask3d_tpu_torch.models.backbone import _GatherCtx
+        from mask3d_tpu_torch.ops import lsap as lsap_mod
         from mask3d_tpu_torch.ops import masked_attention as ma
         from mask3d_tpu_torch.postprocess import postprocess_item
         from mask3d_tpu_torch.profile_forward import CONFIGS, flagship_items
@@ -2743,7 +3026,8 @@ def main():
     fwd_ms = {}
     counters = {"masked_attention": ma.masked_cross_attention,
                 "row_gather": rg.row_gather, "sparse_conv": sc.sparse_conv,
-                "int8_conv": ic.int8_conv}
+                "int8_conv": ic.int8_conv,
+                "lsap": lsap_mod.linear_sum_assignment}
     by_key = {"sparse_conv": (sc.sparse_conv.launches_by_shape,
                               shape_launches),
               "attention": (ma.masked_cross_attention.launches_by_shape,
@@ -2781,8 +3065,8 @@ def main():
         preds = counted_forward("dense", model, cfg)
         assert launches["dense"] == {"masked_attention": n_dec,
                                      "row_gather": 13,  # 5 taps + 4 x 2
-                                     "sparse_conv": 0, "int8_conv": 0
-                                     }, launches
+                                     "sparse_conv": 0, "int8_conv": 0,
+                                     "lsap": 0}, launches
         by_s = attn_launches["dense"]
         log(f"attention launches by key length: {by_s}")
         assert sorted(by_s) == sorted(r["S"] for r in attn_rows) == \
@@ -2871,7 +3155,7 @@ def main():
             assert launches[path] == {
                 "masked_attention": n_dec, "row_gather": 0,
                 "sparse_conv": 47 if path == "gather_pallas" else 0,
-                "int8_conv": 0}, launches
+                "int8_conv": 0, "lsap": 0}, launches
             assert sum(shape_launches[path].values()) == \
                 launches[path]["sparse_conv"], shape_launches
             stats = path_stats(mdl, c, pc, pm)
@@ -3002,7 +3286,7 @@ def main():
             mdl.load_state_dict(model.state_dict())
             p = counted_forward(path, mdl, c)
             want = {"masked_attention": n_dec, "row_gather": 13,
-                    "sparse_conv": 0,
+                    "sparse_conv": 0, "lsap": 0,
                     "int8_conv": sum(INT8_STEPS[path].values())}
             assert launches[path] == want, (launches[path], want)
             assert step_launches[path] == INT8_STEPS[path], step_launches
@@ -3304,6 +3588,15 @@ def main():
     if roomformer is None:
         failures.append("roomformer did not run or failed a check")
 
+    bench_input = phase("bench_input", lambda: run_bench_input(
+        torch, np, mt, cfg_mod, counters, by_key, host, card))
+    if bench_input is None:
+        failures.append("bench_input did not run or failed a check")
+    lsap_rows = phase("lsap", lambda: run_lsap(torch, np, lsap_mod, host,
+                                                card))
+    if not lsap_rows:
+        failures.append("lsap did not run or failed a check")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         log(f"FAILED phases: {failures}")
@@ -3402,6 +3695,12 @@ def main():
                          "sparse_conv"],
                      hall_backward_l0=train_large[
                          "hall_sparse_conv_backward"]),
+        # no Pallas counterpart: JAX's device LSAP is lax.while_loop code;
+        # its launches are the counted dense train step's (one a criterion)
+        kernel_entry("lsap", "mask3d_tpu_torch/csrc/lsap.cu",
+                     "mask3d_tpu/ops/lsap.py:30", lsap_rows, lsap_rows[0],
+                     train["step_launches"]["dense step (kernels)"]["lsap"],
+                     scipy_ms=lsap_rows[0]["scipy_ms"]),
     ], "launches_by_path": launches, "int8_steps_by_path": step_launches,
         "peak_gib": peak_gib, "forward_ms": fwd_ms, "train": train,
         "large_scene": {
@@ -3417,7 +3716,7 @@ def main():
             "launches", "bricked_fp32", "bf16_gates", "bf16_faults", "steps",
             "hall", "hall_sparse_conv_backward", "hall_brick_tap_backward")}
         | {"entry": {k: v for k, v in train_large["entry"].items()}},
-        "roomformer": roomformer}))
+        "roomformer": roomformer, "bench_input": bench_input}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,10 +14,10 @@ Polygon-level matching and losses of the reference
   hard-rasterized target at 64 x 64
 - the aux decoder layers reuse the FINAL layer's assignment
 
-The costs are computed on the model's device and solved on the host with
-scipy (`ops/lsap.py`, one copy down and one up); the JAX package solves
-them on its device. Rows left to padding columns may take other padding
-columns than JAX's; every loss masks them (`matched`).
+The costs are computed on the model's device and solved by `ops/lsap.py`:
+with `lsap_method="device"` (the default, as in the JAX package) its
+Jonker-Volgenant kernel on the card, JAX's assignment exactly; with
+`"host"` scipy, one copy down and one up.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def _take(x: torch.Tensor, col4row: torch.Tensor) -> torch.Tensor:
 class RoomFormerCriterion:
     def __init__(self, cost_class=2.0, cost_coords=5.0, cls_coef=2.0,
                  coords_coef=5.0, raster_coef=1.0, room_cls_coef=0.2,
-                 raster_res=64, use_raster=True):
+                 raster_res=64, use_raster=True, lsap_method="device"):
         self.cost_class = cost_class
         self.cost_coords = cost_coords
         self.cls_coef = cls_coef
@@ -84,6 +84,7 @@ class RoomFormerCriterion:
         self.room_cls_coef = room_cls_coef
         self.raster_res = raster_res
         self.use_raster = use_raster
+        self.lsap_method = lsap_method
 
     # from mask3d_tpu/baseline/criterion2d.py:70 match
     @torch.no_grad()
@@ -101,9 +102,7 @@ class RoomFormerCriterion:
         cost = self.cost_coords * cost_coords + self.cost_class * cost_class
         cost = torch.where(targets["poly_valid"][:, None, :], cost,
                            torch.full_like(cost, _INVALID))
-        col4row = torch.from_numpy(
-            linear_sum_assignment(cost.cpu().numpy())).to(
-                device=logits.device, dtype=torch.int64)
+        col4row = linear_sum_assignment(cost, self.lsap_method).long()
         pt = targets["poly_valid"].shape[-1]
         in_range = col4row < pt
         safe = torch.where(in_range, col4row, torch.zeros_like(col4row))

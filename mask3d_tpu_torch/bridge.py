@@ -1,6 +1,6 @@
 """Carry trained weights across: the JAX package's Flax variables
 `{"params": ..., "buffers": ...}` (nested dicts of numpy arrays) -> the
-port's `state_dict`.
+port's `state_dict` (`from_flax`), and back (`to_flax`).
 
 Layout conversions:
 - backbone `<name>_kernel` [K, Cin, Cout] (C-order ravel of the kernel
@@ -15,7 +15,7 @@ Layout conversions:
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -127,3 +127,75 @@ def load_flax(model: torch.nn.Module, variables) -> torch.nn.Module:
                              f"{tuple(own[k].shape)}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+_PORT_CHILDREN = {v: k for k, v in _LAYER_CHILDREN.items()}
+_PORT_PREFIX = {v: k for k, v in _LAYER_PREFIX.items()}
+
+
+def _flax_leaf(key: str, arr: np.ndarray) -> Tuple[str, tuple, np.ndarray]:
+    """(collection, Flax path, Flax value) of one port state_dict entry:
+    the layouts of `map_leaf` undone."""
+    if key == "gauss_B":
+        return "buffers", ("gauss_B",), arr
+    parts = key.split(".")
+    if parts[0] == "backbone":
+        if len(parts) != 4 or parts[1] not in ("convs", "norms"):
+            raise KeyError(f"unmapped port key {key}")
+        name, kind = parts[2], parts[3]
+        if parts[1] == "norms":
+            leaf = {"weight": "scale", "bias": "bias"}.get(kind)
+            if leaf is None:
+                raise KeyError(f"unmapped port key {key}")
+            return "params", ("backbone", f"{name}_{leaf}"), arr
+        if kind != "weight" or arr.ndim != 5:
+            raise KeyError(f"unmapped port key {key}")
+        perm = (2, 3, 4, 0, 1) if name.startswith("convtr") \
+            else (2, 3, 4, 1, 0)
+        cube = arr.transpose(perm)  # [k, k, k, Cin, Cout]
+        k = cube.shape[0]
+        return "params", ("backbone", f"{name}_kernel"), \
+            cube.reshape(k ** 3, *cube.shape[3:])
+    *mods, leaf = parts
+    if len(mods) >= 2 and mods[0] in _PORT_PREFIX \
+            and re.fullmatch(r"\d+_\d+", mods[1]):
+        path = [f"{_PORT_PREFIX[mods[0]]}_{mods[1]}"] + [
+            _PORT_CHILDREN.get(m, m) for m in mods[2:]]
+    elif len(mods) == 1:
+        path = list(mods)
+    else:
+        raise KeyError(f"unmapped port key {key}")
+    if leaf == "weight":
+        if arr.ndim == 2:
+            return "params", (*path, "kernel"), arr.T
+        return "params", (*path, "scale"), arr
+    if leaf == "bias":
+        return "params", (*path, "bias"), arr
+    raise KeyError(f"unmapped port key {key}")
+
+
+def to_flax(state_dict) -> Dict[str, dict]:
+    """The exact inverse of `from_flax`: a port state_dict -> the Flax
+    variables `{"params": ..., "buffers": ...}` as nested dicts of float32
+    numpy arrays. Strict: a key it cannot map raises KeyError, and each
+    leaf must map back through `map_leaf` to its own key, shape and value
+    (ValueError otherwise)."""
+    out: Dict[str, dict] = {"params": {}, "buffers": {}}
+    for key, val in state_dict.items():
+        arr = np.asarray(val.detach().cpu().numpy() if torch.is_tensor(val)
+                         else val, np.float32)
+        col, path, flax_val = _flax_leaf(key, arr)
+        flax_val = np.ascontiguousarray(flax_val)
+        back_key, back = map_leaf(col, path, flax_val)
+        if back_key != key or tuple(back.shape) != arr.shape or \
+                not np.array_equal(back.numpy(), arr):
+            raise ValueError(f"{key} -> {col}/{'/'.join(path)} "
+                             f"{flax_val.shape} maps back to {back_key} "
+                             f"{tuple(back.shape)}")
+        node = out[col]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        if path[-1] in node:
+            raise KeyError(f"two port keys map to {col}/{'/'.join(path)}")
+        node[path[-1]] = flax_val
+    return out

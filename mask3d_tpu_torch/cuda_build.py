@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("masked_attention", "row_gather", "sparse_conv", "int8_conv")
+KERNELS = ("masked_attention", "row_gather", "sparse_conv", "int8_conv",
+           "lsap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -136,10 +137,10 @@ _plain_on_cuda = False
 @contextlib.contextmanager
 def plain_versions():
     """Within the block the train path's kernel wrappers (attention, row
-    gather, sparse conv) run their plain PyTorch versions on CUDA tensors
-    too and count no launch: the reference that `chip_smoke.py` and the
-    card tests hold a whole model's kernel path against. Nothing else
-    enters it."""
+    gather, sparse conv, the LSAP) run their plain PyTorch versions on
+    CUDA tensors too and count no launch: the reference that
+    `chip_smoke.py` and the card tests hold a whole model's kernel path
+    against. Nothing else enters it."""
     global _plain_on_cuda
     prev, _plain_on_cuda = _plain_on_cuda, True
     try:

@@ -2,10 +2,12 @@
 with ctypes.
 
 A copy of the JAX package's loader (mask3d_tpu/native.py) for the C++
-voxelizer that collation runs on every item, with one difference: a build
-that fails raises with the compiler's output. Nothing falls back to numpy
-here; `data.collate.voxelize_item(use_native=False)` is the numpy path, run
-only where the caller asks for it.
+voxelizer that collation runs on every item and the u8 key encoders of the
+bench's input path (`data/transfer.py`), with one difference: a build that
+fails raises with the compiler's output, and no wrapper returns None.
+Nothing falls back to numpy here; `data.collate.voxelize_item(
+use_native=False)` and the encoders' `use_native=False` are the numpy
+paths, run only where the caller asks for them.
 
     g++ -O3 -march=native -shared -fPIC -std=c++17 csrc/voxelizer.cpp \\
         -o _build/libmask3d_host-<hash>.so
@@ -95,6 +97,17 @@ def get_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_int32),
             ]
+            i32p, u8p = (ctypes.POINTER(ctypes.c_int32),
+                         ctypes.POINTER(ctypes.c_uint8))
+            lib.pack_encode_u8.restype = ctypes.c_int
+            lib.pack_encode_u8.argtypes = [
+                i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, u8p]
+            lib.coarse_pyramid_encode_u8.restype = ctypes.c_int
+            lib.coarse_pyramid_encode_u8.argtypes = [
+                i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.c_int64, u8p]
             _lib = lib
         return _lib
 
@@ -121,3 +134,55 @@ def voxelize_native(coordinates: np.ndarray):
         _ptr(dims, ctypes.c_int32),
     )
     return out_coords[:m], keep[:m], dims
+
+
+# from mask3d_tpu/native.py:111 pack_encode_u8_native
+def pack_encode_u8_native(coords: np.ndarray, counts: np.ndarray,
+                          dims: np.ndarray, escape_capacity: int = 4096
+                          ) -> np.ndarray:
+    """C++ fused `pack_keys` + `transfer.encode_keys_u8`: coords i32[B, N,
+    3] sorted by key within counts -> the uint8 transfer buffer
+    (byte-identical to the numpy path); raises ValueError on escape-table
+    overflow or unsorted keys, as `encode_keys_u8` does."""
+    lib = get_lib()
+    c = np.ascontiguousarray(coords, np.int32)
+    cnt = np.ascontiguousarray(counts, np.int32)
+    dm = np.ascontiguousarray(dims, np.int32)
+    b, n = c.shape[0], c.shape[1]
+    out = np.empty(b * n + escape_capacity * 12 + b * 16, np.uint8)
+    rc = lib.pack_encode_u8(
+        _ptr(c, ctypes.c_int32), _ptr(cnt, ctypes.c_int32),
+        _ptr(dm, ctypes.c_int32), b, n, escape_capacity,
+        _ptr(out, ctypes.c_uint8))
+    if rc == -1:
+        raise ValueError(f"escapes exceed capacity {escape_capacity}")
+    if rc == -2:
+        raise ValueError("keys not sorted ascending within counts")
+    return out
+
+
+# from mask3d_tpu/native.py:139 coarse_pyramid_encode_u8_native
+def coarse_pyramid_encode_u8_native(coords: np.ndarray, counts: np.ndarray,
+                                    dims: np.ndarray, level_capacities,
+                                    escape_capacity: int = 1024
+                                    ) -> np.ndarray:
+    """C++ fused coarse-pyramid build + per-level u8-delta encode
+    (`transfer.coarse_pyramid_host` + `encode_keys_u8` per level, the
+    sections concatenated, byte-identical); raises ValueError on
+    escape-table overflow."""
+    lib = get_lib()
+    c = np.ascontiguousarray(coords, np.int32)
+    cnt = np.ascontiguousarray(counts, np.int32)
+    dm = np.ascontiguousarray(dims, np.int32)
+    caps = np.ascontiguousarray(level_capacities, np.int64)
+    b, n = c.shape[0], c.shape[1]
+    total = int(sum(b * int(cap) + escape_capacity * 12 + b * 16
+                    for cap in caps))
+    out = np.empty(total, np.uint8)
+    rc = lib.coarse_pyramid_encode_u8(
+        _ptr(c, ctypes.c_int32), _ptr(cnt, ctypes.c_int32),
+        _ptr(dm, ctypes.c_int32), b, n, _ptr(caps, ctypes.c_int64),
+        len(caps), escape_capacity, _ptr(out, ctypes.c_uint8))
+    if rc == -1:
+        raise ValueError(f"escapes exceed capacity {escape_capacity}")
+    return out

@@ -4,7 +4,10 @@ grids of one forward.
 Where the batch has static grid dims, levels come from dense-grid pooling
 (the grid-dims branch of the JAX package's context): the dense path reads
 the occupancy grids; the gather paths read the pool maps' parents and the
-kernel maps, which come from a dense voxel->row table per level. Without
+kernel maps, which come from a dense voxel->row table per level. With
+`precomputed_levels` (the JAX bench's input path, `data/transfer.py`) the
+coarse levels come from keys the host computed, and the occupancy from the
+max-pool chain; their pool maps carry the overflow flag only. Without
 grid dims (`grid_dims=None`), the pyramid comes from sorting and the
 kernel maps from a binary search (`core.build_pyramid`, `neighbor_map`):
 only the gather paths run on such a batch.
@@ -17,10 +20,11 @@ from typing import Optional, Sequence
 
 import torch
 
-from mask3d_tpu_torch.sparse.core import build_base_level, build_pyramid, \
-    build_row_table, cube_offsets, neighbor_map, neighbor_map_table
+from mask3d_tpu_torch.sparse.core import PoolMap, build_base_level, \
+    build_pyramid, build_row_table, cube_offsets, neighbor_map, \
+    neighbor_map_table
 from mask3d_tpu_torch.sparse.dense_ops import downsample_level_dense, \
-    occupancy
+    level_from_keys, maxpool2, occupancy
 
 
 @dataclasses.dataclass
@@ -60,15 +64,17 @@ class SparseBatch:
         return torch.stack(flags).any()
 
 
-# from mask3d_tpu/sparse/context.py:60 build_sparse_batch (the grid-dims
-# branch, :115-131, the sorting one, :132-133, and :134-169; no
-# precomputed_levels). The defaults are the dense path's (`_sb_kwargs` in
-# infer.py picks them per backbone impl).
+# from mask3d_tpu/sparse/context.py:60 build_sparse_batch (the
+# precomputed_levels branch, :86-114, the grid-dims one, :115-131, the
+# sorting one, :132-133, and :134-169). The defaults are the dense path's
+# (`_sb_kwargs` in infer.py picks them per backbone impl).
 def build_sparse_batch(coords, count, dims, level_capacities: Sequence[int],
                        grid_dims: Optional[Sequence] = None,
                        conv1_kernel_size=None,
                        build_block_maps: bool = False,
-                       build_pool_parents: bool = False) -> SparseBatch:
+                       build_pool_parents: bool = False,
+                       precomputed_levels: Optional[Sequence] = None
+                       ) -> SparseBatch:
     """coords i32[B, N, 3] sorted per item with padding at the end;
     count i32[B]; dims i32[B, 3]; `level_capacities` are the row capacities
     of the coarser levels; `grid_dims` the static per-level grid dims, or
@@ -78,9 +84,32 @@ def build_sparse_batch(coords, count, dims, level_capacities: Sequence[int],
     input conv's map of level 0, and `build_pool_parents` the PoolMaps'
     parents and child counts. The options keep the JAX signature; three
     combinations are used: all off (dense), parents only (bricked) and all
-    on (the gather impls)."""
+    on (the gather impls). `precomputed_levels` [(keys, raw_counts, dims)]
+    per coarse level (`transfer.decode_pyramid_u8`) builds the coarse
+    levels from those keys; it needs grid dims, and its PoolMaps have no
+    parents, so it refuses `build_pool_parents` (the bricked and gather
+    impls) rather than build a batch their backbones cannot read."""
     base = build_base_level(coords, count, dims)
-    if grid_dims is None:
+    if precomputed_levels is not None:
+        if grid_dims is None or build_pool_parents:
+            raise ValueError(
+                "precomputed_levels needs grid dims and builds no pool "
+                "parents: it serves the dense backbone only (the bricked "
+                "and gather impls read parents)")
+        if len(precomputed_levels) != len(level_capacities):
+            raise ValueError(f"{len(precomputed_levels)} precomputed levels"
+                             f" for {len(level_capacities)} capacities")
+        levels, pools = [base], []
+        occ = [occupancy(base, grid_dims[0])]
+        for li, (cap, (keys_l, raw_l, dims_l)) in enumerate(
+                zip(level_capacities, precomputed_levels)):
+            levels.append(level_from_keys(keys_l, raw_l, dims_l,
+                                          stride=2 ** (li + 1),
+                                          capacity=cap))
+            occ.append(maxpool2(occ[-1]))
+            pools.append(PoolMap(parent=None, kidx=None, nchild=None,
+                                 overflow=raw_l > cap))
+    elif grid_dims is None:
         levels, pools = build_pyramid(base, level_capacities)
         occ = []
     else:

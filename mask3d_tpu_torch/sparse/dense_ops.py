@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from mask3d_tpu_torch.sparse.core import INT32_MAX, PoolMap, SparseLevel, \
-    pack_keys
+    pack_keys, unpack_keys
 from mask3d_tpu_torch.sparse.row_gather import row_gather
 
 
@@ -190,6 +190,22 @@ def pooled_row_pyramid(grids, occ, levels, grid_dims):
         occ_f = occ[li].float()
         out.append([gather_rows(g, levels[li], grid_dims[li]) for g in gs])
     return out
+
+
+# from mask3d_tpu/sparse/dense_ops.py:572 level_from_keys
+def level_from_keys(keys, raw_count, dims, stride: int, capacity: int
+                    ) -> SparseLevel:
+    """A coarse level from host-computed sorted keys
+    (`data/transfer.py::coarse_pyramid_host`), with the padding of
+    `downsample_level_dense`: key INT32_MAX and coords 0 on padding rows,
+    the count clamped to the capacity; the two builds are bit-identical."""
+    count = torch.clamp(raw_count, max=capacity)
+    rows = torch.arange(capacity, dtype=torch.int32, device=keys.device)[None]
+    valid = rows < count[:, None]
+    key = torch.where(valid, keys, INT32_MAX).to(torch.int32)
+    coords = torch.where(valid[..., None], unpack_keys(keys, dims), 0)
+    return SparseLevel(key=key, coords=coords.to(torch.int32), valid=valid,
+                       count=count, dims=dims, stride=stride)
 
 
 # from mask3d_tpu/sparse/dense_ops.py:588 downsample_level_dense

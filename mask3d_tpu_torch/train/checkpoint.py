@@ -11,8 +11,11 @@ msgpack decoder (`msgpack_restore`), since neither flax nor msgpack is a
 dependency of the port; the decoded `{"params", "buffers"}` tree goes
 through `bridge` to the port's `state_dict` names. A JAX file that holds
 a whole `TrainState` also resumes: optax's Adam moments and counts become
-the port's optimizer and schedule state (`load_checkpoint`). In the
-tolerant readers a missing key keeps the fresh init, a key
+the port's optimizer and schedule state (`load_checkpoint`). The other
+way, `save_flax_checkpoint` writes a port state as the JAX package's own
+file (`msgpack_serialize`, the inverse of `msgpack_restore`, and
+`bridge.to_flax`), which its `load_checkpoint` reads; `cli train` keeps
+writing the port's format. In the tolerant readers a missing key keeps the fresh init, a key
 of another shape keeps the init, an excess key (or a leaf `bridge` cannot
 map) is dropped, each with a warning.
 """
@@ -38,6 +41,9 @@ _ZIP_MAGIC = b"PK\x03\x04"  # torch.save's zip container
 # flax.serialization's msgpack ext codes
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+# from mask3d_tpu/train/checkpoint.py:39 save_checkpoint (flax's
+# serialization.MAX_CHUNK_SIZE: a larger leaf is written in chunks)
+MAX_CHUNK_SIZE = 2**30
 
 
 class _Reader:
@@ -148,6 +154,120 @@ def msgpack_restore(data: bytes):
     return _unchunk(tree)
 
 
+class _Writer:
+    """Encoder of the msgpack subset `_Reader` decodes, as flax's
+    `msgpack.packb(..., default=_msgpack_ext_pack)` writes it: maps with
+    str keys, lists, str, bytes, bool, None, ints, floats, and numpy arrays
+    as ext type 1 (numpy scalars as ext type 3)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def put(self, fmt: str, *vals):
+        self.parts.append(struct.pack(">" + fmt, *vals))
+
+    def sized(self, n: int, fix: int, fix_max: int, codes: tuple):
+        """A header of length `n`: the fixed form up to `fix_max`, else the
+        8/16/32-bit forms `codes` (None where the form does not exist)."""
+        if fix is not None and n <= fix_max:
+            self.put("B", fix | n)
+            return
+        for code, fmt, top in zip(codes, ("B", "H", "I"),
+                                  (0xFF, 0xFFFF, 0xFFFFFFFF)):
+            if code is not None and n <= top:
+                self.put("B" + fmt, code, n)
+                return
+        raise ValueError(f"msgpack object of length {n} too long")
+
+    def obj(self, x):
+        if x is None or isinstance(x, bool):
+            self.put("B", {None: 0xC0, False: 0xC2, True: 0xC3}[x])
+        elif isinstance(x, int):
+            self.int(x)
+        elif isinstance(x, float):
+            self.put("Bd", 0xCB, x)
+        elif isinstance(x, str):
+            b = x.encode("utf-8")
+            self.sized(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            self.parts.append(b)
+        elif isinstance(x, (bytes, bytearray, memoryview)):
+            self.sized(len(x), None, 0, (0xC4, 0xC5, 0xC6))
+            self.parts.append(bytes(x))
+        elif isinstance(x, dict):
+            self.sized(len(x), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, v in x.items():
+                self.obj(k)
+                self.obj(v)
+        elif isinstance(x, (list, tuple)):
+            self.sized(len(x), 0x90, 15, (None, 0xDC, 0xDD))
+            for v in x:
+                self.obj(v)
+        elif isinstance(x, np.ndarray):
+            self.ext(_EXT_NDARRAY, _ndarray_to_bytes(x))
+        elif isinstance(x, np.generic):
+            self.ext(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+        else:
+            raise TypeError(f"msgpack cannot encode {type(x).__name__}")
+
+    def int(self, x: int):
+        if 0 <= x <= 0x7F or -32 <= x < 0:
+            self.put("b" if x < 0 else "B", x)
+            return
+        forms = ((0xCC, "B", 0, 0xFF), (0xCD, "H", 0, 0xFFFF),
+                 (0xCE, "I", 0, 0xFFFFFFFF), (0xCF, "Q", 0, 2**64 - 1),
+                 (0xD0, "b", -2**7, 2**7 - 1), (0xD1, "h", -2**15, 2**15 - 1),
+                 (0xD2, "i", -2**31, 2**31 - 1), (0xD3, "q", -2**63, 2**63 - 1))
+        for code, fmt, lo, hi in forms:
+            if lo <= x <= hi:
+                self.put("B" + fmt, code, x)
+                return
+        raise ValueError(f"integer {x} out of msgpack's range")
+
+    def ext(self, code: int, payload: bytes):
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.put("Bb", fixed[n], code)
+        else:
+            self.sized(n, None, 0, (0xC7, 0xC8, 0xC9))
+            self.put("b", code)
+        self.parts.append(payload)
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    """flax's ndarray encoding: msgpack (shape, dtype name, C-order
+    bytes)."""
+    w = _Writer()
+    w.obj([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return b"".join(w.parts)
+
+
+def _chunk(tree):
+    """Leaves over MAX_CHUNK_SIZE bytes as flax writes them: {_CHUNKED:
+    True, "shape": {"0": ...}, "chunks": {"0": flat slice, ...}}."""
+    if isinstance(tree, dict):
+        return {k: _chunk(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
+        size = max(1, int(MAX_CHUNK_SIZE / tree.dtype.itemsize))
+        flat = tree.reshape(-1)
+        return {_CHUNKED: True,
+                "shape": {str(i): int(d) for i, d in enumerate(tree.shape)},
+                "chunks": {str(i): flat[s:s + size] for i, s in
+                           enumerate(range(0, flat.size, size))}}
+    return tree
+
+
+# from mask3d_tpu/train/checkpoint.py:39 save_checkpoint (flax's
+# serialization.msgpack_serialize)
+def msgpack_serialize(tree) -> bytes:
+    """Nested dicts with numpy array leaves -> the bytes
+    `flax.serialization.msgpack_restore` (and `msgpack_restore` here)
+    reads back."""
+    w = _Writer()
+    w.obj(_chunk(tree))
+    return b"".join(w.parts)
+
+
 def _read(path: str):
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
@@ -163,6 +283,23 @@ def _read_port(path: str, device="cpu") -> dict:
     if payload.get("format") != PORT_FORMAT:
         raise ValueError(f"{path}: not a {PORT_FORMAT} checkpoint")
     return payload
+
+
+def _write_atomic(path: str, write):
+    """`write(f)` into `path` through a temporary file, fsync and
+    `os.replace`: a save cut short leaves the previous file whole."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _write_meta(path: str, epoch: int, metadata: Optional[dict]):
+    meta = {"epoch": epoch, **(metadata or {})}
+    _write_atomic(path + ".meta.json",
+                  lambda f: f.write(json.dumps(meta).encode()))
 
 
 # from mask3d_tpu/train/checkpoint.py:39 save_checkpoint
@@ -182,19 +319,89 @@ def save_checkpoint(path: str, state, epoch: int = 0,
         "generator": (state.generator.get_state()
                       if state.generator is not None else None),
     }
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        torch.save(payload, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    meta = {"epoch": epoch, **(metadata or {})}
-    meta_tmp = path + ".meta.json.tmp"
-    with open(meta_tmp, "w") as f:
-        json.dump(meta, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(meta_tmp, path + ".meta.json")
+    _write_atomic(path, lambda f: torch.save(payload, f))
+    _write_meta(path, epoch, metadata)
+
+
+def _adam_state(state, frozen: bool):
+    """optax's ScaleByAdamState of the port's optimizer: count, and mu / nu
+    as Flax trees of the params (a frozen backbone's leaves empty, as
+    `optax.multi_transform` masks them)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    mu, nu, steps = {}, {}, set()
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            st = state.optimizer.state.get(p, {})
+            mu[names[id(p)]] = st.get("exp_avg", torch.zeros_like(p))
+            nu[names[id(p)]] = st.get("exp_avg_sq", torch.zeros_like(p))
+            steps.add(int(st["step"]) if "step" in st else 0)
+    if len(steps) > 1:
+        raise ValueError(f"parameters at different Adam steps {steps}; "
+                         f"optax keeps one count")
+    params = bridge.to_flax(state.model.state_dict())["params"]
+    trees = []
+    for moments in (mu, nu):
+        tree = bridge.to_flax(moments)["params"]
+        if frozen:
+            tree["backbone"] = {k: {} for k in params["backbone"]}
+        trees.append(tree)
+    return {"count": np.array(steps.pop() if steps else 0, np.int32),
+            "mu": trees[0], "nu": trees[1]}
+
+
+# from mask3d_tpu/train/loop.py:103 make_optimizer (the state it makes)
+def _optax_tree(state, constant_lr: bool):
+    """The flax state dict of the optax chain `make_optimizer` builds for
+    the port's optimizer: adamw {"0": adam, "1": decay, "2": schedule},
+    adam {"0": adam, "1": schedule}; the schedule's count, or nothing for a
+    constant lr; with a frozen backbone inside `multi_transform`'s
+    {"inner_states": {"train": {"inner_state": ...}, "frozen": ...}}.
+    `_optax_state` reads it back."""
+    frozen = not any(p.requires_grad
+                     for p in state.model.backbone.parameters())
+    sched = {} if constant_lr else {
+        "count": np.array(state.scheduler.last_epoch, np.int32)}
+    chain = {"0": _adam_state(state, frozen)}
+    if isinstance(state.optimizer, torch.optim.AdamW):
+        chain.update({"1": {}, "2": sched})
+    elif isinstance(state.optimizer, torch.optim.Adam):
+        chain["1"] = sched
+    else:
+        raise ValueError(f"{type(state.optimizer).__name__}: the JAX "
+                         f"package's optimizers are optax adam and adamw")
+    if frozen:
+        return {"inner_states": {"train": {"inner_state": chain},
+                                 "frozen": {"inner_state": {}}}}
+    return chain
+
+
+def save_flax_checkpoint(path: str, state, epoch: int = 0,
+                         metadata: Optional[dict] = None,
+                         constant_lr: bool = False):
+    """Write the port's Mask3D `state` (a `train.loop.TrainState`) as the
+    JAX package's `save_checkpoint` does: `flax.serialization.to_bytes` of
+    its `TrainState` (`step`, `params`, `buffers`, `opt_state` and `rng`)
+    and the `{"epoch", **metadata}` sidecar, each atomically. The JAX
+    package's `load_checkpoint` reads it against `init_state`'s state of
+    the same configuration; `constant_lr` for a `scheduler.name` the JAX
+    package runs at a constant lr (its chain then keeps no schedule
+    count). `rng` is `jax.random.PRNGKey` of the generator's seed: the
+    JAX run samples its own memories from there."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    variables = bridge.to_flax(state.model.state_dict())
+    seed = state.generator.initial_seed() if state.generator is not None \
+        else 0
+    tree = {
+        "step": np.array(state.step, np.int32),
+        "params": variables["params"],
+        "buffers": variables["buffers"],
+        "opt_state": _optax_tree(state, constant_lr),
+        "rng": np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                        np.uint32),
+    }
+    data = msgpack_serialize(tree)
+    _write_atomic(path, lambda f: f.write(data))
+    _write_meta(path, epoch, metadata)
 
 
 def _port_tree(source: dict, col: str, prefix: Tuple[str, ...] = ()

@@ -11,9 +11,11 @@ the forward of the JAX package's `SetCriterion`
 - deep supervision: one (matcher + losses) evaluation per mask-module
   output, L = 13 at the flagship.
 
-The costs of all L levels are computed on the device and copied to the host
-in one transfer; scipy solves the (level x item) problems
-(`ops/lsap.py`) and the assignment comes back in one transfer. Everything
+The costs of all L levels are computed on the device, and one call of
+`ops/lsap.py` solves every (level x item) problem: with
+`matcher.lsap_method=device` (the default) the Jonker-Volgenant kernel on
+the card, with no host round trip; with `host` scipy, one copy down and one
+up. Everything
 is masked for padding: invalid points contribute nothing, invalid (padded)
 instances get a constant matching cost and are dropped from the losses. The
 losses are plain tensor code, so autograd can differentiate them.
@@ -77,6 +79,7 @@ class SetCriterion:
         eos_coef: float = 0.1,
         class_weights: Optional[Sequence[float]] = None,
         ignore_mask_idx: Sequence[int] = (),
+        lsap_method: str = "device",
     ):
         self.num_classes = num_classes
         self.cost_class = cost_class
@@ -84,6 +87,7 @@ class SetCriterion:
         self.cost_dice = cost_dice
         self.eos_coef = eos_coef
         self.ignore_mask_idx = tuple(ignore_mask_idx)
+        self.lsap_method = lsap_method
         w = np.ones(num_classes + 1, np.float32)
         w[-1] = eos_coef
         if class_weights is not None and class_weights != -1:
@@ -117,10 +121,9 @@ class SetCriterion:
     def match(self, costs, targets: Targets):
         """All levels at once: costs f32[L, B, Q, I] -> (col4row i64[L, B,
         Q], matched bool[L, B, Q]): the target instance assigned to each
-        query, dropped where it points at padding. The one host round trip
-        of the criterion."""
-        col4row = torch.from_numpy(linear_sum_assignment(
-            costs.detach().cpu().numpy())).to(costs.device).long()
+        query, dropped where it points at padding. One solve for every
+        problem, on the costs' device with `lsap_method="device"`."""
+        col4row = linear_sum_assignment(costs, self.lsap_method).long()
         n_inst = targets.valid.shape[-1]
         in_range = col4row < n_inst
         safe_col = torch.where(in_range, col4row, torch.zeros_like(col4row))
@@ -239,8 +242,7 @@ class SetCriterion:
 
 # from mask3d_tpu/train/loop.py:89 make_criterion
 def make_criterion(cfg) -> SetCriterion:
-    """The criterion of `cfg.matcher` and `cfg.loss`. The port solves the
-    assignment on the host whatever `matcher.lsap_method` says."""
+    """The criterion of `cfg.matcher` and `cfg.loss`."""
     cw = cfg.loss.class_weights
     return SetCriterion(
         num_classes=cfg.general.num_targets,
@@ -250,4 +252,5 @@ def make_criterion(cfg) -> SetCriterion:
         eos_coef=cfg.loss.eos_coef,
         class_weights=None if cw == -1 else cw,
         ignore_mask_idx=cfg.general.ignore_mask_idx,
+        lsap_method=cfg.matcher.lsap_method,
     )

@@ -7,7 +7,7 @@ exports), `last-epoch.ckpt` and `best_*.ckpt`, auto-resume, the metric
 logger, and `test`.
 
 The data-parallel mesh (`trainer.num_data_parallel > 1`,
-`trainer.distributed`) is not ported yet (ROADMAP Queue 1 item 7); the
+`trainer.distributed`) is not ported yet (ROADMAP Queue 1 item 5); the
 trainer raises where a configuration asks for it. `backbone_impl=bricked`
 trains on micro-batches of one scene (`data.batch_size` equal to
 `trainer.grad_accum_steps`), evaluates at `data.test_batch_size=1` and
@@ -88,7 +88,7 @@ class InstanceSegmentationTrainer:
             raise NotImplementedError(
                 "trainer.num_data_parallel > 1 / trainer.distributed: the "
                 "data-parallel mesh (parallel/*) is not ported yet (ROADMAP "
-                "Queue 1 item 7)")
+                "Queue 1 item 5)")
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.trainer.debug_nans:

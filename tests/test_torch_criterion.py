@@ -1,5 +1,5 @@
 """The eval step's losses and the checkpoint reader against the JAX
-package: the host LSAP against JAX's device solver, `SetCriterion` on the
+package: the LSAP against JAX's device solver, `SetCriterion` on the
 same numpy arrays, and a checkpoint that JAX's `save_checkpoint` wrote
 read into the port."""
 
@@ -46,7 +46,7 @@ def test_lsap_matches_jax_device_solver(shape):
     matched to real columns (rows left over for the padding columns tie)."""
     rng = np.random.default_rng(sum(shape))
     cost = rng.normal(size=(3, 4) + shape).astype(np.float32)
-    got = linear_sum_assignment(cost)
+    got = linear_sum_assignment(torch.from_numpy(cost)).numpy()
     ref = np.asarray(j_lsap(jnp.asarray(cost), method="device"))
     assert got.shape == ref.shape == (3, 4, shape[0])
     assert got.dtype == np.int32
@@ -65,7 +65,7 @@ def test_lsap_ties_give_the_same_total():
     rng = np.random.default_rng(0)
     cost = rng.normal(size=(6, 25, 8)).astype(np.float32)
     cost[..., 5:] = 1e4  # three invalid instance columns
-    got = linear_sum_assignment(cost)
+    got = linear_sum_assignment(torch.from_numpy(cost)).numpy()
     ref = np.asarray(j_lsap(jnp.asarray(cost), method="device"))
     np.testing.assert_allclose(_total(cost, got), _total(cost, ref),
                                rtol=1e-6)

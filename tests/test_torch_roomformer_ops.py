@@ -148,7 +148,7 @@ def test_cyclic_min_l1_matches_jax(rng):
 def test_criterion_losses_match_jax(raster):
     """Random outputs (3 decoder layers, room classes) and targets with
     padding polygons: every loss, aux layers and the room-class loss
-    included. Random costs have no ties, so both LSAPs agree."""
+    included, both criteria matching with their default device LSAP."""
     rng = np.random.default_rng(3)
     nl, b, p, qp, ncls = 3, 2, 4, 5, 3
     logits = rng.normal(size=(nl, b, p, qp)).astype(np.float32)
@@ -157,8 +157,8 @@ def test_criterion_losses_match_jax(raster):
     tg = floorplan_targets(rng, b, p, qp, n_valid=[3, 1])
     room_labels = rng.integers(0, ncls - 1, (b, p)).astype(np.int32)
     kw = dict(raster_res=16, use_raster=raster)
-    # JAX solves the same LSAP on the host (scipy): no ties, same optimum
-    want = jax.jit(j_crit.RoomFormerCriterion(**kw, lsap_method="host"))(
+    # both criteria at their default, the device LSAP
+    want = jax.jit(j_crit.RoomFormerCriterion(**kw))(
         JOutput(jnp.asarray(logits), jnp.asarray(coords), jnp.asarray(room)),
         {k: jnp.asarray(v) for k, v in tg.items()},
         {"labels": jnp.asarray(room_labels)})

@@ -8,10 +8,13 @@ numpy uniforms on both sides.
 
 Two settings make the comparison one of the model and not of its inputs'
 conditioning:
-- both sides solve the assignment with scipy (JAX's `lsap_method="host"`,
-  its own parity oracle): at init many queries tie, and the device
-  Jonker-Volgenant solver breaks ties otherwise, which leaves the loss
-  (measured 1.7e-6 apart) but not the gradients alone;
+- both sides solve the assignment with scipy (`matcher.lsap_method=host`
+  in both packages, JAX's parity oracle): at init many queries tie, and
+  which of two tied queries wins rests on the last bits of the costs,
+  which the two frameworks round differently, so even the same solver on
+  both sides could match them otherwise, which leaves the loss (measured
+  1.7e-6 apart) but not the gradients alone; scipy on the host is what
+  these tests were measured with;
 - the port's CPU convolutions run PyTorch's own kernels
   (`torch.backends.mkldnn.flags(enabled=False)`): oneDNN's float32 conv
   backward put gradient leaves up to 6% from a float64 run of the port at
@@ -42,7 +45,8 @@ from tests.test_e2e import small_config
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
 
 OVERRIDES = ["model.attention_pallas_tile=16",
-             "trainer.train_split_metrics=false"]
+             "trainer.train_split_metrics=false",
+             "matcher.lsap_method=host"]
 LOSS_RTOL = 1e-4
 # ||g_port - g_jax|| / ||g_jax|| per leaf (leaves whose true gradient is 0,
 # the K biases of the attention, against 1e-4 of the largest leaf norm):
@@ -59,8 +63,9 @@ def train_scenes(make):
 
 
 def host_lsap(monkeypatch):
-    """JAX's criterion matched by scipy (its `host` method; the costs are
-    constants of the assignment, as the criterion treats them)."""
+    """JAX's criterion matched by scipy (its `host` method, which
+    OVERRIDES also sets for the port; the costs are constants of the
+    assignment, as the criterion treats them)."""
     monkeypatch.setattr(
         j_criterion_mod, "linear_sum_assignment",
         lambda cost, method="device": j_lsap(jax.lax.stop_gradient(cost),
