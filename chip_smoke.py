@@ -191,6 +191,27 @@ beside this script. Phases:
    bytes; 4 operations a column at each search step the plain JV took).
    The criteria of phases 8-11 match with this kernel (`lsap_method`'s
    default), one launch a criterion call, counted with the others.
+14. `preprocess`, the data-preparation path into `cli test` (host numpy
+   but (e)): (a) 6 raw Structured3D-layout scenes (PREP_SCENES: 4 test,
+   one train, one validation) of 3x2 rooms with 200 mm walls and a door,
+   one PREP_PANO depth panorama a room ray-cast against the room's box,
+   written by the port's PNG writer with every row filter in turn; the C++
+   unfilter and the numpy reference read one scene's panoramas equal to
+   each other and to what was written, and a copy with one row's filter
+   type changed (PREP_FAULT_ROW) must fail that gate; (b) `stru3d.main` in
+   a spawn pool of PREP_WORKERS: every scene in `run_valid_scenes.txt`,
+   and in two scenes every point inside room r's polygon carries room id
+   r and r's type; seconds and points a scene, the unproject / label /
+   unique split; (c) `downsample.main` at each of PREP_VOXEL_SIZES:
+   voxels and seconds, `native.downsample_native` equal to numpy's
+   quantize + unique (vox and keep) on a full scene, the written
+   `point_cloud_rasterized_{vs}.ply` equal to the records; (d)
+   `analyze.main` and `kfold_splits`, their keys; (e) `cli test` on the
+   card at each voxel size (`Config()` defaults, fp32 dense, seeded random
+   weights, one batch of the 4 test scenes, `run_test_entry`'s hooks): 12
+   attention, 13 row-gather and 1 LSAP launches, finite outputs, the
+   metric keys; voxels a scene, bucket, seconds a batch by layer, points/s
+   and peak GiB.
 
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
@@ -334,6 +355,17 @@ RF_FORWARD_REPS = 10
 RF_OVERFIT_STEPS = 20
 RF_SCENES = {"train": (0, 8), "validation": (3000, 2), "test": (3250, 8)}
 RF_EPOCHS = 2
+# the preprocess phase: raw Structured3D-layout scenes of 3x2 rooms of 4.8 x
+# 3.8 m with 200 mm walls and a door (`synthetic.panorama_rooms`), one
+# 1024x512 uint16 depth panorama a room, rendered, labelled, downsampled
+# at experiment 1's voxel sizes and read by `cli test` at each: 4 test
+# scenes (one batch) and one train and one validation scene, converted in
+# a spawn pool of PREP_WORKERS; the row of the planted filter-byte fault
+PREP_SCENES = {"train": (0, 1), "validation": (3000, 1), "test": (3250, 4)}
+PREP_PANO = (512, 1024)
+PREP_VOXEL_SIZES = (100, 150, 200)
+PREP_WORKERS = 6
+PREP_FAULT_ROW = 7
 
 
 LOG_FILE = None  # set by open_log
@@ -1255,20 +1287,16 @@ def run_large_scene(torch, F, np, mt, counters, by_key, sparse, kernels):
     return res
 
 
-def run_test_entry(torch, np, mt, counters, card):
-    """`python -m mask3d_tpu_torch.cli test` in process, at the flagship's
-    full width (`Config()` defaults, fp32 dense, random weights from the
-    seed) on a written dataset; returns the kernels' launches in it."""
-    import tempfile
-
+def cli_test_recorded(torch, counters, args):
+    """`cli.main(["test", *args])` in process, every count set to 0 just
+    before it and read just after, with recording hooks: the trainer, its
+    first eval batch, model, cfg and outputs, the metrics, and each
+    collation's seconds. Returns dict(rc, secs, launches, peak, seen,
+    collate_s)."""
     from mask3d_tpu_torch import cli
     from mask3d_tpu_torch.data import collate as collate_mod
     from mask3d_tpu_torch.train import trainer as trainer_mod
-    from mask3d_tpu_torch.utils import meter
 
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "mask3d_tpu_torch", "_build")
-    os.makedirs(build, exist_ok=True)
     seen = {}
     collate_s = []
     cls = trainer_mod.InstanceSegmentationTrainer
@@ -1298,33 +1326,91 @@ def run_test_entry(torch, np, mt, counters, card):
         collate_s.append(time.perf_counter() - t)
         return out
 
+    trainer_mod.make_eval_step = recording_make
+    cls.test = recording_test
+    collate_mod.VoxelizeCollate.__call__ = timed_collate
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        rc = cli.main(["test", *args])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        trainer_mod.make_eval_step = real["make"]
+        cls.test = real["test"]
+        collate_mod.VoxelizeCollate.__call__ = real["collate"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return dict(rc=rc, secs=secs, launches=launches, peak=peak, seen=seen,
+                collate_s=collate_s)
+
+
+def entry_batch_seconds(torch, mt, run, collate_note):
+    """Seconds a batch of a `cli_test_recorded` run: collation, forward +
+    criterion, post-process and evaluator (means over its batches), and
+    the forward alone (`infer(aux_masks=True)` on its first batch, once)
+    and the criterion alone (median of 3) beside them. Returns
+    (seconds by segment, the forward's output, meter statistics)."""
+    from mask3d_tpu_torch.utils import meter
+
+    seen = run["seen"]
+    batch, cfg = seen["batch"], seen["cfg"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, _ = mt.infer(seen["model"], batch, cfg, aux_masks=True,
+                      device="cuda")
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t
+    targets = batch.target.with_label_offset(cfg.data.prediction_label_offset)
+    point_valid = torch.arange(batch.capacity, device="cuda")[None] \
+        < batch.counts[:, None]
+    criterion_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            seen["trainer"].criterion(out, targets, point_valid)
+        torch.cuda.synchronize()
+        criterion_s.append(time.perf_counter() - t)
+    stats = meter.get_statistics()
+    per_batch = {
+        f"collation ({collate_note})": statistics.mean(run["collate_s"]),
+        "forward + criterion": stats["model_forward_complete"]["mean"],
+        "forward alone (batch 1, once)": forward_s,
+        "criterion alone (batch 1, median of 3)":
+            statistics.median(criterion_s),
+        "post-process": stats["eval_postprocess"]["mean"],
+        "evaluator": stats["eval_metrics_calc"]["mean"]}
+    return per_batch, out, stats
+
+
+def run_test_entry(torch, np, mt, counters, card):
+    """`python -m mask3d_tpu_torch.cli test` in process, at the flagship's
+    full width (`Config()` defaults, fp32 dense, random weights from the
+    seed) on a written dataset; returns the kernels' launches in it."""
+    import tempfile
+
+    from mask3d_tpu_torch.data import collate as collate_mod
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         root = os.path.join(tmp, "data")
         t = time.perf_counter()
         scenes = write_entry_dataset(np, root)
         log(f"test entry: wrote {len(scenes)} scenes in "
             f"{time.perf_counter() - t:.2f} s")
-        trainer_mod.make_eval_step = recording_make
-        cls.test = recording_test
-        collate_mod.VoxelizeCollate.__call__ = timed_collate
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
-            t = time.perf_counter()
-            rc = cli.main(["test", "--device", "cuda",
-                           f"data.data_root={root}",
-                           f"data.test_batch_size={ENTRY_BATCH}",
-                           f"general.save_dir={tmp}/saved"])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-            launches = {k: fn.launches for k, fn in counters.items()}
-        finally:
-            trainer_mod.make_eval_step = real["make"]
-            cls.test = real["test"]
-            collate_mod.VoxelizeCollate.__call__ = real["collate"]
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        run = cli_test_recorded(torch, counters, [
+            "--device", "cuda", f"data.data_root={root}",
+            f"data.test_batch_size={ENTRY_BATCH}",
+            f"general.save_dir={tmp}/saved"])
+        rc, secs, launches, peak = (run[k] for k in ("rc", "secs",
+                                                     "launches", "peak"))
+        seen = run["seen"]
         assert rc == 0, rc
         metrics = seen["metrics"]
         trainer = seen["trainer"]
@@ -1342,12 +1428,7 @@ def run_test_entry(torch, np, mt, counters, card):
     log(f"test entry: cli test over {ENTRY_TEST_SCENES} scenes in "
         f"{secs:.2f} s; kernel launches {launches}; peak device memory "
         f"{peak:.2f} GiB on {card}")
-    n_levels = 3 * 4 + 1  # num_decoders x hlevels + the final output
-    losses = ["loss_ce", "loss_mask", "loss_dice"] + [
-        f"loss_{w}_mask_module_{i}" for i in range(n_levels - 1)
-        for w in ("ce", "mask", "dice")] + ["loss"]
-    want = {f"test_{k}" for k in losses + ["batch_overflow"]} | {
-        f"test_{k}" for k in ENTRY_EVAL_KEYS}
+    want = entry_metric_keys("test")
     log(f"test entry metrics: {json.dumps(metrics, sort_keys=True)}")
     assert set(metrics) == want, sorted(set(metrics) ^ want)
     finite = [k for k in metrics if "loss" in k or "mean_ap" in k]
@@ -1357,13 +1438,11 @@ def run_test_entry(torch, np, mt, counters, card):
         launches["row_gather"] == n_batches * 13 and \
         launches["lsap"] == n_batches, launches
 
-    # the entry's forward on its first batch against `infer` on that batch
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    out, _ = mt.infer(seen["model"], seen["batch"], seen["cfg"],
-                      aux_masks=True, device="cuda")
-    torch.cuda.synchronize()
-    forward_s = time.perf_counter() - t
+    # the entry's forward on its first batch against `infer` on that
+    # batch; the criterion alone on batch 1's outputs (its LSAP round trip
+    # included), beside the forward alone
+    per_batch, out, stats = entry_batch_seconds(
+        torch, mt, run, "native, 16 threads")
     same = torch.equal(out.pred_class, seen["pred_class"]) and \
         torch.equal(out.pred_masks, seen["pred_masks"])
     if same:
@@ -1376,36 +1455,23 @@ def run_test_entry(torch, np, mt, counters, card):
         log(f"test entry forward on batch 1 vs infer(aux_masks=True): not "
             f"bitwise; max|diff|/max(1,std) {errs} (tol {ENTRY_TOL})")
         assert max(errs) <= ENTRY_TOL, errs
-
-    # the criterion alone on batch 1's outputs (its LSAP round trip
-    # included), beside the forward alone
-    batch, cfg = seen["batch"], seen["cfg"]
-    targets = batch.target.with_label_offset(cfg.data.prediction_label_offset)
-    point_valid = torch.arange(batch.capacity, device="cuda")[None] \
-        < batch.counts[:, None]
-    criterion_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with torch.inference_mode():
-            trainer.criterion(out, targets, point_valid)
-        torch.cuda.synchronize()
-        criterion_s.append(time.perf_counter() - t)
-
-    stats = meter.get_statistics()
-    per_batch = {
-        "collation (native, 16 threads)": statistics.mean(collate_s),
-        "forward + criterion": stats["model_forward_complete"]["mean"],
-        "forward alone (batch 1, once)": forward_s,
-        "criterion alone (batch 1, median of 3)":
-            statistics.median(criterion_s),
-        "post-process": stats["eval_postprocess"]["mean"],
-        "evaluator": stats["eval_metrics_calc"]["mean"]}
     log("test entry seconds per batch (mean over "
         f"{n_batches} test batches; collation over all "
-        f"{len(collate_s)} calls): "
+        f"{len(run['collate_s'])} calls): "
         f"{json.dumps(per_batch)}; meter {json.dumps(stats)} on {card}")
     return launches
+
+
+def entry_metric_keys(prefix):
+    """The keys of the JAX package's `test()` (trainer.py:430-437): 3 x 13
+    losses + "loss", batch_overflow and the evaluator's keys but
+    `classes`, each under `prefix`."""
+    n_levels = 3 * 4 + 1  # num_decoders x hlevels + the final output
+    losses = ["loss_ce", "loss_mask", "loss_dice"] + [
+        f"loss_{w}_mask_module_{i}" for i in range(n_levels - 1)
+        for w in ("ce", "mask", "dice")] + ["loss"]
+    return {f"{prefix}_{k}" for k in losses + ["batch_overflow"]} | {
+        f"{prefix}_{k}" for k in ENTRY_EVAL_KEYS}
 
 
 def leaf_errors(ref, got):
@@ -2891,6 +2957,236 @@ def run_lsap(torch, np, lsap, host, card):
     return rows
 
 
+def png_gate(np, png, path, depth):
+    """A written depth PNG read by the C++ unfilter and by the numpy
+    reference: (both equal to each other and to `depth`, detail, ms of
+    each read)."""
+    try:
+        t = time.perf_counter()
+        nat = png.read_png(path)
+        t_nat = time.perf_counter() - t
+        ref = png.read_png(path, use_native=False)
+        t_ref = time.perf_counter() - t - t_nat
+    except png.PNGError as e:
+        return False, f"refused: {e}", {}
+    same = np.array_equal(nat, ref)
+    ok = same and nat.dtype == depth.dtype and np.array_equal(nat, depth)
+    return ok, (f"C++ == numpy: {same}; == written: "
+                f"{bool(np.array_equal(nat, depth))}"), dict(
+                    native_ms=t_nat * 1e3, numpy_ms=t_ref * 1e3)
+
+
+def plant_filter_fault(png, src, dst, row):
+    """`src` rewritten to `dst` with row `row`'s filter type changed (the
+    image stream recompressed, every CRC valid): a PNG that reads, to the
+    wrong pixels."""
+    import zlib
+
+    with open(src, "rb") as f:
+        data = f.read()
+    chunks = list(png._chunks(data, src))
+    ihdr = next(p for t, p in chunks if t == b"IHDR")
+    stream = bytearray(zlib.decompress(b"".join(p for t, p in chunks
+                                               if t == b"IDAT")))
+    w, depth = int.from_bytes(ihdr[:4], "big"), ihdr[8]
+    pos = row * (1 + w * depth // 8)
+    stream[pos] = (stream[pos] + 1) % 5
+    with open(dst, "wb") as f:
+        f.write(png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+                + png._chunk(b"IDAT", zlib.compress(bytes(stream)))
+                + png._chunk(b"IEND", b""))
+
+
+def run_preprocess(torch, np, mt, counters, card):
+    """Phase `preprocess`: the data-preparation path end to end, from raw
+    Structured3D-layout scenes to `cli test` on the card at each of
+    experiment 1's voxel sizes; returns its numbers."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mask3d_tpu_torch import native
+    from mask3d_tpu_torch.data import synthetic
+    from mask3d_tpu_torch.data.ply import read_ply
+    from mask3d_tpu_torch.preprocess import analyze, downsample, png, stru3d
+    from mask3d_tpu_torch.preprocess.geometry import points_in_polygon
+    from mask3d_tpu_torch.utils.kfold import kfold_splits
+
+    out = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "data")
+        # (a) raw scenes, rooms 0-300 mm larger from one to the next: one
+        # panorama a room, each row's filter in turn
+        scenes = [f"scene_{first + i:05d}"
+                  for first, n in PREP_SCENES.values() for i in range(n)]
+        rooms = {s: synthetic.panorama_rooms(3, 2, (4800 + 100 * (i % 4),
+                                                    3800 + 100 * (i % 3)))
+                 for i, s in enumerate(scenes)}
+        t = time.perf_counter()
+        depths = {s: synthetic.write_panorama_scene(root, s, rooms[s],
+                                                    PREP_PANO)
+                  for s in scenes}
+        out["write_s"] = time.perf_counter() - t
+        pano0 = os.path.join(root, scenes[-1], "2D_rendering", "0",
+                             "panorama", "full", "depth.png")
+        gates = [png_gate(np, png, os.path.join(
+            root, s, "2D_rendering", str(r), "panorama", "full",
+            "depth.png"), d) for s in scenes[-1:] for r, d in
+            enumerate(depths[s])]
+        faulty = os.path.join(tmp, "fault.png")
+        plant_filter_fault(png, pano0, faulty, PREP_FAULT_ROW)
+        fault = png_gate(np, png, faulty, depths[scenes[-1]][0])
+        out["png_read_ms"] = {k: statistics.mean(g[2].get(k, float("nan"))
+                                                 for g in gates)
+                              for k in ("native_ms", "numpy_ms")}
+        log(f"preprocess (a): wrote {len(scenes)} scenes x "
+            f"{len(depths[scenes[0]])} panoramas of {PREP_PANO[1]}x"
+            f"{PREP_PANO[0]} in {out['write_s']:.2f} s; PNG gate on "
+            f"{scenes[-1]}'s {len(gates)} panoramas: "
+            f"{[g[1] for g in gates]}, a read (mean ms, zlib included) "
+            f"{json.dumps(out['png_read_ms'])}; planted fault (row "
+            f"{PREP_FAULT_ROW}'s filter type changed): {fault[1]}")
+        assert all(g[0] for g in gates), gates
+        assert not fault[0], "the planted PNG fault passed the gate"
+        out["png_fault_caught"] = True
+
+        # (b) render: panoramas -> labelled clouds, in a spawn pool
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as report:
+            results = stru3d.main(["--data_root", root, "--num_workers",
+                                   str(PREP_WORKERS)])
+        out["render_s"] = time.perf_counter() - t
+        ok = [r for r in results if r["success"]]
+        split = {k: statistics.mean(r["timings"][k] for r in ok)
+                 for k in ("read", "unproject", "label", "unique")}
+        out["render"] = dict(
+            seconds=out["render_s"], workers=PREP_WORKERS,
+            seconds_a_scene=statistics.mean(r["seconds"] for r in ok),
+            points_a_scene=[r["points"] for r in ok],
+            split_s=split)
+        log(f"preprocess (b): stru3d.main over {len(scenes)} scenes in "
+            f"{out['render_s']:.2f} s ({PREP_WORKERS} spawn workers); "
+            f"{out['render']['seconds_a_scene']:.2f} s a scene in its "
+            f"worker; points a scene {out['render']['points_a_scene']}; "
+            f"a scene's seconds by part (mean) {json.dumps(split)}; report "
+            f"{report.getvalue().strip().splitlines()[-1]!r}")
+        assert len(ok) == len(scenes), [r.get("exception") for r in results]
+        with open(os.path.join(root, "run_valid_scenes.txt")) as f:
+            assert f.read().split() == sorted(scenes)
+        for s in scenes[-2:]:
+            v = read_ply(os.path.join(root, s, "point_cloud.ply"))
+            xy = np.stack([v["x"], v["y"]], 1).astype(np.float64)
+            for r, (x0, y0, x1, y1, sem) in enumerate(rooms[s][:-1]):
+                inside = points_in_polygon(xy, np.array(
+                    [[x0, y0], [x1, y0], [x1, y1], [x0, y1]], float))
+                assert inside.sum() > 0 and \
+                    (v["room_id"][inside] == r + 1).all() and \
+                    (v["type"][inside]
+                     == stru3d.SEMANTIC_TYPE_INT_MAP[sem]).all(), (s, r)
+
+        # (c) downsample at each voxel size
+        v = read_ply(os.path.join(root, scenes[-1], "point_cloud.ply"))
+        coords = np.stack([v["x"], v["y"], v["z"]], 1).astype(np.float64)
+        out["downsample"] = {}
+        for vs in PREP_VOXEL_SIZES:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = downsample.main(["--data_root", root, "--voxel_size",
+                                       str(vs), "--num_workers",
+                                       str(PREP_WORKERS)])
+            secs = time.perf_counter() - t
+            assert all(r["success"] for r in res), res
+            t = time.perf_counter()
+            vox, keep = native.downsample_native(coords, vs)
+            native_s = time.perf_counter() - t
+            t = time.perf_counter()
+            q = np.floor((coords - coords.min(0)) / vs).astype(np.int64)
+            u, k = np.unique(q, axis=0, return_index=True)
+            numpy_s = time.perf_counter() - t
+            _, sparse = downsample.downsample_point_cloud(
+                coords, np.asarray(v["type"]), np.asarray(v["room_id"]), vs)
+            back = read_ply(os.path.join(
+                root, scenes[-1], f"point_cloud_rasterized_{vs}.ply"))
+            same_ply = all(back[key].dtype == val.dtype
+                           and np.array_equal(back[key], val)
+                           for key, val in sparse.items())
+            out["downsample"][vs] = dict(
+                seconds=secs, voxels=[r["voxels"] for r in res],
+                grid=(q.max(0) + 1).tolist(), native_ms=native_s * 1e3,
+                numpy_ms=numpy_s * 1e3)
+            log(f"preprocess (c): {vs} mm: downsample.main in {secs:.2f} s;"
+                f" voxels a scene {out['downsample'][vs]['voxels']}; "
+                f"{scenes[-1]} grid {out['downsample'][vs]['grid']}; "
+                f"downsample_native {native_s * 1e3:.1f} ms vs numpy "
+                f"{numpy_s * 1e3:.1f} ms: vox equal "
+                f"{np.array_equal(vox, u)}, keep equal "
+                f"{np.array_equal(keep, k)}; PLY reads back equal: "
+                f"{same_ply}")
+            assert np.array_equal(vox, u) and np.array_equal(keep, k), vs
+            assert same_ply, vs
+
+        # (d) host tools
+        with contextlib.redirect_stdout(io.StringIO()):
+            agg = analyze.main(["--data_root", root])
+        folds = kfold_splits(scenes, 3, seed=0)
+        log(f"preprocess (d): analyze {json.dumps(agg)}; kfold(3) sizes "
+            f"{[(len(a), len(b)) for a, b in folds]}")
+        assert set(agg) == {"num_scenes", "rooms_min", "rooms_max",
+                            "rooms_mean", "rooms_median",
+                            "num_undefined_total", "num_other_total",
+                            "min_other_area_m2"}, agg
+        assert agg["num_scenes"] == len(scenes) and agg["rooms_min"] == 6 \
+            and agg["rooms_max"] == 6, agg
+        assert len(folds) == 3 and all(
+            sorted(a + b) == sorted(scenes) for a, b in folds), folds
+
+        # (e) cli test on the card at each voxel size, one test batch
+        n_test = PREP_SCENES["test"][1]
+        out["cli_test"] = {}
+        for vs in PREP_VOXEL_SIZES:
+            run = cli_test_recorded(torch, counters, [
+                "--device", "cuda", f"data.data_root={root}",
+                f"data.rasterization_factor={vs}",
+                f"data.valid_scenes_file_path={root}/run_valid_scenes.txt",
+                f"data.test_batch_size={n_test}",
+                f"general.save_dir={tmp}/saved_{vs}"])
+            assert run["rc"] == 0, run["rc"]
+            seen = run["seen"]
+            per_batch, fwd, _ = entry_batch_seconds(
+                torch, mt, run, "native")
+            batch = seen["batch"]
+            n_points = int(batch.counts.sum())
+            row = dict(
+                voxels_a_scene=batch.counts.tolist(),
+                bucket=int(batch.capacity), cli_s=run["secs"],
+                seconds_a_batch=per_batch, launches=run["launches"],
+                points_per_s=n_points
+                / per_batch["forward alone (batch 1, once)"],
+                peak_gib=run["peak"])
+            out["cli_test"][vs] = row
+            log(f"preprocess (e): {vs} mm: cli test in {run['secs']:.2f} s;"
+                f" voxels a scene {row['voxels_a_scene']}, bucket "
+                f"{row['bucket']}; launches {run['launches']}; seconds a "
+                f"batch {json.dumps(per_batch)}; {row['points_per_s']:.0f} "
+                f"points/s (forward alone); peak {row['peak_gib']:.2f} GiB "
+                f"on {card}")
+            metrics = seen["metrics"]
+            assert set(metrics) == entry_metric_keys("test"), sorted(
+                set(metrics) ^ entry_metric_keys("test"))
+            assert all(np.isfinite(metrics[k]) for k in metrics
+                       if "loss" in k or "mean_ap" in k), metrics
+            assert bool(torch.isfinite(seen["pred_class"]).all()) and \
+                bool(torch.isfinite(seen["pred_masks"]).all())
+            assert bool(torch.isfinite(fwd.pred_class).all())
+            assert run["launches"]["masked_attention"] == 12 and \
+                run["launches"]["row_gather"] == 13 and \
+                run["launches"]["lsap"] == 1, run["launches"]
+    return out
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -3596,6 +3892,10 @@ def main():
                                                 card))
     if not lsap_rows:
         failures.append("lsap did not run or failed a check")
+    preprocess = phase("preprocess", lambda: run_preprocess(
+        torch, np, mt, counters, card))
+    if preprocess is None:
+        failures.append("preprocess did not run or failed a check")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
@@ -3716,7 +4016,8 @@ def main():
             "launches", "bricked_fp32", "bf16_gates", "bf16_faults", "steps",
             "hall", "hall_sparse_conv_backward", "hall_brick_tap_backward")}
         | {"entry": {k: v for k, v in train_large["entry"].items()}},
-        "roomformer": roomformer, "bench_input": bench_input}))
+        "roomformer": roomformer, "bench_input": bench_input,
+        "preprocess": preprocess}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

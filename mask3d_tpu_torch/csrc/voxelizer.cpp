@@ -1,8 +1,10 @@
 // Native host-side voxelizer: truncate -> shift -> sort -> unique.
 //
 // A copy of cpp/voxelizer.cpp, built by mask3d_tpu_torch/native.py with
-// g++ and bound with ctypes (plain C interface). The port binds
-// voxelize_f32; downsample_f64 and the two u8 encoders are not bound yet.
+// g++ and bound with ctypes (plain C interface). The port binds all of it:
+// voxelize_f32, downsample_f64 and the two u8 encoders; and one function
+// of its own, png_unfilter (the depth PNG reader's unfilter step,
+// mask3d_tpu_torch/preprocess/png.py), at the end of this file.
 //
 // Semantics (must match mask3d_tpu_torch/data/collate.py::voxelize_item):
 // - float -> int32 truncation toward zero (torch .int() semantics)
@@ -14,6 +16,7 @@
 #include <algorithm>
 #include <array>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 #include <cmath>
@@ -334,6 +337,57 @@ int coarse_pyramid_encode_u8(const int32_t* coords, const int32_t* counts,
       records[e * 3 + 2] = 0;
     }
     p += b * cap + esc_cap * 12 + b * 16;
+  }
+  return 0;
+}
+
+// PNG row unfiltering (PNG spec, section 9): `in` holds h rows of
+// 1 + row_bytes bytes (the filter type, then the filtered bytes); `out`
+// gets the h x row_bytes reconstructed bytes. bpp is the bytes per pixel
+// (the left neighbour's distance). Returns 0, or -(y + 1) where row y has
+// an unknown filter type. Average and Paeth depend on the byte just
+// reconstructed to their left, so each row is one sequential pass.
+int png_unfilter(const uint8_t* in, int64_t h, int64_t row_bytes, int bpp,
+                 uint8_t* out) {
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* f = in + y * (row_bytes + 1) + 1;
+    uint8_t* r = out + y * row_bytes;
+    const uint8_t* up = y > 0 ? out + (y - 1) * row_bytes : nullptr;
+    const int ftype = in[y * (row_bytes + 1)];
+    switch (ftype) {
+      case 0:
+        std::memcpy(r, f, static_cast<size_t>(row_bytes));
+        break;
+      case 1:
+        for (int64_t x = 0; x < row_bytes; ++x)
+          r[x] = static_cast<uint8_t>(f[x] + (x >= bpp ? r[x - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t x = 0; x < row_bytes; ++x)
+          r[x] = static_cast<uint8_t>(f[x] + (up ? up[x] : 0));
+        break;
+      case 3:
+        for (int64_t x = 0; x < row_bytes; ++x) {
+          const int a = x >= bpp ? r[x - bpp] : 0;
+          const int b = up ? up[x] : 0;
+          r[x] = static_cast<uint8_t>(f[x] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t x = 0; x < row_bytes; ++x) {
+          const int a = x >= bpp ? r[x - bpp] : 0;
+          const int b = up ? up[x] : 0;
+          const int c = (up && x >= bpp) ? up[x - bpp] : 0;
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          r[x] = static_cast<uint8_t>(f[x] + pred);
+        }
+        break;
+      default:
+        return static_cast<int>(-(y + 1));
+    }
   }
   return 0;
 }

@@ -147,3 +147,88 @@ def write_floorplan_scene(root: str, scene: str, rng: np.random.Generator,
     with open(os.path.join(d, "annotation_3d.json"), "w") as f:
         json.dump(floorplan_annotation(rooms), f)
     return item
+
+
+def room_box_depth(h: int, w: int, box, camera) -> np.ndarray:
+    """An equirectangular depth panorama (uint16 mm, [h, w]) of the inside
+    of an axis-aligned box (x0, y0, z0, x1, y1, z1) seen from `camera`
+    (x, y, z) inside it: each pixel's ray, in the angles
+    `preprocess.stru3d.unproject_panorama` reads (elevation 90 - row *
+    180 / h, azimuth col * 360 / w - 180), cast to the nearest face."""
+    alpha = np.deg2rad(90.0 - np.arange(h)[:, None] * (180.0 / h))
+    beta = np.deg2rad(np.arange(w)[None, :] * (360.0 / w) - 180.0)
+    d = np.stack(np.broadcast_arrays(np.cos(alpha) * np.sin(beta),
+                                     np.cos(alpha) * np.cos(beta),
+                                     np.sin(alpha)))
+    lo = np.asarray(box[:3], np.float64)[:, None, None]
+    hi = np.asarray(box[3:], np.float64)[:, None, None]
+    c = np.asarray(camera, np.float64)[:, None, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(d > 0, (hi - c) / d, np.where(d < 0, (lo - c) / d,
+                                                   np.inf))
+    return np.round(t.min(axis=0)).astype(np.uint16)
+
+
+# room types of the panorama scenes, in room order; their rooms' ceiling
+# and camera heights
+PANORAMA_ROOM_TYPES = ("living room", "kitchen", "bedroom", "bathroom",
+                       "study", "dining room")
+PANORAMA_CEILING_MM = 2800
+PANORAMA_CAMERA_Z_MM = 1400
+
+
+def panorama_rooms(num_rooms_x: int = 3, num_rooms_y: int = 2,
+                   room_mm=(4800, 3800), wall_mm: int = 200) -> list:
+    """The floor polygons of a grid of rooms with `wall_mm` walls between
+    them, as (x0, y0, x1, y1, type) for `floorplan_annotation`, and a door
+    across the wall between the first two rooms along x (or y)."""
+    rx, ry = room_mm
+    rooms = [(i * (rx + wall_mm), j * (ry + wall_mm),
+              i * (rx + wall_mm) + rx, j * (ry + wall_mm) + ry,
+              PANORAMA_ROOM_TYPES[(i * num_rooms_y + j)
+                                  % len(PANORAMA_ROOM_TYPES)])
+             for i in range(num_rooms_x) for j in range(num_rooms_y)]
+    if num_rooms_x > 1:
+        door = (rx - 100, ry // 2 - 450, rx + wall_mm + 100, ry // 2 + 450,
+                "door")
+    else:
+        door = (rx // 2 - 450, ry - 100, rx // 2 + 450, ry + wall_mm + 100,
+                "door")
+    return rooms + [door]
+
+
+def write_panorama_scene(root: str, scene: str, rooms: list,
+                         pano_hw=(512, 1024), write_png=None) -> list:
+    """One raw Structured3D scene: `annotation_3d.json` with the floor
+    polygons `rooms` (`floorplan_annotation`, millimetres) and, for each
+    room but doors and windows, `2D_rendering/<r>/panorama/full/depth.png`
+    (`room_box_depth` of the room's box, floor to PANORAMA_CEILING_MM,
+    from its centre at PANORAMA_CAMERA_Z_MM) with `camera_xyz.txt`.
+    `write_png(path, depth)` writes each panorama (default: the port's
+    `preprocess.png.write_png`, the rows' filter types 0-4 in turn).
+    Returns the depths in room order."""
+    import json
+    import os
+
+    if write_png is None:
+        from mask3d_tpu_torch.preprocess import png
+
+        def write_png(path, depth):
+            png.write_png(path, depth, np.arange(len(depth)) % 5)
+    d = os.path.join(root, scene)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "annotation_3d.json"), "w") as fh:
+        json.dump(floorplan_annotation(rooms), fh)
+    depths = []
+    for r, (x0, y0, x1, y1, sem) in enumerate(
+            q for q in rooms if q[4] not in ("door", "window")):
+        cam = ((x0 + x1) / 2, (y0 + y1) / 2, PANORAMA_CAMERA_Z_MM)
+        depth = room_box_depth(*pano_hw, (x0, y0, 0, x1, y1,
+                                          PANORAMA_CEILING_MM), cam)
+        pano = os.path.join(d, "2D_rendering", str(r), "panorama")
+        os.makedirs(os.path.join(pano, "full"), exist_ok=True)
+        write_png(os.path.join(pano, "full", "depth.png"), depth)
+        with open(os.path.join(pano, "camera_xyz.txt"), "w") as fh:
+            fh.write(f"{cam[0]} {cam[1]} {cam[2]}\n")
+        depths.append(depth)
+    return depths

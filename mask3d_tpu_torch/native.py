@@ -2,12 +2,15 @@
 with ctypes.
 
 A copy of the JAX package's loader (mask3d_tpu/native.py) for the C++
-voxelizer that collation runs on every item and the u8 key encoders of the
-bench's input path (`data/transfer.py`), with one difference: a build that
-fails raises with the compiler's output, and no wrapper returns None.
-Nothing falls back to numpy here; `data.collate.voxelize_item(
-use_native=False)` and the encoders' `use_native=False` are the numpy
-paths, run only where the caller asks for them.
+voxelizer that collation runs on every item, the u8 key encoders of the
+bench's input path (`data/transfer.py`) and the offline downsampler's
+quantize+unique, plus one function of the port's own: the depth PNG
+reader's unfilter step (`preprocess/png.py`). One difference from the JAX
+loader: a build that fails raises with the compiler's output, and no
+wrapper returns None. Nothing falls back to numpy here;
+`data.collate.voxelize_item(use_native=False)`, the encoders' and the PNG
+reader's `use_native=False` are the numpy paths, run only where the caller
+asks for them.
 
     g++ -O3 -march=native -shared -fPIC -std=c++17 csrc/voxelizer.cpp \\
         -o _build/libmask3d_host-<hash>.so
@@ -108,6 +111,13 @@ def get_lib() -> ctypes.CDLL:
                 i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
                 ctypes.c_int64, u8p]
+            lib.downsample_f64.restype = ctypes.c_int
+            lib.downsample_f64.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+                ctypes.c_double, i32p, i32p]
+            lib.png_unfilter.restype = ctypes.c_int
+            lib.png_unfilter.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, u8p]
             _lib = lib
         return _lib
 
@@ -185,4 +195,46 @@ def coarse_pyramid_encode_u8_native(coords: np.ndarray, counts: np.ndarray,
         len(caps), escape_capacity, _ptr(out, ctypes.c_uint8))
     if rc == -1:
         raise ValueError(f"escapes exceed capacity {escape_capacity}")
+    return out
+
+
+# from mask3d_tpu/native.py:167 downsample_native
+def downsample_native(coords: np.ndarray, voxel_size: float):
+    """C++ quantize+unique of `preprocess.downsample`: (vox i32[m, 3] =
+    floor((p - min) / voxel_size) of the first point of each voxel, in
+    ascending (x, y, z) order; keep i32[m] into the input rows), as
+    `np.unique(vox, axis=0, return_index=True)` gives them."""
+    lib = get_lib()
+    c = np.ascontiguousarray(coords, np.float64)
+    if c.ndim != 2 or c.shape[1] != 3:
+        raise ValueError(f"coords must be [n, 3], got {c.shape}")
+    n = len(c)
+    out_vox = np.empty((n, 3), np.int32)
+    keep = np.empty(n, np.int32)
+    m = lib.downsample_f64(
+        _ptr(c, ctypes.c_double), n, voxel_size,
+        _ptr(out_vox, ctypes.c_int32), _ptr(keep, ctypes.c_int32),
+    )
+    return out_vox[:m], keep[:m]
+
+
+def png_unfilter_native(raw: np.ndarray, h: int, row_bytes: int, bpp: int
+                        ) -> np.ndarray:
+    """C++ PNG unfilter (`preprocess.png.unfilter_numpy` is its
+    reference): raw uint8[h * (1 + row_bytes)] -> uint8[h, row_bytes];
+    raises ValueError on an unknown filter type."""
+    if h < 0 or row_bytes < 0 or not 1 <= bpp <= 8:
+        raise ValueError(f"bad PNG geometry: {h} rows of {row_bytes} bytes,"
+                         f" {bpp} bytes a pixel")
+    lib = get_lib()
+    r = np.ascontiguousarray(raw, np.uint8)
+    if r.size != h * (1 + row_bytes):
+        raise ValueError(f"raw holds {r.size} bytes, {h * (1 + row_bytes)}"
+                         " expected")
+    out = np.empty((h, row_bytes), np.uint8)
+    rc = lib.png_unfilter(_ptr(r, ctypes.c_uint8), h, row_bytes, bpp,
+                          _ptr(out, ctypes.c_uint8))
+    if rc < 0:
+        raise ValueError(f"row {-rc - 1}: unknown filter type "
+                         f"{int(r[(-rc - 1) * (1 + row_bytes)])}")
     return out

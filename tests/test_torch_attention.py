@@ -16,6 +16,8 @@ from mask3d_tpu_torch.ops.fps import furthest_point_sample
 from mask3d_tpu_torch.ops import masked_attention as ma
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention, \
     masked_cross_attention_plain, plan
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 
 def _t(a):

@@ -21,6 +21,8 @@ from mask3d_tpu_torch.models.mask3d import sample_memory_idx
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
 from mask3d_tpu_torch.sparse.row_gather import row_gather
 from mask3d_tpu_torch.sparse.sparse_conv import sparse_conv
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 # f32 sums in another order on each side
 GRAD_TOL = 1e-5

@@ -14,6 +14,8 @@ from mask3d_tpu_torch.models.backbone import BACKBONES as T_BACKBONES
 from mask3d_tpu_torch.sparse.context import build_sparse_batch as t_build
 from tests.torch_parity import BUCKET, assert_scaled_close, flax_to_numpy, \
     scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)
 # max |diff| / max(1, std) per variant. 14A holds 1e-4. 18A (two blocks a

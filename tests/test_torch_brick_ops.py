@@ -16,6 +16,8 @@ from mask3d_tpu.sparse.core import SparseLevel as JLevel
 from mask3d_tpu_torch.sparse import brick_ops as T
 from mask3d_tpu_torch.sparse import dense_ops as TD
 from mask3d_tpu_torch.sparse.core import SparseLevel as TLevel
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 GRID = (32, 16, 8)
 BRICK = (8, 8, 4)

@@ -12,9 +12,9 @@ and the same two roundings of the affine); the sums within 1e-5 of
 sum |term| (f32 summation order); whole stages within the JAX package's
 own fused-vs-unfused tolerance (`tests/test_pallas_chain.py:185-196`),
 which the port's f32 stats order can move by a quantize flip. The JAX
-package and the repo's test helpers are imported inside the functions that
-need them, so the card-marked test collects where neither flax nor this
-repo's `tests` package is importable."""
+package and the repo's test helpers that import it are imported inside the
+functions that need them, so the card-marked test collects where flax is
+not importable (`tests.torch_threads` imports no JAX)."""
 
 import numpy as np
 import pytest
@@ -22,6 +22,7 @@ import torch
 
 from mask3d_tpu_torch.sparse import chain
 from mask3d_tpu_torch.sparse.int8_conv import int8_conv, int8_conv_plain
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 SIGMA = 8.0
 STAGES = [(24, 48, 2), (48, 48, 2)]  # (cin, planes, blocks)

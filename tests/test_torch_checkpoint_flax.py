@@ -25,6 +25,8 @@ from mask3d_tpu_torch.train.loop import init_state
 from tests.test_e2e import small_config
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy, \
     scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 # the JAX optimizer chains the writer covers: adamw with a schedule (the
 # defaults), and adam at a constant lr with a frozen backbone

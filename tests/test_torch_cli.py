@@ -14,6 +14,8 @@ from mask3d_tpu_torch import cli
 from mask3d_tpu_torch.train import trainer as p_trainer
 from tests.test_e2e import MAP_TOL
 from tests.torch_parity import SMALL_OVERRIDES
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 SCENES = ["scene_00001", "scene_00002", "scene_03000", "scene_03250"]
 MAP_KEYS = ("test_mean_ap", "test_mean_ap_50", "test_mean_ap_25")

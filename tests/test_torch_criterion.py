@@ -25,6 +25,8 @@ from mask3d_tpu_torch.train import checkpoint as ckpt
 from mask3d_tpu_torch.train.criterion import SetCriterion
 from tests.torch_parity import SMALL_OVERRIDES, assert_scaled_close, \
     flax_to_numpy
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 
 def _total(cost, col4row):

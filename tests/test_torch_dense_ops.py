@@ -15,6 +15,8 @@ from mask3d_tpu.sparse.pallas_gather import monotone_gather
 from mask3d_tpu_torch.sparse import dense_ops as T
 from mask3d_tpu_torch.sparse.core import build_base_level as t_base
 from mask3d_tpu_torch.sparse.row_gather import row_gather
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 TOL = 1e-5
 GRID = (7, 6, 5)  # odd dims exercise the pads and the overhang slice

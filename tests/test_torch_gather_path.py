@@ -30,6 +30,8 @@ from tests.test_e2e import small_config
 from tests.test_torch_sparse_conv import jax_all_hit
 from tests.torch_parity import SMALL_OVERRIDES, assert_scaled_close, \
     flax_to_numpy, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)
 GP_BUCKET = 1024

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: `mask3d_tpu_torch` and
-`chip_smoke.py` import no jax, no flax, no msgpack and nothing of
-`mask3d_tpu`, every source citation names the line that defines what it
-cites, and the entry points refuse CUDA where there is none."""
+`chip_smoke.py` import no jax, no flax, no msgpack, no OpenCV or PIL (the
+card's machine has neither) and nothing of `mask3d_tpu`, every source
+citation names the line that defines what it cites, and the entry points
+refuse CUDA where there is none."""
 
 import ast
 import json
@@ -16,7 +17,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "mask3d_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mask3d_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mask3d_tpu",
+             "cv2", "PIL")
 # `# from mask3d_tpu/<file>:<line>[-<end>] <name>`
 CITE = re.compile(r"#\s*from (mask3d_tpu/[\w/]+\.py):(\d+)(?:-\d+)?"
                   r"\s+\(?(\w+)")
@@ -115,6 +117,35 @@ def test_repaired_citations(cite):
     file, line = src.split(":")
     text = (REPO / file).read_text().splitlines()[int(line) - 1]
     assert re.match(rf"def {name}\(", text), text
+
+
+@pytest.mark.parametrize("module,names", [
+    ("preprocess/geometry.py", "polygon_area points_in_polygon "
+     "points_to_polygon_distance points_match_polygon"),
+    ("preprocess/stru3d.py", "SEMANTIC_TYPE_INT_MAP LOWER_PRIORITY_TYPES "
+     "POLYGON_BUFFER_MM MIN_DEPTH_MM unproject_panorama label_points "
+     "PanoramaSceneConverter _read_depth generate export convert_scene "
+     "main"),
+    ("preprocess/downsample.py", "downsample_point_cloud downsample_scene "
+     "main"),
+    ("preprocess/matterport.py", "merge_regions preprocess_scan "
+     "load_download_mp process_scan preprocess_scan_regions "
+     "download_and_preprocess main"),
+    ("preprocess/analyze.py", "analyze_scene aggregate main"),
+    ("utils/kfold.py", "kfold_splits"),
+    ("utils/visualize.py", "plot_point_cloud plot_prediction_vs_gt "
+     "gradient_flow_stats plot_gradient_flow plot_floorplan"),
+    ("native.py", "downsample_native"),
+])
+def test_data_preparation_cites_its_sources(module, names):
+    """Each data-preparation function of the JAX package has its
+    counterpart in the port's module of the same path, cited there (the
+    citation's line is checked above)."""
+    cited = {n for where, src, _, n in _citations()
+             if where.startswith(f"mask3d_tpu_torch/{module}:")
+             and src == f"mask3d_tpu/{module}"}
+    missing = set(names.split()) - cited
+    assert not missing, missing
 
 
 def test_small_overrides_match_e2e_small_config():

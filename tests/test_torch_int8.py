@@ -13,6 +13,8 @@ from mask3d_tpu_torch.sparse import int8_ops
 from mask3d_tpu_torch.sparse import int8_conv as ic
 from mask3d_tpu_torch.sparse.int8_conv import int8_conv, int8_conv_plain, \
     pack_weights
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 
 def make_case(seed, cin=24, cout=48, k=3, b=2, dims=(12, 10, 8)):

@@ -40,6 +40,8 @@ from mask3d_tpu_torch.sparse import chain
 from mask3d_tpu_torch.sparse.context import build_sparse_batch as t_build
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy, \
     scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 NAME = "Res16UNet18A"
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)

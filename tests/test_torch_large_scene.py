@@ -36,6 +36,8 @@ from mask3d_tpu_torch.config import Config, apply_overrides
 from mask3d_tpu_torch.models.backbone import BACKBONES as T_BACKBONES
 from mask3d_tpu_torch.sparse.context import build_sparse_batch as t_build
 from tests.torch_parity import SMALL_OVERRIDES, flax_to_numpy, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)
 GP_BUCKET = 1024

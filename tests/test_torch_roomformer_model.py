@@ -11,8 +11,8 @@ import torch
 
 from mask3d_tpu.baseline import roomformer as jrf
 from mask3d_tpu_torch.baseline import roomformer as trf
-from tests.torch_roomformer import (  # noqa: F401 (autouse fixture)
-    TINY, one_torch_thread, random_flax_params)
+from tests.torch_roomformer import TINY, random_flax_params
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 FWD_TOL = 1e-4
 

@@ -22,8 +22,8 @@ from mask3d_tpu_torch.baseline import criterion2d as t_crit
 from mask3d_tpu_torch.baseline import deform_attn as t_da
 from mask3d_tpu_torch.baseline import raster as t_raster
 from mask3d_tpu_torch.baseline.roomformer import RoomFormerOutput
-from tests.torch_roomformer import (  # noqa: F401 (autouse fixture)
-    floorplan_targets, one_torch_thread)
+from tests.torch_roomformer import floorplan_targets
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 TOL = 1e-5
 

@@ -18,8 +18,9 @@ from mask3d_tpu.baseline import roomformer as jrf
 from mask3d_tpu_torch.baseline import criterion2d as t_crit
 from mask3d_tpu_torch.baseline import engine
 from mask3d_tpu_torch.baseline import roomformer as trf
-from tests.torch_roomformer import (  # noqa: F401 (autouse fixture)
-    TINY, floorplan_targets, one_torch_thread, random_flax_params)
+from tests.torch_roomformer import TINY, floorplan_targets, \
+    random_flax_params
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 LOSS_TOL = 1e-5  # relative
 GRAD_TOL = 1e-4  # times max(1, max |JAX leaf|)

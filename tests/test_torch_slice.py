@@ -24,6 +24,8 @@ from mask3d_tpu_torch.postprocess import postprocess_item
 from tests.test_e2e import MAP_TOL, small_config
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, assert_scaled_close, \
     flax_to_numpy, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 PALLAS = ["model.attention_pallas_tile=16"]
 MAP_KEYS = ("val_mean_ap", "val_mean_ap_50", "val_mean_ap_25")

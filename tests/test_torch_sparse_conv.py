@@ -4,9 +4,9 @@ its plain version against the JAX package's windowed Pallas kernel
 interpreter on the CPU), on fixtures where JAX's window premise holds; the
 eligibility rule; the wrapper's input checks and CPU dispatch; and, on a
 card, the CUDA kernel against the plain version (the JAX package and the
-repo's test helpers are imported inside the test that needs them, so the
-card-marked test collects where neither flax nor this repo's `tests`
-package is importable)."""
+repo's test helpers that import it are imported inside the test that needs
+them, so the card-marked test collects where flax is not importable;
+`tests.torch_threads` imports no JAX)."""
 
 import numpy as np
 import pytest
@@ -14,6 +14,7 @@ import torch
 
 from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.ops import sparse_conv as sparse_conv_f32
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 # bf16-rounded inputs on both sides, products exact in f32: the outputs
 # differ by the f32 summation order only

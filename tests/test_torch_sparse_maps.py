@@ -25,6 +25,8 @@ from mask3d_tpu_torch.sparse.dense_ops import downsample_level_dense as \
 from mask3d_tpu_torch.sparse.dense_ops import occupancy as t_occ
 from tests.test_e2e import small_config
 from tests.torch_parity import BUCKET, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)
 LEVEL_FIELDS = ("key", "coords", "valid", "count", "dims")

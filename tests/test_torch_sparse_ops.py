@@ -14,6 +14,8 @@ from mask3d_tpu.sparse import ops as J
 from mask3d_tpu_torch.sparse import ops as T
 from mask3d_tpu_torch.sparse.context import build_sparse_batch as t_build
 from tests.torch_parity import BUCKET, assert_scaled_close, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 TOL = 1e-5
 CAP_RATIOS = (0.5, 0.25, 0.125, 0.0625)

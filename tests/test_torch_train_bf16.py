@@ -24,9 +24,10 @@ import torch
 from mask3d_tpu_torch import bridge
 from tests.test_torch_train_step import OVERRIDES, host_lsap
 from tests.torch_parity import BUCKET, flax_to_numpy
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 from tests.torch_train_parity import BF16, IMPLS, assert_bf16_gap, \
     bf16_gap_ratios, grads_of, jax_grads, jax_runs, one_scene, \
-    one_torch_thread, port_grads, variables_of  # noqa: F401 (fixture)
+    port_grads, variables_of
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,10 @@ import pytest
 
 from tests.test_torch_train_step import LOSS_RTOL, OVERRIDES, grad_errors, \
     host_lsap
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 from tests.torch_train_parity import BF16, BRICKED, IMPLS, \
     assert_bf16_gap, bf16_gap_ratios, grads_of, jax_grads, jax_runs, \
-    one_torch_thread, port_grads, variables_of  # noqa: F401 (fixture)
+    port_grads, variables_of
 
 # per leaf ||g_port - g_jax|| / ||g_jax||: test_torch_train_step's bound,
 # and test_torch_train_parity's where JAX's jitted bricked backbone is the

@@ -29,8 +29,8 @@ from tests.test_torch_brick_ops import CAP, GRID, _conv_w, _levels, \
     _mk_coarse, _scene, _t
 from tests.test_torch_train_step import train_scenes
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
-from tests.torch_train_parity import BRICKED, one_scene, \
-    one_torch_thread  # noqa: F401 (fixture)
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
+from tests.torch_train_parity import BRICKED, one_scene
 
 
 # ---------------------------------------------------------------- brick ops

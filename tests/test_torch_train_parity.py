@@ -20,6 +20,8 @@ from tests.test_e2e import parity_config, small_config
 from tests.test_torch_train_step import LOSS_RTOL, OVERRIDES, grad_errors, \
     host_lsap, jax_step, port_step, train_scenes
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 # parity_config's stride-1 decoder stage (convtr7, stage 8, two blocks)
 # holds InstanceNorms whose gradients amplify float32 rounding at init:

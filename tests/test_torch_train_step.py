@@ -43,6 +43,8 @@ from mask3d_tpu_torch.train.criterion import make_criterion
 from mask3d_tpu_torch.train.loop import init_state, make_train_step
 from tests.test_e2e import small_config
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 OVERRIDES = ["model.attention_pallas_tile=16",
              "trainer.train_split_metrics=false",

@@ -23,6 +23,7 @@ from mask3d_tpu_torch.train.logging_utils import MetricLogger
 from mask3d_tpu_torch.train.loop import init_state, make_train_step
 from tests.test_trainer import data_root  # noqa: F401 (fixture)
 from tests.torch_parity import SMALL_OVERRIDES
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
 
 # tests/test_trainer.py::small_cfg as overrides
 TRAINER_OVERRIDES = [
@@ -35,17 +36,6 @@ TRAINER_OVERRIDES = [
     "general.export_las=false", "general.scores_threshold=0.0",
     "trainer.max_epochs=2", "trainer.log_every_n_steps=1",
 ]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread a test: the suite runs in several processes at
-    once, and the small CPU kernels of these steps slow down by tens of
-    times when every process's thread pool fights for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def small_cfg(root, save_dir, extra=()):

@@ -30,6 +30,8 @@ from mask3d_tpu_torch.sparse.dense_ops import level_from_keys
 from tests.test_e2e import small_config
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, assert_scaled_close, \
     flax_to_numpy, scene_items
+from tests.torch_parity import (  # noqa: F401 (autouse fixture)
+    one_torch_thread_a_module)
 
 
 def _voxels(seed, b, n, extent, counts=None):

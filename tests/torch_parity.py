@@ -6,6 +6,9 @@ import jax
 import numpy as np
 import torch
 
+# autouse where imported: the modules that import it from here take it
+from tests.torch_threads import one_torch_thread_a_module  # noqa: F401
+
 # tests/test_e2e.py::small_config as an override list (the port shares the
 # override grammar); test_torch_imports checks the two stay equal.
 SMALL_OVERRIDES = [

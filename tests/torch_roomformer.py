@@ -5,8 +5,6 @@ attention weights and coordinate heads are not the initializers' zeros),
 and the floorplan scenes in the Structured3D layout."""
 
 import numpy as np
-import pytest
-import torch
 
 TINY = dict(d_model=32, n_heads=4, n_levels=4, n_points=2, enc_layers=1,
             dec_layers=2, num_polys=3, num_queries=12,
@@ -57,13 +55,3 @@ def floorplan_targets(rng, b, pt, qp, n_valid):
             valid[i, j] = True
     return {"coords": coords, "labels": labels, "lengths": lengths,
             "poly_valid": valid}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One torch thread a test (autouse where imported): the tier-1 run
-    holds six processes, and oversubscribed threads slow them many-fold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)

@@ -40,18 +40,6 @@ BF16_NOISE = 2.0 ** 0.5
 FLOOR = 1e-4  # of the largest fp32 leaf norm (grad_errors' floor)
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """One intra-op thread a test (tests/test_torch_trainer.py's reason:
-    the suite runs in several processes at once, and small CPU kernels slow
-    down by tens of times when every process's pool fights for the
-    cores). Imported by the test modules that use these helpers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def one_scene(make):
     return train_scenes(make)[:1]
 
