@@ -212,6 +212,33 @@ beside this script. Phases:
    attention, 13 row-gather and 1 LSAP launches, finite outputs, the
    metric keys; voxels a scene, bucket, seconds a batch by layer, points/s
    and peak GiB.
+15. `parallel`, data and sequence parallelism (`mask3d_tpu_torch/
+   parallel/`; deterministic algorithms on): (a) one flagship train step
+   (batch 8 of phase 3's scenes, fp32 `dense`, kernels on) through the
+   port's dp step on a one-rank NCCL group against phase 9 (b)'s step with
+   no group (loss and every leaf bitwise, else within PAR_BITWISE_TOL x
+   max(1, max|leaf|) with the reason printed), the gradient all-reduce's
+   ms and bytes; the same step with the stem's weights 1 ulp up, its
+   distance printed as the rounding floor. (b) Two spawned gloo ranks
+   sharing the card (the kernels loaded as built, none rebuilt), each
+   counted (12 attention, 13 row gathers, 1 LSAP a step): dp=2 with 4
+   scenes a rank, padded to the pair's shapes: with whole levels as
+   memories against one process's 2 x 4 accumulation (the same conv
+   shapes a micro-batch), every leaf within PAR_LEAF_TOL x max(1,
+   max|leaf|), and with sampled memories against (a)'s step, within
+   PAR_STEP_TOL by `leaf_errors`; sp=2: the flagship eval forward (levels
+   0-3 as x-slabs, level 4 whole) within JAX's bounds (PAR_SP_BOUNDS) of
+   the unsharded forward, and a train step within PAR_STEP_TOL of (a)'s;
+   each rank's seconds, peak GiB and bytes by collective. Planted faults
+   that must fail their gates: the CE normaliser left local, one side of
+   the halo exchange zeroed, the decoder's gradients summed over sp. (c)
+   `InstanceSegmentationTrainer.fit()` on those ranks (8 written flagship
+   scenes at batch 4, 1 epoch, then a validation of 2 scenes): rank 1
+   opens no file for writing, both ranks' validation metrics equal, and
+   every metric equal bit for bit to a one-process trainer's on rank 0's
+   weights that forwards each rank's items at the ranks' shapes
+   (`ranks_shaped_validation`); the one-process validation at the global
+   batch's shapes printed beside it.
 
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
@@ -366,6 +393,22 @@ PREP_PANO = (512, 1024)
 PREP_VOXEL_SIZES = (100, 150, 200)
 PREP_WORKERS = 6
 PREP_FAULT_ROW = 7
+# the parallel phase: ranks on the one card; the dp step with whole levels
+# as memories against one process's 2 x 4 accumulation (the same conv shapes
+# a micro-batch), every leaf within PAR_LEAF_TOL x max(1, max |leaf|); the
+# dp and sp steps with sampled memories against the one-process batch-8
+# step, every leaf within PAR_STEP_TOL by `leaf_errors` (cuDNN's batch-4 and
+# slab convs round otherwise than its batch-8 ones, and the decoder's mask
+# thresholds amplify that: the first card run read 1.00e-2 and 1.05e-2
+# there, the planted faults ~1.0); the one-rank NCCL step against the
+# no-group step where not bitwise; JAX's sharded-forward bounds
+# (tests/test_parallel_sp.py:112-113, as (rtol, atol)); the batch of fit()
+PAR_RANKS = 2
+PAR_LEAF_TOL = 1e-4
+PAR_STEP_TOL = 5e-2
+PAR_BITWISE_TOL = 1e-6
+PAR_SP_BOUNDS = {"pred_class": (5e-2, 5e-2), "pred_masks": (5e-2, 2e-1)}
+PAR_FIT_BATCH = 4
 
 
 LOG_FILE = None  # set by open_log
@@ -952,17 +995,20 @@ def chain_tol_ratio(torch, want, got, bound, occ):
 
 
 
-def write_entry_dataset(np, root, n_train=1, n_test=ENTRY_TEST_SCENES):
+def write_entry_dataset(np, root, n_train=1, n_test=ENTRY_TEST_SCENES,
+                        n_val=1):
     """Structured3D layout (`scene_NNNNN/point_cloud_rasterized_150.ply`,
     binary PLY with float32 x, y, z, so the coordinates round-trip exactly)
     of the flagship's scenes (`profile_forward.flagship_items`): the train
-    scenes 0..., one validation scene and the test scenes 3250..."""
+    scenes 0..., the validation scenes 3000... and the test scenes
+    3250..."""
     from mask3d_tpu_torch.data.ply import write_ply
     from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 
     rng = np.random.default_rng(0)
     scenes = [f"scene_{i:05d}" for i in range(n_train)] + [
-        "scene_03000"] + [f"scene_{3250 + i:05d}" for i in range(n_test)]
+        f"scene_{3000 + i:05d}" for i in range(n_val)] + [
+        f"scene_{3250 + i:05d}" for i in range(n_test)]
     for scene in scenes:
         item = make_synthetic_scene(rng, num_rooms_x=3, num_rooms_y=2,
                                     room_size=36, height=18, jitter=0.3,
@@ -1615,12 +1661,12 @@ def check_backwards(torch, F, ma, rg, sc, ops, dense_ops, host, caps, sb_gp,
 
 
 def train_steps(torch, mt, counters, by_key, cfg, batch, n_steps=1,
-                plain=False, seed=0):
+                plain=False, seed=0, prepare=None):
     """`n_steps` train steps of a fresh flagship state (weights and
-    generator from `seed`) on `batch`, with the counts set to 0 just before
-    and read just after; returns (losses, launches, attention launches by
-    S, state, peak GiB above what was allocated before the state was made,
-    seconds a step)."""
+    generator from `seed`, then `prepare(state)` where given) on `batch`,
+    with the counts set to 0 just before and read just after; returns
+    (losses, launches, attention launches by S, state, peak GiB above what
+    was allocated before the state was made, seconds a step)."""
     import contextlib
 
     from mask3d_tpu_torch import cuda_build
@@ -1631,6 +1677,8 @@ def train_steps(torch, mt, counters, by_key, cfg, batch, n_steps=1,
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     state = init_state(cfg, seed=seed, device="cuda")
+    if prepare is not None:
+        prepare(state)
     step = make_train_step(cfg, make_criterion(cfg), "cuda")
     for fn in counters.values():
         fn.launches = 0
@@ -3187,6 +3235,576 @@ def run_preprocess(torch, np, mt, counters, card):
     return out
 
 
+def kernel_counters():
+    """(counters, by_key) of the kernel wrappers, as `main` builds them:
+    for a spawned rank of the parallel phase."""
+    from mask3d_tpu_torch.ops import lsap as lsap_mod
+    from mask3d_tpu_torch.ops import masked_attention as ma
+    from mask3d_tpu_torch.sparse import int8_conv as ic
+    from mask3d_tpu_torch.sparse import row_gather as rg
+    from mask3d_tpu_torch.sparse import sparse_conv as sc
+
+    counters = {"masked_attention": ma.masked_cross_attention,
+                "row_gather": rg.row_gather, "sparse_conv": sc.sparse_conv,
+                "int8_conv": ic.int8_conv,
+                "lsap": lsap_mod.linear_sum_assignment}
+    by_key = {"attention": (ma.masked_cross_attention.launches_by_shape,
+                            {})}
+    return counters, by_key
+
+
+def par_cfg(cfg_mod, extra=()):
+    """The flagship train configuration of phase 9 (b) (`Config()` at the
+    main path's bucket, no train-split metrics), with `extra`."""
+    return cfg_mod.apply_overrides(cfg_mod.Config(), [
+        f"data.point_bucket_multiple={BUCKET}",
+        "trainer.train_split_metrics=false", *extra])
+
+
+def par_leaf_ratio(ref, got):
+    """(worst leaf, max |got - ref| / max(1, max |ref|)) over the leaves."""
+    errs = {k: float((got[k].double() - r.double()).abs().max())
+            / max(1.0, float(r.double().abs().max())) for k, r in ref.items()}
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def par_excess(np, ref, got):
+    """JAX's sharded-forward bounds (tests/test_parallel_sp.py:112-113) on
+    the outputs: per output the max |diff| and the worst excess over
+    atol + rtol |ref| (passes at <= 0)."""
+    out = {}
+    for name, (r, g) in zip(PAR_SP_BOUNDS, zip(ref, got)):
+        rtol, atol = PAR_SP_BOUNDS[name]
+        d = np.abs(g.astype(np.float64) - r)
+        out[name] = dict(max_abs_diff=float(d.max()),
+                         excess=float((d - (atol + rtol * np.abs(r))).max()))
+    return out
+
+
+def same_value(a, b):
+    """Equal, or both NaN."""
+    return a == b or (a != a and b != b)
+
+
+class PatchAttr:
+    """Set `owner.name` to `value` for the block."""
+
+    def __init__(self, owner, name, value):
+        self.owner, self.name, self.value = owner, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.saved)
+
+
+def timed_collectives(torch, comm):
+    """A patch of `comm.flat_all_reduce` (the gradient all-reduces) that
+    records each call's fenced milliseconds in the returned list."""
+    real = comm.flat_all_reduce
+    ms = []
+
+    def flat_all_reduce(tensors, group, name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(tensors, group, name)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+
+    return PatchAttr(comm, "flat_all_reduce", flat_all_reduce), ms
+
+
+def par_rank_work(torch, np, rank, world, work_dir, data_root):
+    """The parallel phase's part (b) and (c) on one spawned gloo rank of
+    `world`, sharing the card: the dp=2 step, the sp=2 eval forward and
+    train step, each with its planted fault, and `fit()`. Returns the
+    numbers; the parent gates them."""
+    import torch.distributed as tdist
+
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch import config as cfg_mod
+    from mask3d_tpu_torch import cuda_build
+    from mask3d_tpu_torch.data.collate import VoxelizeCollate
+    from mask3d_tpu_torch.parallel import comm, dist, make_mesh, \
+        make_mesh_2d, use_mesh
+    from mask3d_tpu_torch.profile_forward import flagship_items
+    from mask3d_tpu_torch.train import loop
+    from mask3d_tpu_torch.train.criterion import SetCriterion
+
+    counters, by_key = kernel_counters()
+    refs = {}
+    for name in ("sampled", "whole"):
+        r = torch.load(os.path.join(work_dir, f"ref_{name}.pt"),
+                       weights_only=False)
+        refs[name] = (r["loss"], {k: g.cuda() for k, g in r["grads"].items()})
+    cfg = par_cfg(cfg_mod)
+    cfg_whole = par_cfg(cfg_mod, ["model.max_sample_size=true"])
+    cfg_sp = par_cfg(cfg_mod, ["model.sp_axis=sp"])
+    items = flagship_items()
+    out = {}
+
+    def step(cfg_, batch, tag, ref):
+        """One step against the reference `refs[ref]`."""
+        ref_loss, ref_grads = refs[ref]
+        comm.reset_bytes()
+        patch, ms = timed_collectives(torch, comm)
+        with patch:
+            losses, launches, by_s, state, peak, secs = train_steps(
+                torch, mt, counters, by_key, cfg_, batch)
+        grads = {k: p.grad.detach().clone()
+                 for k, p in state.model.named_parameters()}
+        del state
+        loss = losses[0]["loss"]
+        name, ratio = par_leaf_ratio(ref_grads, grads)
+        errs = leaf_errors(ref_grads, grads)
+        worst = max(errs, key=errs.get)
+        out[tag] = dict(
+            reference=ref, loss=loss,
+            loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+            worst_leaf=name, worst_ratio=ratio, worst_norm_leaf=worst,
+            worst_norm_ratio=errs[worst], launches=launches,
+            attention_by_s=by_s, seconds=secs[0], peak_gib=peak,
+            bytes=dict(comm.BYTES), all_reduce_ms=ms)
+        del grads
+        torch.cuda.empty_cache()
+
+    # (b) dp=2: this rank's 4 scenes, padded to the pair's shapes
+    mesh = make_mesh(world)
+    host = VoxelizeCollate(point_bucket_multiple=BUCKET)(
+        [items[i] for i in dist.local_batch_indices(np.arange(8))])
+    with use_mesh(mesh):
+        host, batch = dist.put_global(host, "cuda", mesh.dp_group)
+        step(cfg, batch, "dp", "sampled")
+        out["dp"]["batch"] = [batch.capacity, list(batch.grid_dims[0]),
+                              int(batch.coords.shape[0])]
+        step(cfg_whole, batch, "dp whole levels", "whole")
+        with PatchAttr(SetCriterion, "ce_denominators",
+                       lambda self, w: w.sum(dim=(1, 2)).detach()):
+            step(cfg_whole, batch, "dp fault: local CE normaliser", "whole")
+    del batch
+
+    # (b) sp=2: the flagship eval forward and a train step on all 8 scenes
+    mesh2 = make_mesh_2d(1, world)
+    full = mt.collate(items, device="cuda",
+                      point_bucket_multiple=BUCKET).device
+    ref_out = np.load(os.path.join(work_dir, "forward.npz"))
+    ref_out = (ref_out["pred_class"], ref_out["pred_masks"])
+    model = mt.build_model(cfg_sp, device="cuda", seed=0)
+
+    def forward(tag):
+        comm.reset_bytes()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with use_mesh(mesh2):
+            o, _ = mt.infer(model, full, cfg_sp, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = (o.pred_class.cpu().numpy(), o.pred_masks.cpu().numpy())
+        out[tag] = dict(
+            gates=par_excess(np, ref_out, got),
+            launches={k: fn.launches for k, fn in counters.items()},
+            seconds=secs, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            bytes=dict(comm.BYTES))
+
+    forward("sp forward (warm-up)")
+    forward("sp forward")
+    real_halo = comm.halo
+
+    def one_sided_halo(x, h, group):
+        y = real_halo(x, h, group)
+        return torch.cat([y[:, :-h], torch.zeros_like(y[:, -h:])], dim=1)
+
+    with PatchAttr(comm, "halo", one_sided_halo):
+        forward("sp fault: one side of the halo zeroed")
+    del model
+    torch.cuda.empty_cache()
+    with use_mesh(mesh2):
+        step(cfg_sp, full, "sp step", "sampled")
+        with PatchAttr(loop, "grad_groups", lambda m: (
+                [p for p in m.parameters() if p.requires_grad],) * 2):
+            step(cfg_sp, full, "sp fault: decoder gradients summed over sp",
+                 "sampled")
+    del full
+    torch.cuda.empty_cache()
+
+    # (c) fit() on the two ranks: 1 epoch at batch 4, then a validation
+    from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
+
+    save_dir = os.path.join(work_dir, "fit")
+    written = []
+
+    def audit(event, args):
+        if event == "open" and isinstance(args[0], str) and \
+                any(c in str(args[1]) for c in "wax+") and \
+                os.path.abspath(args[0]).startswith(save_dir):
+            written.append(args[0])
+
+    sys.addaudithook(audit)
+    fit_cfg = cfg_mod.apply_overrides(cfg_mod.Config(), [
+        f"data.data_root={data_root}", f"data.batch_size={PAR_FIT_BATCH}",
+        "trainer.max_epochs=1", f"trainer.num_data_parallel={world}",
+        "general.experiment_id=fit", f"general.save_dir={save_dir}"])
+    t = time.perf_counter()
+    from mask3d_tpu_torch.cli import seed_everything
+
+    seed_everything(fit_cfg.general.seed)  # the augmentations, as cli does
+    trainer = InstanceSegmentationTrainer(fit_cfg, device="cuda")
+    trainer.fit()
+    with use_mesh(trainer.mesh):
+        val = trainer.eval_epoch("validation")
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                   os.path.join(work_dir, "fit_weights.pt"))
+    tdist.barrier()
+    out["fit"] = dict(val=val, steps=trainer.state.step,
+                      seconds=time.perf_counter() - t,
+                      written=sorted({os.path.relpath(p, save_dir)
+                                      for p in written}),
+                      run_dir=trainer.run_dir)
+    out["rebuilt_kernels"] = sorted(cuda_build.build_logs)
+    return out
+
+
+def ranks_shaped_validation(torch, np, one, world, device="cuda"):
+    """`one.eval_epoch("validation")` (a trainer with no group) computed as
+    `world` dp ranks compute it: each global batch's rank slices
+    (`dist.local_batch_indices`), padded to their shared shapes as
+    `dist.pad_to_group` pads them, forwarded one slice at a time; the CE
+    normaliser is the slices' weight sums summed (a first pass records
+    them), the losses are summed over the slices and `batch_overflow` is
+    their MAX, and the evaluator sees the items in global order. On one
+    card every metric is the ranks' bit for bit: the same inputs, shapes
+    and kernels, and the collectives' sums of two operands."""
+    from mask3d_tpu_torch.parallel import dist
+
+    cfg, crit = one.cfg, one.criterion
+    ds = one.datasets["validation"]
+    bs = cfg.data.test_batch_size if cfg.data.test_batch_size > 0 \
+        else cfg.data.batch_size
+    one.model.eval()
+    one.evaluator.notify_new_epoch()
+    loss_acc, all_metrics = {}, []
+    for s in range(0, len(ds), bs):
+        idxs = np.arange(s, min(s + bs, len(ds)))
+        hosts = [one.collate([ds[int(i)] for i in dist.local_batch_indices(
+            idxs, r, world)]) for r in range(world)]
+        ds_ = [h.device for h in hosts]
+        ones = [0 if d.feats_all_ones is None else
+                (1 if d.feats_all_ones else -1) for d in ds_]
+        neg = max(-v for v in ones)  # pad_to_group's MAX of the negation
+        padded = [dist.pad_host_batch(
+            h, max(d.coords.shape[1] for d in ds_),
+            max(d.target.labels.shape[1] for d in ds_),
+            tuple(max(d.grid_dims[0][a] for d in ds_) for a in range(3)),
+            None if neg == 0 else neg < 0) for h in hosts]
+        dens = []
+
+        def record(w):
+            dens.append(w.sum(dim=(1, 2)).detach())
+            return dens[-1]
+
+        with PatchAttr(crit, "ce_denominators", record):
+            for p in padded:
+                one.eval_step(p.device.to(device))
+        assert len(dens) == world, len(dens)
+        total = dens[0]
+        for d in dens[1:]:
+            total = total + d
+        outs = []
+        with PatchAttr(crit, "ce_denominators", lambda w: total):
+            for p in padded:
+                outs.append(one.eval_step(p.device.to(device)))
+        keys = [k for k in outs[0][2] if k != "batch_overflow"]
+        vals = None
+        for _, _, losses in outs:
+            v = torch.stack([losses[k].float() for k in keys])
+            vals = v if vals is None else vals + v
+        for k, v in zip(keys, vals.cpu().numpy()):
+            loss_acc.setdefault(f"val_{k}", []).append(float(v))
+        loss_acc.setdefault("val_batch_overflow", []).append(float(max(
+            int(o[2]["batch_overflow"]) for o in outs)))
+        preds, targets = [], []
+        for h, (pred_class, pred_masks, _) in zip(hosts, outs):
+            p, t = one._postprocess_batch(h, pred_class.cpu().numpy(),
+                                          pred_masks.cpu().numpy())
+            preds += p
+            targets += t
+        all_metrics.append(one._evaluate(preds, targets, "val"))
+    out = {k: float(np.mean(v)) for k, v in loss_acc.items()}
+    for k in all_metrics[0]:
+        vals = [m[k] for m in all_metrics if np.isfinite(m[k])]
+        out[k] = float(np.mean(vals)) if vals else float("nan")
+    return out
+
+
+def _parallel_rank(rank, world, store, work_dir, data_root):
+    """A spawned rank of the parallel phase: one gloo group through a file
+    store, the rank's card the one card; writes its numbers (or its
+    traceback) to `work_dir/rank<r>.pt`."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    path = os.path.join(work_dir, f"rank{rank}.pt")
+    try:
+        torch.cuda.set_device(0)
+        from mask3d_tpu_torch.train.loop import configure_torch
+
+        configure_torch(True)
+        tdist.init_process_group("gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=world)
+        torch.save({"ok": par_rank_work(torch, np, rank, world, work_dir,
+                                        data_root)}, path)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, path)
+        raise
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
+    """Phase `parallel` (see the docstring's phase 15): (a) one flagship
+    train step through the port's dp step on a one-rank NCCL group against
+    the same step with no group; (b) two gloo ranks sharing the card: the
+    dp=2 step and the sp=2 eval forward and train step against the
+    one-process ones, three planted faults; (c) `fit()` on those ranks
+    against a one-process validation on the same weights. Every gate is
+    checked here; returns the numbers."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from mask3d_tpu_torch.parallel import comm, make_mesh, use_mesh
+    from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
+
+    res = {}
+    cfg = par_cfg(cfg_mod)
+    batch = host.device
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    work = tempfile.mkdtemp(dir=build)
+    try:
+        # the no-group step (phase 9 (b)'s, kernels on)
+        losses, launches, by_s, state, _, secs = train_steps(
+            torch, mt, counters, by_key, cfg, batch)
+        ref_loss = losses[0]["loss"]
+        ref_grads = {k: p.grad.detach().clone()
+                     for k, p in state.model.named_parameters()}
+        del state
+        # (a) the port's dp step on a one-rank NCCL group
+        torch.cuda.set_device(0)
+        tdist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+            world_size=1)
+        try:
+            comm.reset_bytes()
+            patch, ms = timed_collectives(torch, comm)
+            with patch, use_mesh(make_mesh(1)):
+                losses, launches, _, state, _, secs1 = train_steps(
+                    torch, mt, counters, by_key, cfg, batch)
+            grads = {k: p.grad.detach().clone()
+                     for k, p in state.model.named_parameters()}
+            del state
+            nbytes = dict(comm.BYTES)
+        finally:
+            tdist.destroy_process_group()
+        bitwise = losses[0]["loss"] == ref_loss and all(
+            torch.equal(grads[k], g) for k, g in ref_grads.items())
+        name, ratio = par_leaf_ratio(ref_grads, grads)
+        res["nccl_one_rank"] = dict(
+            loss=losses[0]["loss"], ref_loss=ref_loss, bitwise=bitwise,
+            worst_leaf=name, worst_ratio=ratio, launches=launches,
+            seconds=secs1[0], no_group_seconds=secs[0], all_reduce_ms=ms,
+            bytes=nbytes)
+        log(f"parallel (a) NCCL, one rank: dp step loss {losses[0]['loss']}"
+            f" vs no group {ref_loss}, bitwise {bitwise}"
+            + ("" if bitwise else
+               f" (not bitwise: worst leaf {name} at {ratio:.3g} x max(1, "
+               f"max|leaf|); NCCL's one-rank all-reduce sums in its own "
+               f"kernel)") + f"; gradient all-reduce {ms} ms for "
+            f"{nbytes.get('dp_grads', 0)} bytes a step, all bytes {nbytes}; "
+            f"step {secs1[0]:.3f} s (no group {secs[0]:.3f} s); launches "
+            f"{launches} on {card}")
+        assert bitwise or ratio <= PAR_BITWISE_TOL, (name, ratio)
+        assert launches["masked_attention"] == 12 and \
+            launches["row_gather"] == 13 and launches["lsap"] == 1, launches
+        del grads
+
+        torch.save({"loss": ref_loss,
+                    "grads": {k: g.cpu() for k, g in ref_grads.items()}},
+                   os.path.join(work, "ref_sampled.pt"))
+        # how far an equivalent step lies: the stem's weights 1 ulp up
+        *_, state, _, _ = train_steps(
+            torch, mt, counters, by_key, cfg, batch,
+            prepare=lambda st: st.model.backbone.convs[
+                "conv0p1s1"].weight.data.mul_(1 + 2 ** -23))
+        errs = leaf_errors(ref_grads, {
+            k: p.grad for k, p in state.model.named_parameters()})
+        worst = max(errs, key=errs.get)
+        res["one_ulp_floor"] = dict(leaf=worst, ratio=errs[worst])
+        log(f"parallel: the batch-8 step with the stem's weights 1 ulp up "
+            f"sits {errs[worst]:.4g} from it by leaf_errors (worst leaf "
+            f"{worst}): the rounding floor of a flagship step at init on "
+            f"{card}")
+        del state, ref_grads
+        # the dp reference with whole levels as memories: one process, 2 x
+        # 4 micro-batches, so each micro-batch's convs are a dp rank's
+        cfg_acc = par_cfg(cfg_mod, ["model.max_sample_size=true",
+                                    "trainer.grad_accum_steps=2"])
+        losses, _, _, state, _, secs2 = train_steps(
+            torch, mt, counters, by_key, cfg_acc, batch)
+        torch.save({"loss": losses[0]["loss"],
+                    "grads": {k: p.grad.cpu() for k, p in
+                              state.model.named_parameters()}},
+                   os.path.join(work, "ref_whole.pt"))
+        del state
+        model = mt.build_model(cfg, device="cuda", seed=0)
+        out, _ = mt.infer(model, batch, cfg, device="cuda")
+        np.savez(os.path.join(work, "forward.npz"),
+                 pred_class=out.pred_class.cpu().numpy(),
+                 pred_masks=out.pred_masks.cpu().numpy())
+        del model, out
+        torch.cuda.empty_cache()
+        root = os.path.join(work, "data")
+        write_entry_dataset(np, root, n_train=8, n_test=1, n_val=2)
+
+        # (b) and (c): two gloo ranks sharing the card
+        t = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _parallel_rank, args=(PAR_RANKS, os.path.join(work, "store"),
+                                  work, root),
+            nprocs=PAR_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join():
+                pass
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+        ranks = []
+        for r in range(PAR_RANKS):
+            got = torch.load(os.path.join(work, f"rank{r}.pt"),
+                             weights_only=False)
+            if "error" in got:
+                raise RuntimeError(f"rank {r}:\n{got['error']}")
+            ranks.append(got["ok"])
+        res["ranks_seconds"] = time.perf_counter() - t
+        for r, got in enumerate(ranks):
+            for tag, v in got.items():
+                if tag != "fit":
+                    log(f"parallel rank {r} {tag}: {json.dumps(v)} on {card}")
+        gates = {}
+        for r, got in enumerate(ranks):
+            dp, whole = got["dp"], got["dp whole levels"]
+            assert dp["batch"][2] == 4, dp["batch"]
+            for d in (dp, whole):
+                assert d["launches"]["masked_attention"] == 12 and \
+                    d["launches"]["row_gather"] == 13 and \
+                    d["launches"]["lsap"] == 1, d["launches"]
+                assert d["loss_rel"] <= TRAIN_LOSS_TOL, d
+            assert dp["worst_norm_ratio"] <= PAR_STEP_TOL, dp
+            assert whole["worst_ratio"] <= PAR_LEAF_TOL, whole
+            fault = got["dp fault: local CE normaliser"]
+            assert fault["worst_ratio"] > PAR_LEAF_TOL, fault
+            sp = got["sp forward"]
+            assert sp["launches"]["masked_attention"] == 12 and \
+                sp["launches"]["row_gather"] == 13, sp["launches"]
+            assert all(g["excess"] <= 0 for g in sp["gates"].values()), sp
+            fault = got["sp fault: one side of the halo zeroed"]
+            assert any(g["excess"] > 0 for g in fault["gates"].values()), \
+                fault
+            st = got["sp step"]
+            assert st["launches"]["masked_attention"] == 12 and \
+                st["launches"]["row_gather"] == 13, st["launches"]
+            assert st["loss_rel"] <= TRAIN_LOSS_TOL, st
+            assert st["worst_norm_ratio"] <= PAR_STEP_TOL, st
+            fault = got["sp fault: decoder gradients summed over sp"]
+            assert fault["worst_norm_ratio"] > PAR_STEP_TOL, fault
+            assert got["rebuilt_kernels"] == [], got["rebuilt_kernels"]
+            gates[r] = dict(
+                dp_worst_norm_ratio=dp["worst_norm_ratio"],
+                dp_whole_worst_ratio=whole["worst_ratio"],
+                dp_fault_ratio=got["dp fault: local CE normaliser"][
+                    "worst_ratio"],
+                sp_forward=sp["gates"],
+                sp_fault=got["sp fault: one side of the halo zeroed"][
+                    "gates"],
+                sp_step_worst=st["worst_norm_ratio"],
+                sp_step_fault=got["sp fault: decoder gradients summed "
+                                  "over sp"]["worst_norm_ratio"])
+        log(f"parallel (b) gates by rank: {json.dumps(gates)} (dp with "
+            f"whole levels against 2 x 4 in one process: leaves <= "
+            f"{PAR_LEAF_TOL} x max(1, max|leaf|); the sampled dp and sp "
+            f"steps against the batch-8 step: leaf_errors <= "
+            f"{PAR_STEP_TOL}; sp forward excess over JAX's bounds <= 0; "
+            f"each fault past its gate) on {card}")
+
+        # (c) fit(): rank 0 alone wrote, and the validation equals a
+        # one-process one on the same weights and scenes
+        fits = [got["fit"] for got in ranks]
+        log(f"parallel (c) fit on {PAR_RANKS} gloo ranks: "
+            f"{json.dumps(fits)} on {card}")
+        assert fits[0]["written"] and fits[1]["written"] == [], fits
+        assert all(same_value(v, fits[1]["val"][k])
+                   for k, v in fits[0]["val"].items()), fits
+        assert all(f["steps"] == 8 // PAR_FIT_BATCH for f in fits), fits
+        one_cfg = cfg_mod.apply_overrides(cfg_mod.Config(), [
+            f"data.data_root={root}", f"data.batch_size={PAR_FIT_BATCH}",
+            "general.experiment_id=one",
+            f"general.save_dir={os.path.join(work, 'one')}"])
+        one = InstanceSegmentationTrainer(one_cfg, device="cuda")
+        one.model.load_state_dict(torch.load(
+            os.path.join(work, "fit_weights.pt"), weights_only=True))
+        shaped = ranks_shaped_validation(torch, np, one, PAR_RANKS)
+        ref_val = one.eval_epoch("validation")
+        del one
+        assert set(ref_val) == set(fits[0]["val"]) == set(shaped), (
+            ref_val, shaped, fits[0])
+        unequal = {k: (v, shaped[k]) for k, v in fits[0]["val"].items()
+                   if not same_value(v, shaped[k])}
+        log(f"parallel (c) validation, {PAR_RANKS} ranks vs one process on "
+            f"rank 0's weights at the ranks' shapes: {len(shaped)} metrics, "
+            f"unequal {json.dumps(unequal)} (gate: none) on {card}")
+        assert not unequal, unequal
+        # the one-process validation at the global batch's shapes: its
+        # convs and matmuls run at batch 2, the ranks' at batch 1, and the
+        # decoder's mask thresholds amplify that rounding (card runs read
+        # 2.3e-4 on a final loss and 1.2e-2 on an auxiliary level); printed
+        rel = {k: abs(a - v) / max(1.0, abs(v)) for k, v in ref_val.items()
+               for a in (fits[0]["val"][k],) if not same_value(a, v)}
+        n_eval = sum("loss" not in k for k in ref_val)
+        worst = max(rel, key=rel.get, default=None)
+        log(f"parallel (c) validation, {PAR_RANKS} ranks vs one process at "
+            f"the global batch's shapes: {len(rel)} of {len(ref_val)} "
+            f"metrics unequal ({n_eval} of the evaluator's among them: "
+            f"{sum('loss' not in k for k in rel)}), worst {worst} at "
+            f"{rel.get(worst, 0.0):.3g} relative (printed) on {card}")
+        res["ranks"] = ranks
+        res["gates"] = gates
+        res["fit_vs_global_shapes"] = rel
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -3240,7 +3858,9 @@ def main():
             return fn()
         except Exception:
             failures.append(name)
-            log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
+            # on standard error too: its tail is what a caller keeps
+            log(f"PHASE FAILED: {name}\n{traceback.format_exc()}",
+                file=sys.stderr)
             return None
         finally:
             log(f"[phase '{name}': {time.perf_counter() - t:.1f} s]")
@@ -3896,10 +4516,14 @@ def main():
         torch, np, mt, counters, card))
     if preprocess is None:
         failures.append("preprocess did not run or failed a check")
+    parallel = phase("parallel", lambda: run_parallel(
+        torch, np, mt, cfg_mod, counters, by_key, card, host))
+    if parallel is None:
+        failures.append("parallel did not run or failed a check")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
-        log(f"FAILED phases: {failures}")
+        log(f"FAILED phases: {failures}", file=sys.stderr)
         return 1
     log(card)
     def forward_sums(rows):
@@ -4017,7 +4641,12 @@ def main():
             "hall", "hall_sparse_conv_backward", "hall_brick_tap_backward")}
         | {"entry": {k: v for k, v in train_large["entry"].items()}},
         "roomformer": roomformer, "bench_input": bench_input,
-        "preprocess": preprocess}))
+        "preprocess": preprocess,
+        "parallel": {k: parallel[k] for k in (
+            "nccl_one_rank", "one_ulp_floor", "gates", "fit_vs_global_shapes",
+            "ranks_seconds")}
+        | {"ranks": [{k: v for k, v in r.items() if k != "fit"}
+                     for r in parallel["ranks"]]}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

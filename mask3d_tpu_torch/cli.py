@@ -11,7 +11,21 @@ JAX package's `python -m mask3d_tpu.cli`:
     python -m mask3d_tpu_torch.cli --device cpu general.train_mode=false ...
 
 `--device {cuda,cpu}` (default cuda) picks where the model runs; it is
-taken out of the arguments before the overrides are read. `train` fits the
+taken out of the arguments before the overrides are read.
+
+Data parallelism, one rank a card:
+
+    python -m mask3d_tpu_torch.cli train trainer.num_data_parallel=4 ...
+
+starts 4 local ranks (`torch.multiprocessing` spawn, an NCCL group on
+localhost; the command raises on a host with fewer cards), and
+
+    torchrun --nproc-per-node 4 [--nnodes ...] -m mask3d_tpu_torch.cli \
+        train trainer.distributed=true trainer.num_data_parallel=4 ...
+
+joins torchrun's ranks (NCCL on CUDA, gloo with `--device cpu`);
+`num_data_parallel` must equal the world size. `data.batch_size` stays the
+global batch. `train` fits the
 model (resuming from the run directory's `last-epoch.ckpt`), writing
 checkpoints and `metrics.csv` under `general.save_dir`. The checkpoint of
 `test` is one the port or the JAX package wrote (`train/checkpoint.py`
@@ -23,6 +37,7 @@ run's convs and matmuls are full float32, and `trainer.deterministic`
 from __future__ import annotations
 
 import logging
+import os
 import random
 import sys
 
@@ -71,27 +86,99 @@ def main(argv=None):
         command, overrides = None, argv
 
     from mask3d_tpu_torch.config import Config, apply_overrides
-    from mask3d_tpu_torch.train.loop import configure_torch
-    from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
+
+    from mask3d_tpu_torch.parallel import dist
 
     cfg = Config()
     apply_overrides(cfg, overrides)
     if command is None:
         command = "train" if cfg.general.train_mode else "test"
     cfg.general.train_mode = command == "train"
+    n = cfg.trainer.num_data_parallel
+    if not cfg.trainer.distributed and n > 1:
+        _launch_local(command, cfg, device, n)
+        return 0
+    # from mask3d_tpu/cli.py:60-64: before anything touches the card
+    created = dist.maybe_initialize(cfg, device)
+    try:
+        if cfg.trainer.distributed and n != dist.process_count():
+            raise ValueError(
+                f"trainer.distributed=true: trainer.num_data_parallel={n} "
+                f"must equal the world size {dist.process_count()}")
+        _run(command, cfg, device)
+    finally:
+        if created:
+            import torch.distributed
+
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run(command, cfg, device):
+    from mask3d_tpu_torch.parallel import dist
+    from mask3d_tpu_torch.train.loop import configure_torch
+    from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
+
     seed_everything(cfg.general.seed)
     if device == "cuda":
         # before the trainer's first CUDA op (the cuBLAS workspace setting)
         configure_torch(cfg.trainer.deterministic)
-
     trainer = InstanceSegmentationTrainer(cfg, device=device)
     if command == "train":
         trainer.fit()
-        return 0
+        return
     metrics = trainer.test()
-    for k, v in sorted(metrics.items()):
-        print(f"{k}: {v:.4f}")
-    return 0
+    if dist.is_main_process():
+        for k, v in sorted(metrics.items()):
+            print(f"{k}: {v:.4f}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launch_local(command, cfg, device, n):
+    """`n` ranks on this host, one a card, started with spawn (a forked
+    child cannot use the parent's CUDA context); each joins an NCCL group
+    on localhost and runs the command. A rank that fails fails the
+    command."""
+    import torch
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if device != "cuda" or cards < n:
+        raise RuntimeError(
+            f"trainer.num_data_parallel={n} runs one rank a CUDA card and "
+            f"this host has {cards} card(s) (--device {device}); on the CPU "
+            f"or across hosts use torchrun with trainer.distributed=true")
+    import torch.multiprocessing as mp
+
+    mp.spawn(_local_rank, args=(command, cfg, device, n, _free_port()),
+             nprocs=n, join=True)
+
+
+def _local_rank(rank, command, cfg, device, n, port):
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"%(asctime)s rank{rank} %(levelname)s %(name)s: "
+               f"%(message)s")
+    cfg.trainer.distributed = True
+    cfg.trainer.process_id = rank
+    cfg.trainer.num_processes = n
+    cfg.trainer.coordinator_address = f"localhost:{port}"
+    os.environ["LOCAL_RANK"] = str(rank)
+    from mask3d_tpu_torch.parallel import dist
+
+    dist.maybe_initialize(cfg, device)
+    try:
+        _run(command, cfg, device)
+    finally:
+        import torch.distributed
+
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

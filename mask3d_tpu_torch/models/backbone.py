@@ -28,9 +28,13 @@ its TPU kernel and leave its outputs as they are: the port runs its one
 sparse-conv kernel for each of their values (`models/mask3d.py` checks
 them).
 
+With `sp_axis` under an active mesh that carries it (`parallel/mesh.py`),
+`dense` runs on x-slabs of its grids over the `sp` ranks (`_SlabCtx`).
+
 Returns `(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]],
-the five pyramid outputs as rows at strides [16, 8, 4, 2, 1], and the final
-level-0 grid for the pooled pyramid (None on the other impls).
+the five pyramid outputs as rows at strides [16, 8, 4, 2, 1] (whole on
+every rank under sp), and the final level-0 grid for the pooled pyramid
+(this rank's x-slab under sp; None on the other impls).
 
 Parameters are named after the JAX package's (`conv0p1s1`, `bn0`,
 `block1_0_conv1`, `block1_0_norm1`, ...): `convs[name].weight` holds the
@@ -46,6 +50,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from mask3d_tpu_torch.parallel import comm
+from mask3d_tpu_torch.parallel.mesh import sp_group, slab_plan
 from mask3d_tpu_torch.sparse import brick_ops, chain, dense_ops, ops
 from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.context import SparseBatch
@@ -228,6 +234,75 @@ class _DenseCtx:
                                      self.grid_dims[level_idx])
 
 
+# from mask3d_tpu/models/backbone.py:150 _DenseCtx (sp_axis set under an
+# active mesh that carries it)
+class _SlabCtx(_DenseCtx):
+    """`_DenseCtx` under sequence parallelism: each level that the slab
+    plan shards (`parallel.mesh.slab_plan`) lives as this rank's x-slab;
+    the others stay whole on every rank, as the JAX package's
+    `sp_min_per_shard` keeps them. Same-stride convs exchange halo planes,
+    norms sum their statistics over `sp`, the stride-2 convs stay local on
+    aligned slabs, and the step from the last sharded level to the first
+    whole one gathers the slabs (and the transposed conv back slices them).
+    `rows()` hands the decoder whole rows on every rank. Gradients follow
+    `parallel/comm.py`'s convention: the backbone's parameters get partial
+    gradients, summed over `sp` by the train step."""
+
+    def __init__(self, sb: SparseBatch, grid_dims, plan, group,
+                 compute_dtype=None):
+        super().__init__(sb, grid_dims, compute_dtype)
+        self.plan = plan
+        self.group = group
+        self.occ = [o if s is None else o[:, s.x0:s.x1]
+                    for o, s in zip(sb.occ, plan)]
+
+    def scatter(self, feats_rows, level_idx):
+        s = self.plan[level_idx]
+        if s is None:
+            return super().scatter(feats_rows, level_idx)
+        return dense_ops.scatter_rows_slab(
+            feats_rows, self.sb.levels[level_idx], self.grid_dims[level_idx],
+            s)
+
+    def conv3(self, x, conv: Conv, level_idx, bound=None):
+        s = self.plan[level_idx]
+        if s is None:
+            return super().conv3(x, conv, level_idx)
+        return dense_ops.dense_conv_same_slab(
+            x, conv.weight, self.occ[level_idx], s, compute_dtype=self.dt)
+
+    conv1x1 = conv3  # k=1: no halo
+
+    def conv_down(self, x, conv: Conv, fine_idx):
+        fine, coarse = self.plan[fine_idx], self.plan[fine_idx + 1]
+        if fine is not None and coarse is None:
+            x = comm.gather_slabs(x, fine.bounds, fine.group)
+        return super().conv_down(x, conv, fine_idx)
+
+    def conv_tr(self, x, conv: Conv, coarse_idx):
+        coarse, fine = self.plan[coarse_idx], self.plan[coarse_idx - 1]
+        if coarse is None and fine is not None:
+            whole = dense_ops.dense_conv_tr(x, conv.weight,
+                                            self.sb.occ[coarse_idx - 1],
+                                            compute_dtype=self.dt)
+            return whole[:, fine.x0:fine.x1].contiguous()
+        return super().conv_tr(x, conv, coarse_idx)
+
+    def norm(self, x, norm: Norm, level_idx):
+        s = self.plan[level_idx]
+        return dense_ops.dense_instance_norm(
+            x, self.occ[level_idx], norm.weight, norm.bias,
+            group=None if s is None else s.group)
+
+    def rows(self, x, level_idx):
+        s = self.plan[level_idx]
+        if s is None:
+            # a whole level: the decoder's gradient counted once over sp
+            return comm.to_partial(super().rows(x, level_idx), self.group)
+        return dense_ops.gather_rows_slab(x, self.sb.levels[level_idx],
+                                          self.grid_dims[level_idx], s)
+
+
 # from mask3d_tpu/models/backbone.py:324 _BrickCtx (no global_mean: the
 # port has no squeeze-excitation blocks)
 class _BrickCtx:
@@ -321,10 +396,18 @@ class Res16UNetBase(nn.Module):
                  int8_stride1: bool = False, int8_residual: bool = False,
                  int8_act_sigma: float = 0.0, pallas_chain: bool = False,
                  unit_features: bool = False, brick_dims=(16, 16, 8),
-                 brick_capacity: int = 8192):
+                 brick_capacity: int = 8192, sp_axis=None):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
+        if sp_axis is not None and (impl != "dense" or int8_stride1
+                                    or pallas_chain):
+            # from mask3d_tpu/models/backbone.py:463 sp_axis (dense impl)
+            raise NotImplementedError(
+                f"model.sp_axis shards the dense backbone's fp32/bf16 grids "
+                f"only (backbone_impl={impl!r}, int8_stride1="
+                f"{int8_stride1}, pallas_chain={pallas_chain})")
+        self.sp_axis = sp_axis
         if impl != "dense" and (int8_stride1 or pallas_chain):
             raise NotImplementedError(
                 "the int8 stack (int8_stride1, pallas_chain) runs on the "
@@ -491,7 +574,15 @@ class Res16UNetBase(nn.Module):
         if grid_dims is None and self.impl in ("dense", "bricked"):
             raise ValueError(f"backbone_impl={self.impl} needs the batch's "
                              f"static grid dims")
-        if self.impl == "dense":
+        plan = (slab_plan(grid_dims, self.sp_axis) if self.impl == "dense"
+                else None)
+        if plan is not None:
+            ctx = _SlabCtx(sb, grid_dims, plan, sp_group(self.sp_axis),
+                           self.compute_dtype)
+            x = (ctx.occ[0].to(feats.dtype)
+                 if self.unit_features and self.in_channels == 1
+                 else ctx.scatter(feats, 0))
+        elif self.impl == "dense":
             ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
                             int8_stride1=self.int8_stride1 and int8,
                             int8_act_sigma=self.int8_act_sigma,

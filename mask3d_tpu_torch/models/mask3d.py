@@ -32,6 +32,7 @@ from mask3d_tpu_torch.models.posenc import fourier_embeddings, \
     sine_embeddings
 from mask3d_tpu_torch.ops.fps import furthest_point_sample
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
+from mask3d_tpu_torch.parallel.mesh import dp_coords, slab_plan
 from mask3d_tpu_torch.sparse import dense_ops
 from mask3d_tpu_torch.sparse.context import SparseBatch
 from mask3d_tpu_torch.sparse.ops import avg_pool
@@ -171,7 +172,7 @@ class Mask3D(nn.Module):
                  sample_sizes=(200, 800, 3200, 12800, 51200),
                  max_sample_size=False, backbone_name="Res16UNet34C",
                  in_channels=1, conv1_kernel_size=5, backbone_impl="dense",
-                 remat_backbone=False, **backbone_opts):
+                 remat_backbone=False, sp_axis=None, **backbone_opts):
         """`backbone_opts`: the backbone's compute dtype and int8 options
         (`Res16UNetBase`)."""
         super().__init__()
@@ -188,9 +189,10 @@ class Mask3D(nn.Module):
         self.sample_sizes = tuple(sample_sizes)
         self.max_sample_size = max_sample_size
         self.remat_backbone = remat_backbone
+        self.sp_axis = sp_axis
         self.backbone = BACKBONES[backbone_name](
             in_channels=in_channels, conv1_kernel_size=conv1_kernel_size,
-            impl=backbone_impl, **backbone_opts)
+            impl=backbone_impl, sp_axis=sp_axis, **backbone_opts)
         planes = self.backbone.PLANES
         # channels of feature_maps[i] (strides 16, 8, 4, 2, 1)
         fm_channels = [planes[3], planes[4], planes[5], planes[6], planes[7]]
@@ -305,11 +307,19 @@ class Mask3D(nn.Module):
             # Pooled pyramid on the dense grids: mean-pool the coordinate
             # grid and the backbone grid, gather rows per level, and apply
             # the (linear) mask head per coarse row.
+            # under sp (the backbone's slab plan) bb_grid is this rank's
+            # x-slab of level 0 and the pyramid's rows come back whole
+            plan = slab_plan(grid_dims, self.sp_axis)
+            s0 = plan[0] if plan else None
+            dims0, x0, occ0 = grid_dims[0], 0, sb.occ[0]
+            if s0 is not None:
+                dims0 = (s0.x1 - s0.x0,) + tuple(grid_dims[0][1:])
+                x0, occ0 = s0.x0, occ0[:, s0.x0:s0.x1]
             coord_grid = dense_ops.cell_coord_grid(
-                grid_dims[0], b, device=feats.device) * sb.occ[0]
+                dims0, b, device=feats.device, x0=x0) * occ0
             for crow, brow in dense_ops.pooled_row_pyramid(
                     [coord_grid, bb_grid.detach()], sb.occ, sb.levels,
-                    grid_dims):
+                    grid_dims, plan=plan):
                 coords_pyr.append(crow)
                 mask_feats_pyr.append(
                     self.mask_features_head(brow.float()).detach())
@@ -384,8 +394,12 @@ class Mask3D(nn.Module):
                     if generator is None:
                         raise ValueError("a sampled memory needs a "
                                          "torch.Generator (generator=)")
-                    r = torch.rand((b, cap), generator=generator,
-                                   device=attn.device)
+                    # every dp rank draws the global batch's uniforms and
+                    # keeps its items' rows: the one-process step's draws
+                    n_dp, dp_rank, _ = dp_coords()
+                    r = torch.rand((b * n_dp, cap), generator=generator,
+                                   device=attn.device)[
+                        dp_rank * b:(dp_rank + 1) * b]
                     idx = sample_memory_idx(r, level.valid, s)
 
                     def take(x):
@@ -426,7 +440,7 @@ _SUPPORTED_VALUES = {
     "non_parametric_queries": (True,), "random_queries": (False,),
     "random_query_both": (False,), "use_np_features": (False,),
     "use_level_embed": (False,), "backbone_impl": IMPLS,
-    "compute_dtype": (None, "bfloat16"), "sp_axis": (None,),
+    "compute_dtype": (None, "bfloat16"),
     "pre_norm": (False,), "shared_decoder": (True,),
     "fold_small_stages": (False,),
     # schedules of the JAX package's TPU sparse-conv kernel, which leave its
@@ -446,7 +460,9 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     raises there, as the JAX package's train step does. Every backbone impl
     trains in fp32 and in bf16; `bricked` runs one scene a forward, so its
     train step takes micro-batches of one scene (`data.batch_size` equal to
-    `trainer.grad_accum_steps`)."""
+    `trainer.grad_accum_steps`). `model.sp_axis` shards the `dense`
+    backbone's grids over that axis of the active mesh (`parallel/mesh.py`;
+    a no-op without one); other impls and the int8 knobs raise with it."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
@@ -473,7 +489,7 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
         int8_stride1=m.int8_stride1, int8_residual=m.int8_residual,
         int8_act_sigma=m.int8_act_sigma, pallas_chain=m.pallas_chain,
         unit_features=m.unit_features, brick_dims=tuple(m.brick_dims),
-        brick_capacity=m.brick_capacity,
+        brick_capacity=m.brick_capacity, sp_axis=m.sp_axis,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

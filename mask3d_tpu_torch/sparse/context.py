@@ -153,3 +153,25 @@ def build_sparse_batch(coords, count, dims, level_capacities: Sequence[int],
                        pools=tuple(pools), nbr_idx=tuple(nbr_idx),
                        nbr_ok=tuple(nbr_ok), nbr0_idx=nbr0_idx,
                        nbr0_ok=nbr0_ok)
+
+
+def slab_row_ranges(level, x0: int, x1: int):
+    """(lo, hi) i64[B, 1]: the rows of each item whose cell lies in the
+    x-slab [x0, x1). Rows are sorted by their x-major key with padding at
+    the end, so they are one contiguous range, found by `searchsorted` on
+    the rows' x (padding reads as past every slab)."""
+    x = torch.where(level.valid, level.coords[..., 0],
+                    torch.iinfo(torch.int32).max).contiguous()
+    b = x.shape[0]
+    bounds = torch.tensor([[x0, x1]], dtype=x.dtype,
+                          device=x.device).expand(b, 2).contiguous()
+    r = torch.searchsorted(x, bounds)
+    return r[:, :1], r[:, 1:]
+
+
+def slab_rows(level, x0: int, x1: int):
+    """bool[B, N]: the valid rows of each item inside the x-slab [x0, x1)
+    (`slab_row_ranges`)."""
+    lo, hi = slab_row_ranges(level, x0, x1)
+    rows = torch.arange(level.capacity, device=lo.device)[None]
+    return (rows >= lo) & (rows < hi) & level.valid

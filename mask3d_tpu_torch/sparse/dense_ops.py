@@ -7,6 +7,13 @@ output is re-masked by the occupancy grid, so empty cells stay exactly 0 and
 only occupied voxels carry values (submanifold semantics). Rows come back at
 the tap points through the row-gather kernel (`row_gather.py`).
 
+Under sequence parallelism (`parallel/mesh.py`) a sharded level's grid is
+this rank's x-slab `[B, x1 - x0, Gy, Gz, C]` (`parallel.mesh.Slab`): the
+`*_slab` forms below scatter and gather only the slab's rows, the same-
+stride conv reads its neighbours' halo planes, and the norm sums its
+statistics over the ranks (`group=`). The stride-2 convs and pools need no
+exchange: the slab plan aligns every slab with the one below it.
+
 Weight layouts are PyTorch's: `[Cout, Cin, k, k, k]` for convolutions and
 `[Cin, Cout, 2, 2, 2]` for transposed ones (`bridge.py` converts the JAX
 package's `[K, Cin, Cout]` cube ravels). With `compute_dtype` (bf16) a conv
@@ -21,6 +28,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from mask3d_tpu_torch.parallel import comm
 from mask3d_tpu_torch.sparse.core import INT32_MAX, PoolMap, SparseLevel, \
     pack_keys, unpack_keys
 from mask3d_tpu_torch.sparse.row_gather import row_gather
@@ -47,15 +55,53 @@ def static_keys(level: SparseLevel, grid_dims: Sequence[int]):
 # from mask3d_tpu/sparse/dense_ops.py:44 scatter_rows
 def scatter_rows(feats, level: SparseLevel, grid_dims: Sequence[int]):
     """[B, N, C] rows -> [B, Gx, Gy, Gz, C] dense grid (zeros elsewhere)."""
-    b, _, c = feats.shape
     gx, gy, gz = grid_dims
     cells = gx * gy * gz
     key = static_keys(level, grid_dims).long()
-    key = torch.where(level.valid & (key < cells), key, cells)
+    return _scatter(feats, key, level.valid & (key < cells), (gx, gy, gz))
+
+
+def _scatter(feats, key, write, dims):
+    """Rows where `write` into a zero grid of `dims` at their cell `key`."""
+    b, _, c = feats.shape
+    cells = dims[0] * dims[1] * dims[2]
+    key = torch.where(write, key, cells)
     b_idx = torch.arange(b, device=feats.device)[:, None].expand_as(key)
     flat = feats.new_zeros((b, cells + 1, c))
     flat[b_idx, key] = feats
-    return flat[:, :cells].reshape(b, gx, gy, gz, c)
+    return flat[:, :cells].reshape(b, *dims, c)
+
+
+def _slab_keys(level: SparseLevel, grid_dims, slab):
+    """(cell of each row in the slab's grid, bool rows inside the slab)."""
+    from mask3d_tpu_torch.sparse.context import slab_rows
+
+    gy, gz = grid_dims[1], grid_dims[2]
+    key = static_keys(level, grid_dims).long() - slab.x0 * gy * gz
+    return key, slab_rows(level, slab.x0, slab.x1)
+
+
+def scatter_rows_slab(feats, level: SparseLevel, grid_dims, slab):
+    """[B, N, C] rows -> this rank's x-slab [B, x1 - x0, Gy, Gz, C] of the
+    grid: only the rows inside the slab are written."""
+    key, inside = _slab_keys(level, grid_dims, slab)
+    return _scatter(feats, key, inside,
+                    (slab.x1 - slab.x0, grid_dims[1], grid_dims[2]))
+
+
+def gather_rows_slab(dense, level: SparseLevel, grid_dims, slab):
+    """This rank's x-slab -> the level's whole [B, N, C] rows on every rank:
+    the row-gather kernel takes the slab's rows (zeros elsewhere) and one
+    all-reduce sums the ranks' rows (`comm.rows_from_slabs`: the rows feed
+    the replicated decoder, whose gradient each rank keeps for its
+    rows)."""
+    b, c = dense.shape[0], dense.shape[-1]
+    cells = dense.shape[1] * dense.shape[2] * dense.shape[3]
+    key, inside = _slab_keys(level, grid_dims, slab)
+    key = key.clamp(0, cells - 1).to(torch.int32)
+    rows = row_gather(dense.reshape(b, cells, c), key.contiguous(),
+                      inside.contiguous())
+    return comm.rows_from_slabs(rows, slab.group)
 
 
 # from mask3d_tpu/sparse/dense_ops.py:79 gather_rows (always the kernel)
@@ -98,6 +144,19 @@ def dense_conv_same(x, weight, occ, compute_dtype=None):
     return _mask(out, occ)
 
 
+def dense_conv_same_slab(x, weight, occ, slab, compute_dtype=None):
+    """`dense_conv_same` on this rank's x-slab: the k // 2 planes on either
+    side come from the neighbouring ranks' slabs (`comm.halo`, zeros at the
+    grid's outer faces), so the slab's output equals the whole grid's
+    there."""
+    x, weight = _cast(x, weight, compute_dtype)
+    p = weight.shape[-1] // 2
+    if p:
+        x = comm.halo(x, p, slab.group)
+    out = _bxyzc(F.conv3d(_ncdhw(x), weight, padding=(0, p, p)))
+    return _mask(out, occ)
+
+
 def _pad_odd(x, value=0.0):
     """Right-pad odd spatial dims of [B, X, Y, Z, C] by one cell."""
     pads = (0, 0, 0, x.shape[3] % 2, 0, x.shape[2] % 2, 0, x.shape[1] % 2)
@@ -125,18 +184,27 @@ def dense_conv_tr(x, weight, occ_fine, compute_dtype=None):
 
 
 # from mask3d_tpu/sparse/dense_ops.py:465 dense_instance_norm
-def dense_instance_norm(x, occ, gamma, beta, eps=1e-5):
+def dense_instance_norm(x, occ, gamma, beta, eps=1e-5, group=None):
     """Per-item per-channel norm over occupied cells (ME InstanceNorm).
 
     Unoccupied cells of `x` must be exactly 0. Stats: mean and
     var = max(E[x^2] - mean^2, 0) over occupied cells; output
     x*k + occ*t with k = gamma/sqrt(var+eps), t = beta - mean*k, so empty
-    cells stay 0."""
+    cells stay 0. With `group` (an x-slab of a sharded level) the count
+    and sums are summed over the group's ranks, with their gradient, in
+    one all-reduce."""
     dims = (1, 2, 3)
     x32 = x.float()
-    cnt = occ.float().sum(dim=dims, keepdim=True).clamp_min(1.0)
-    mean = x32.sum(dim=dims, keepdim=True) / cnt
-    sq = (x32 * x32).sum(dim=dims, keepdim=True) / cnt
+    cnt = occ.float().sum(dim=dims, keepdim=True)
+    s1 = x32.sum(dim=dims, keepdim=True)
+    s2 = (x32 * x32).sum(dim=dims, keepdim=True)
+    if group is not None:
+        c = x.shape[-1]
+        s = comm.sum_over(torch.cat([cnt, s1, s2], dim=-1), group)
+        cnt, s1, s2 = s[..., :1], s[..., 1:1 + c], s[..., 1 + c:]
+    cnt = cnt.clamp_min(1.0)
+    mean = s1 / cnt
+    sq = s2 / cnt
     var = (sq - mean * mean).clamp_min(0.0)
     rs = torch.rsqrt(var + eps)
     k = (rs * gamma).to(x.dtype)
@@ -166,29 +234,47 @@ def sumpool2(x):
 
 
 # from mask3d_tpu/sparse/dense_ops.py:523 cell_coord_grid
-def cell_coord_grid(grid_dims, batch: int, device="cpu"):
+def cell_coord_grid(grid_dims, batch: int, device="cpu", x0: int = 0):
     """f32[B, Gx, Gy, Gz, 3] grid whose value at each cell is its own
-    (x, y, z) cell index."""
+    (x, y, z) cell index; `x0` offsets x (an x-slab starting there)."""
     axes = [torch.arange(g, dtype=torch.float32, device=device)
             for g in grid_dims]
+    axes[0] = axes[0] + x0
     g = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     return g[None].expand((batch,) + g.shape)
 
 
 # from mask3d_tpu/sparse/dense_ops.py:534 pooled_row_pyramid
-def pooled_row_pyramid(grids, occ, levels, grid_dims):
+def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None):
     """Mean-pooled feature pyramid computed on dense grids: at each coarser
     level an occupied cell's value is the occupancy-weighted mean of its
     occupied children. Yields, per coarser level, the rows of every input
-    grid gathered at that level's rows."""
+    grid gathered at that level's rows. With a slab `plan`
+    (`parallel.mesh.slab_plan`) the grids are level 0's x-slabs: sharded
+    levels pool on their slabs (the plan aligns them), the first whole
+    level pools the gathered grid of the last sharded one, and every
+    level's rows come back whole. No gradient flows through the sharded
+    form."""
+    plan = plan or [None] * len(levels)
+
+    def cut(o, s):
+        return o if s is None else o[:, s.x0:s.x1]
+
     gs = list(grids)
-    occ_f = occ[0].float()
+    occ_f = cut(occ[0], plan[0]).float()
     out = []
     for li in range(1, len(levels)):
+        s, fine = plan[li], plan[li - 1]
+        if s is None and fine is not None:
+            gs = [comm.gather_x(g, fine.bounds, fine.group, name="pyramid")
+                  for g in gs]
+            occ_f = occ[li - 1].float()
         n = sumpool2(occ_f).clamp_min(1.0)
         gs = [(sumpool2(g.float()) / n).to(g.dtype) for g in gs]
-        occ_f = occ[li].float()
-        out.append([gather_rows(g, levels[li], grid_dims[li]) for g in gs])
+        occ_f = cut(occ[li], s).float()
+        out.append([gather_rows(g, levels[li], grid_dims[li]) if s is None
+                    else gather_rows_slab(g, levels[li], grid_dims[li], s)
+                    for g in gs])
     return out
 
 

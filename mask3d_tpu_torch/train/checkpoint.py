@@ -610,27 +610,34 @@ class CheckpointManager:
     resumes from `last-epoch.ckpt`."""
 
     def __init__(self, directory: str,
-                 best_metrics=("val_mean_ap_50", "val_mean_ap")):
+                 best_metrics=("val_mean_ap_50", "val_mean_ap"),
+                 write: bool = True):
+        """`write=False` (a rank other than 0 under data parallelism) keeps
+        the best values and writes nothing; every rank reads a resume."""
         self.directory = directory
         self.best_metrics = best_metrics
         self.best_values = {m: -np.inf for m in best_metrics}
-        os.makedirs(directory, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(directory, exist_ok=True)
 
     @property
     def last_path(self) -> str:
         return os.path.join(self.directory, "last-epoch.ckpt")
 
     def save_last(self, state, epoch: int, metrics: Optional[dict] = None):
-        save_checkpoint(self.last_path, state, epoch, metrics)
+        if self.write:
+            save_checkpoint(self.last_path, state, epoch, metrics)
 
     def maybe_save_best(self, state, epoch: int, metrics: dict):
         for m in self.best_metrics:
             v = metrics.get(m)
             if v is not None and np.isfinite(v) and v > self.best_values[m]:
                 self.best_values[m] = float(v)
-                path = os.path.join(self.directory, f"best_{m}.ckpt")
-                save_checkpoint(path, state, epoch, {m: float(v)})
-                logger.info(f"new best {m}={v:.4f} at epoch {epoch}")
+                if self.write:
+                    path = os.path.join(self.directory, f"best_{m}.ckpt")
+                    save_checkpoint(path, state, epoch, {m: float(v)})
+                    logger.info(f"new best {m}={v:.4f} at epoch {epoch}")
 
     def resume_path(self) -> Optional[str]:
         return self.last_path if os.path.exists(self.last_path) else None

@@ -9,7 +9,12 @@ the forward of the JAX package's `SetCriterion`
   instance count (the reference shadows its global `num_masks` with the
   per-item count, which the JAX package reproduces);
 - deep supervision: one (matcher + losses) evaluation per mask-module
-  output, L = 13 at the flagship.
+  output, L = 13 at the flagship;
+- under data parallelism (an active mesh with `dp` ranks) each rank's
+  batch is its slice of the global one: the mask and dice losses are sums
+  over items and need nothing, and the CE divides by the GLOBAL weight sum
+  (`ce_denominators`), so the ranks' losses and gradients sum to the
+  global batch's.
 
 The costs of all L levels are computed on the device, and one call of
 `ops/lsap.py` solves every (level x item) problem: with
@@ -32,6 +37,8 @@ import torch.nn.functional as F
 from mask3d_tpu_torch.data.batch import Targets
 from mask3d_tpu_torch.models.mask3d import Mask3DOutput
 from mask3d_tpu_torch.ops.lsap import linear_sum_assignment
+from mask3d_tpu_torch.parallel import comm
+from mask3d_tpu_torch.parallel.mesh import dp_coords
 
 _INVALID_COST = 1e4  # column-constant cost for padded instances (fp32-safe)
 
@@ -133,18 +140,35 @@ class SetCriterion:
 
     # ---- losses ----
 
-    # from mask3d_tpu/train/criterion.py:140 loss_labels
-    def loss_labels(self, pred_class, targets: Targets, col4row, matched):
-        """Weighted CE, normalized by the weight sum as torch's
-        `F.cross_entropy(weight=w)` is."""
-        logits = pred_class.float()
+    def ce_weights(self, targets: Targets, col4row, matched):
+        """The matched class of every query ([..., B, Q]) and its CE
+        weight."""
+        labels = targets.labels.long().expand(col4row.shape[:-1] + (-1,))
         tgt_cls = torch.where(
-            matched, torch.gather(targets.labels.long(), -1, col4row),
+            matched, torch.gather(labels, -1, col4row),
             torch.full_like(col4row, self.num_classes))
-        logp = torch.log_softmax(logits, dim=-1)
+        return tgt_cls, self.empty_weight.to(col4row.device)[tgt_cls]
+
+    def ce_denominators(self, w):
+        """The CE normaliser of each level, w [L, B, Q] -> [L]: the weight
+        sum over the GLOBAL batch, summed over the active mesh's `dp` ranks
+        (one all-reduce, outside autograd: the weights come from the
+        assignment). Each rank's CE is then its part of the global
+        weighted mean, and the summed gradients are the global batch's,
+        as JAX's SPMD step computes them."""
+        den = w.sum(dim=(1, 2)).detach()
+        _, _, group = dp_coords()
+        if group is not None:
+            den = comm.all_reduce(den.clone(), group=group, name="ce_norm")
+        return den
+
+    # from mask3d_tpu/train/criterion.py:140 loss_labels
+    def loss_labels(self, pred_class, tgt_cls, w, den):
+        """Weighted CE, normalized by the weight sum `den` as torch's
+        `F.cross_entropy(weight=w)` is (`ce_denominators`)."""
+        logp = torch.log_softmax(pred_class.float(), dim=-1)
         nll = -torch.gather(logp, -1, tgt_cls[..., None])[..., 0]
-        w = self.empty_weight.to(logits.device)[tgt_cls]
-        return (nll * w).sum() / w.sum().clamp(min=1e-8)
+        return (nll * w).sum() / den.clamp(min=1e-8)
 
     # from mask3d_tpu/train/criterion.py:154 loss_masks
     def loss_masks(self, pred_masks, targets: Targets, col4row, matched,
@@ -211,13 +235,15 @@ class SetCriterion:
             self.match_costs(pc, pm, targets, point_valid)
             for pc, pm in zip(output.aux_pred_class, output.aux_pred_masks)])
         col4row, matched = self.match(costs, targets)
+        tgt_cls, w = self.ce_weights(targets, col4row, matched)
+        den = self.ce_denominators(w)
         per_level = torch.stack([
             torch.stack([
-                self.loss_labels(pc, targets, c4r, m),
+                self.loss_labels(pc, tc, wl, dl),
                 *self.loss_masks(pm, targets, c4r, m, point_valid)])
-            for pc, pm, c4r, m in zip(output.aux_pred_class,
-                                      output.aux_pred_masks, col4row,
-                                      matched)])  # [L, 3]
+            for pc, pm, c4r, m, tc, wl, dl in zip(
+                output.aux_pred_class, output.aux_pred_masks, col4row,
+                matched, tgt_cls, w, den)])  # [L, 3]
 
         losses: Dict[str, torch.Tensor] = {
             "loss_ce": per_level[-1, 0],

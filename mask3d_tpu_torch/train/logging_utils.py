@@ -17,16 +17,23 @@ logger = logging.getLogger(__name__)
 
 # from mask3d_tpu/train/logging_utils.py:23 MetricLogger
 class MetricLogger:
+    """`write_files=False` (a rank other than 0 under data parallelism)
+    aggregates the epoch means but never writes: no directory, CSV or
+    TensorBoard file."""
+
     def __init__(self, directory: str, use_tensorboard: bool = True,
-                 hyperparams: Optional[dict] = None):
+                 hyperparams: Optional[dict] = None,
+                 write_files: bool = True):
         self.directory = directory
-        os.makedirs(directory, exist_ok=True)
+        self.write_files = write_files
+        if write_files:
+            os.makedirs(directory, exist_ok=True)
         self.csv_path = os.path.join(directory, "metrics.csv")
         self._csv_fields = ["epoch", "step"]
         self._csv_rows = []
         # The CSV is rewritten whole each epoch (its fields can grow), so a
         # resumed run seeds its history from the file it finds.
-        if os.path.exists(self.csv_path):
+        if write_files and os.path.exists(self.csv_path):
             try:
                 with open(self.csv_path, newline="") as f:
                     r = csv.DictReader(f)
@@ -41,7 +48,7 @@ class MetricLogger:
                 logger.warning(f"could not seed metrics.csv history: {e}")
         self._epoch_acc: Dict[str, list] = defaultdict(list)
         self._tb = None
-        if use_tensorboard:
+        if use_tensorboard and write_files:
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:
@@ -83,7 +90,8 @@ class MetricLogger:
             r for r in self._csv_rows if int(r.get("epoch", -1)) != epoch
         ]
         self._csv_rows.append(row)
-        self._write_csv()
+        if self.write_files:
+            self._write_csv()
         if self._tb is not None:
             for k, v in means.items():
                 self._tb.add_scalar(k, v, epoch)

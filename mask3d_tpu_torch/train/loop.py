@@ -16,12 +16,15 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as tdist
 
 from mask3d_tpu_torch.data.batch import DeviceBatch
 from mask3d_tpu_torch.device import resolve_device
 from mask3d_tpu_torch.infer import _sb_kwargs, check_unit_features, \
     level_capacities
 from mask3d_tpu_torch.models.mask3d import Mask3D, build_model
+from mask3d_tpu_torch.parallel import comm
+from mask3d_tpu_torch.parallel.mesh import active_mesh, sp_group
 from mask3d_tpu_torch.sparse.context import build_sparse_batch
 from mask3d_tpu_torch.train.criterion import SetCriterion
 
@@ -157,6 +160,53 @@ def split_batch(batch: DeviceBatch, k: int):
     return [part(i) for i in range(k)]
 
 
+def grad_groups(model: Mask3D):
+    """(parameters whose gradients are partial over `sp`, every trained
+    parameter): the backbone sees one x-slab a sp rank; the decoder, the
+    heads and the query MLP compute the same loss whole on every sp rank,
+    so their gradients are complete and are not summed over `sp`."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    bb = {id(p) for p in model.backbone.parameters()}
+    return [p for p in params if id(p) in bb], params
+
+
+def sync_gradients(model: Mask3D, sp_axis=None):
+    """Sum the gradients over the active mesh (no-op without one): the
+    backbone's over `sp` when `sp_axis` shards it, then every parameter's
+    over `dp`, each as one flat all-reduce in parameter order (summed, not
+    averaged: the mask and dice losses are sums over items and the CE
+    divides by the global weight sum)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return
+    partial, params = grad_groups(model)
+    group = sp_group(sp_axis)
+    if group is not None:
+        comm.flat_all_reduce([p.grad for p in partial], group, "sp_grads")
+    if mesh.dp_group is not None:
+        comm.flat_all_reduce([p.grad for p in params], mesh.dp_group,
+                             "dp_grads")
+
+
+def global_losses(losses: Dict[str, torch.Tensor]):
+    """The global batch's losses from each dp rank's (no-op without dp
+    ranks): every entry summed over `dp` (the CE entries are each rank's
+    part of the global weighted mean), `batch_overflow` the MAX, so that
+    every rank skips or updates together."""
+    mesh = active_mesh()
+    if mesh is None or mesh.dp_group is None:
+        return losses
+    keys = [k for k in losses if k != "batch_overflow"]
+    vals = comm.all_reduce(torch.stack([losses[k].float() for k in keys]),
+                           group=mesh.dp_group, name="losses")
+    out = {k: v for k, v in zip(keys, vals.unbind())}
+    if "batch_overflow" in losses:
+        out["batch_overflow"] = comm.all_reduce(
+            losses["batch_overflow"].clone(), tdist.ReduceOp.MAX,
+            group=mesh.dp_group, name="overflow")
+    return out
+
+
 # from mask3d_tpu/train/loop.py:250 make_train_step
 def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
     """`train_step(state, batch) -> (losses, preds)`: one optimizer step on
@@ -174,7 +224,14 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
     more occupied level-0 bricks than `model.brick_capacity`, the update is
     skipped: parameters, optimizer moments and the schedule stay, the step
     count and the generator advance. (The JAX package computes the brick
-    overflow and never reads it: it trains on the voxels it dropped.)"""
+    overflow and never reads it: it trains on the voxels it dropped.)
+
+    Under an active mesh (`parallel/mesh.py`) `batch` is this dp rank's
+    slice of the global batch: after the last micro-batch the gradients are
+    summed over the ranks (`sync_gradients`), the losses are the global
+    batch's and the overflow flag their MAX (`global_losses`), so every
+    rank applies the same update; with the same seed a dp step equals the
+    one-process step on the global batch."""
     accum = max(1, int(cfg.trainer.grad_accum_steps))
     return_preds = bool(cfg.trainer.train_split_metrics)
     bricked = cfg.model.backbone_impl == "bricked"
@@ -225,6 +282,8 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
             if return_preds:
                 preds = tuple(torch.cat([p[1][i] for p in parts])
                               for i in range(2))
+        sync_gradients(state.model, cfg.model.sp_axis)
+        losses = global_losses(losses)
         # One host read of the overflow flag a step, to skip the update
         # (the JAX step selects the old state on the device instead).
         if not bool(losses["batch_overflow"] > 0):

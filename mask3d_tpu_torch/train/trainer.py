@@ -6,9 +6,13 @@ device, host post-processing in a thread pool, the evaluator, the optional
 exports), `last-epoch.ckpt` and `best_*.ckpt`, auto-resume, the metric
 logger, and `test`.
 
-The data-parallel mesh (`trainer.num_data_parallel > 1`,
-`trainer.distributed`) is not ported yet (ROADMAP Queue 1 item 5); the
-trainer raises where a configuration asks for it. `backbone_impl=bricked`
+Data parallelism (`trainer.num_data_parallel` ranks, in a process group
+that `parallel/dist.py` or the cli's local launcher initialised): every
+rank draws the same epoch order and collates its slice of each global
+batch, padded to the shapes the ranks share; the train step sums the
+gradients and losses over the ranks; validation and test gather the
+post-processed items to rank 0 in global order, which runs the evaluator;
+only rank 0 writes the config, checkpoints and metrics. `backbone_impl=bricked`
 trains on micro-batches of one scene (`data.batch_size` equal to
 `trainer.grad_accum_steps`), evaluates at `data.test_batch_size=1` and
 raises on an eval batch whose bricks or levels overflowed. A run directory
@@ -37,6 +41,9 @@ from mask3d_tpu_torch.data.datasets import DATASETS
 from mask3d_tpu_torch.device import resolve_device
 from mask3d_tpu_torch.evalm import Mask3DEvaluator
 from mask3d_tpu_torch.infer import make_eval_step
+from mask3d_tpu_torch.parallel import dist
+from mask3d_tpu_torch.parallel.mesh import make_mesh, replicate, \
+    state_tensors, use_mesh
 from mask3d_tpu_torch.postprocess import postprocess_item
 from mask3d_tpu_torch.train import checkpoint as ckpt
 from mask3d_tpu_torch.train.criterion import make_criterion
@@ -45,8 +52,8 @@ from mask3d_tpu_torch.train.export import (
     export_prediction_generic,
 )
 from mask3d_tpu_torch.train.logging_utils import MetricLogger
-from mask3d_tpu_torch.train.loop import init_state, make_train_step, \
-    measure_model_phases
+from mask3d_tpu_torch.train.loop import global_losses, init_state, \
+    make_train_step, measure_model_phases
 from mask3d_tpu_torch.utils import meter
 
 logger = logging.getLogger(__name__)
@@ -84,25 +91,39 @@ def _prefetch(iterable: Iterable, depth: int = 2):
 class InstanceSegmentationTrainer:
     def __init__(self, cfg: Config, datasets: Optional[dict] = None,
                  device="cuda"):
-        if cfg.trainer.num_data_parallel > 1 or cfg.trainer.distributed:
-            raise NotImplementedError(
-                "trainer.num_data_parallel > 1 / trainer.distributed: the "
-                "data-parallel mesh (parallel/*) is not ported yet (ROADMAP "
-                "Queue 1 item 5)")
+        world = dist.process_count()
+        if world > 1 or cfg.trainer.num_data_parallel > 1:
+            # from mask3d_tpu/config.py:283-292: num_data_parallel counts
+            # the global ranks
+            if cfg.trainer.num_data_parallel != world:
+                raise ValueError(
+                    f"trainer.num_data_parallel="
+                    f"{cfg.trainer.num_data_parallel} but the process group "
+                    f"has {world} rank(s): start one rank a card (cli train "
+                    f"trainer.num_data_parallel=N, or torchrun with "
+                    f"trainer.distributed=true and N processes)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.is_main = dist.is_main_process()
+        self.device = (dist.local_device(device) if world > 1
+                       else resolve_device(device))
+        # a 1-D dp mesh over the ranks (None in one process)
+        self.mesh = make_mesh(world) if world > 1 else None
         if cfg.trainer.debug_nans:
             # the JAX package's jax_debug_nans: raise where the backward
             # makes a NaN
             torch.autograd.set_detect_anomaly(True)
-        self.run_dir = os.path.join(
+        run_dir = [os.path.join(
             cfg.general.save_dir,
             cfg.general.experiment_name,
             cfg.general.experiment_id or time.strftime("%Y-%m-%d_%H-%M-%S"),
-        )
-        os.makedirs(self.run_dir, exist_ok=True)
-        # the composed config, so a run reproduces from its artifacts
-        to_yaml(cfg, os.path.join(self.run_dir, "config.yaml"))
+        )]
+        if world > 1:  # rank 0's clock names the run
+            torch.distributed.broadcast_object_list(run_dir, src=0)
+        self.run_dir = run_dir[0]
+        if self.is_main:
+            os.makedirs(self.run_dir, exist_ok=True)
+            # the composed config, so a run reproduces from its artifacts
+            to_yaml(cfg, os.path.join(self.run_dir, "config.yaml"))
 
         if datasets is not None:
             self.datasets = datasets
@@ -148,6 +169,8 @@ class InstanceSegmentationTrainer:
         # `model.unit_features`
         example = self.collate([self.datasets["train"][0]]).device
         self.state = init_state(cfg, example, device=self.device)
+        if self.mesh is not None:
+            replicate(state_tensors(self.state), self.mesh)
         self.model = self.state.model
         self.criterion = make_criterion(cfg)
         self.train_step = make_train_step(cfg, self.criterion, self.device)
@@ -157,9 +180,11 @@ class InstanceSegmentationTrainer:
             debug_best_worst_scenes=cfg.general.debug_best_worst_scenes,
             debug_mean_average_precision=cfg.general.debug_mean_average_precision,
         )
-        self.ckpt_mgr = ckpt.CheckpointManager(self.run_dir)
+        self.ckpt_mgr = ckpt.CheckpointManager(self.run_dir,
+                                               write=self.is_main)
         self.metrics = MetricLogger(
-            self.run_dir, hyperparams=flatten_dict(to_dict(cfg)))
+            self.run_dir, hyperparams=flatten_dict(to_dict(cfg)),
+            write_files=self.is_main)
         self.epoch = 0
         self._rng = np.random.default_rng(cfg.general.seed)
 
@@ -171,21 +196,62 @@ class InstanceSegmentationTrainer:
 
     # from mask3d_tpu/train/trainer.py:188 _batches
     def _batches(self, split: str, batch_size: int, shuffle: bool):
-        """The split's batches (one process): with `shuffle`, an order
-        drawn from the config-seeded generator (the JAX package's order
-        under the same seed), `general.reps_per_epoch` times."""
+        """The split's batches: with `shuffle`, an order drawn from the
+        config-seeded generator (the JAX package's order under the same
+        seed), `general.reps_per_epoch` times. Under data parallelism every
+        rank draws the same order and collates its contiguous slice of each
+        global batch (`dist.local_batch_indices`); a batch that does not
+        split evenly over the ranks raises. (The JAX package's multi-host
+        path collates a ragged batch whole on every host, so each of its
+        items counts once a host: ROADMAP Queue 3.)"""
         ds = self.datasets[split]
         order = np.arange(len(ds))
         if shuffle:
             self._rng.shuffle(order)
+        pc = dist.process_count()
         for _rep in range(self.cfg.general.reps_per_epoch if shuffle else 1):
             for s in range(0, len(order), batch_size):
-                yield self.collate([ds[int(i)]
-                                    for i in order[s:s + batch_size]])
+                idxs = order[s:s + batch_size]
+                if pc > 1:
+                    if len(idxs) % pc:
+                        raise ValueError(
+                            f"a {split} batch of {len(idxs)} scenes does not"
+                            f" split over the world size {pc}: make "
+                            f"data.batch_size ({batch_size} here for "
+                            f"{split}) and the split's size multiples of "
+                            f"{pc}")
+                    idxs = dist.local_batch_indices(idxs)
+                yield self.collate([ds[int(i)] for i in idxs])
 
     def _to_device(self, host: HostBatch):
-        """The batch's one host-to-device copy, on the caller's thread."""
+        """The batch's one host-to-device copy, on the caller's thread;
+        under data parallelism padded first to the shapes the ranks share
+        (`dist.put_global`)."""
+        if self.mesh is not None:
+            return dist.put_global(host, self.device, self.mesh.dp_group)[1]
         return host.device.to(self.device)
+
+    def _evaluate(self, preds, targets, prefix):
+        """The evaluator's metrics of one batch (its `<prefix>_classes`
+        dropped). Under data parallelism each rank holds its items: rank 0
+        gathers them in global item order, evaluates, and every rank gets
+        its metrics, which equal the one-process run's."""
+        if self.mesh is None:
+            m = self.evaluator.evaluate(preds, targets, prefix)
+        else:
+            group = self.mesh.dp_group
+            parts = [None] * dist.process_count() if self.is_main else None
+            torch.distributed.gather_object((preds, targets), parts, dst=0,
+                                            group=group)
+            m = [None]
+            if self.is_main:
+                m[0] = self.evaluator.evaluate(
+                    [p for part in parts for p in part[0]],
+                    [t for part in parts for t in part[1]], prefix)
+            torch.distributed.broadcast_object_list(m, src=0, group=group)
+            m = m[0]
+        m.pop(f"{prefix}_classes", None)
+        return m
 
     # from mask3d_tpu/train/trainer.py:218 _postprocess_batch
     def _postprocess_batch(self, host, pred_class, pred_masks,
@@ -313,8 +379,7 @@ class InstanceSegmentationTrainer:
                 # evaluator metrics on the train forward's predictions
                 pd, tg = self._postprocess_batch(
                     host, preds[0].cpu().numpy(), preds[1].cpu().numpy())
-                m = self.evaluator.evaluate(pd, tg, "train")
-                m.pop("train_classes", None)
+                m = self._evaluate(pd, tg, "train")
                 self.metrics.log_step(
                     {k: float(v) for k, v in m.items()}, step)
             if step % cfg.trainer.log_every_n_steps == 0:
@@ -357,6 +422,7 @@ class InstanceSegmentationTrainer:
             batch = self._to_device(host)
             meter.add_timing("data_preparation")
             pred_class, pred_masks, losses = self.eval_step(batch)
+            losses = global_losses(losses)  # the global batch's (dp)
             pred_class = pred_class.cpu().numpy()
             pred_masks = pred_masks.cpu().numpy()
             meter.add_timing("model_forward_complete")
@@ -388,9 +454,7 @@ class InstanceSegmentationTrainer:
                 host, pred_class, pred_masks, measure=True
             )
             meter.add_timing("eval_postprocess")
-            m = self.evaluator.evaluate(preds, targets, prefix)
-            m.pop(f"{prefix}_classes", None)
-            all_metrics.append(m)
+            all_metrics.append(self._evaluate(preds, targets, prefix))
             meter.add_timing("eval_metrics_calc")
 
             if export and (cfg.general.export_las or cfg.general.export):
@@ -437,7 +501,12 @@ class InstanceSegmentationTrainer:
         """Train to `trainer.max_epochs`, resuming from the run directory's
         `last-epoch.ckpt` where there is one. SIGTERM or Ctrl-C saves
         `last-epoch.ckpt` at the last finished epoch before it re-raises,
-        so a resumed run replays at most the interrupted epoch."""
+        so a resumed run replays at most the interrupted epoch. Every rank
+        reads the resume; rank 0 alone writes."""
+        with use_mesh(self.mesh):
+            self._fit()
+
+    def _fit(self):
         resume = self.ckpt_mgr.resume_path()
         if resume:
             logger.info(f"auto-resuming from {resume}")
@@ -488,6 +557,7 @@ class InstanceSegmentationTrainer:
             ):
                 self.ckpt_mgr.save_last(self.state, self.epoch, val_metrics)
             self.ckpt_mgr.maybe_save_best(self.state, self.epoch, val_metrics)
+            dist.barrier()  # rank 0's files are whole before any rank reads
             logger.info(
                 f"epoch {self.epoch}: "
                 f"train_loss={train_metrics.get('train_loss', float('nan')):.4f} "
@@ -499,6 +569,10 @@ class InstanceSegmentationTrainer:
 
     # from mask3d_tpu/train/trainer.py:509 test
     def test(self) -> Dict[str, float]:
+        with use_mesh(self.mesh):
+            return self._test()
+
+    def _test(self) -> Dict[str, float]:
         meter.reset()
         if self.cfg.trainer.measure_model_phases:
             # from mask3d_tpu/train/trainer.py:511-525 measure_model_phases:

@@ -141,7 +141,9 @@ def test_port_host_path_on_jax_outputs_gives_jax_metrics(runs):
 
 def test_cli_forms_and_refusals(tmp_path, monkeypatch):
     """`general.train_mode` picks the command (`fit` or `test`); an unknown
-    device and the unported trainer options raise."""
+    device raises, and so do data parallelism without a card a rank or
+    with a world size other than `trainer.num_data_parallel`, and
+    `model.sp_axis` on a gather backbone."""
     ran = []
 
     class Recording:
@@ -165,8 +167,22 @@ def test_cli_forms_and_refusals(tmp_path, monkeypatch):
         cli.main(["test", "--device=tpu"])
     assert cli._take_device(["test", "--device", "cpu", "a=b"]) == (
         "cpu", ["test", "a=b"])
-    for override in ("trainer.num_data_parallel=2",
-                     "trainer.distributed=true"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["test", "--device", "cpu", override,
-                      f"general.save_dir={tmp_path}"])
+    # data parallelism: a local launch needs one CUDA card a rank, and
+    # under trainer.distributed num_data_parallel is the world size
+    with pytest.raises(RuntimeError, match=r"one rank a CUDA card and this "
+                                           r"host has \d+ card"):
+        cli.main(["test", "--device", "cpu", "trainer.num_data_parallel=2",
+                  f"general.save_dir={tmp_path}"])
+    with pytest.raises(ValueError, match="must equal the world size 1"):
+        cli.main(["train", "--device", "cpu", "trainer.distributed=true",
+                  "trainer.num_data_parallel=2", "trainer.process_id=0",
+                  "trainer.num_processes=1",
+                  f"trainer.coordinator_address=localhost:{cli._free_port()}",
+                  f"general.save_dir={tmp_path}"])
+    assert not torch.distributed.is_initialized()
+    # sequence parallelism shards the dense backbone only
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from mask3d_tpu_torch.models.mask3d import build_model
+    with pytest.raises(NotImplementedError, match="sp_axis"):
+        build_model(apply_overrides(Config(), [
+            "model.sp_axis=sp", "model.backbone_impl=gather"]), device="cpu")

@@ -25,7 +25,10 @@ CITE = re.compile(r"#\s*from (mask3d_tpu/[\w/]+\.py):(\d+)(?:-\d+)?"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # tests/torch_dist_worker.py runs in spawned ranks without the JAX
+    # package, as the port does
+    return sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_worker.py"]
 
 
 def _forbidden(name: str) -> bool:
