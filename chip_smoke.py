@@ -240,6 +240,34 @@ beside this script. Phases:
    (`ranks_shaped_validation`); the one-process validation at the global
    batch's shapes printed beside it.
 
+16. `model_zoo`, the rest of the model: (a) the bottleneck Res16UNet101
+   at full width (PLANES x 4: every feature map 1024 wide; `Config()`'s
+   decoder) on phase 3's 8 scenes through `infer`, one set of seeded
+   weights, on `dense` in fp32 (batch 4 where batch 8 does not fit, the
+   cut printed), `dense` in bf16 and `gather_pallas`, each counted
+   (attention 12, row gathers 13 / 13 / 0, sparse convs 0 / 0 / 41), timed
+   (median of ZOO_REPS) with its peak GiB, and bf16 and gather_pallas
+   against fp32 dense read as ratios to BF16_STACK_MEAN and
+   BF16_PATH_MEAN (phases 4 and 5) and printed, not gated: bf16 noise
+   grows with depth in this random-weight net; those paths are gated in
+   (c) instead; the row gather at the 1024-wide level-0 tap in f32 and bf16
+   (bitwise) and the sparse conv at every shape the counted gather_pallas
+   forward launched, against their plain versions, timed beside their
+   bounds. (b) The decoder options at `Config()`'s width on Res16UNet34C,
+   fp32 dense, batch 8 (ZOO_COMBOS): 12 attention launches each, finite
+   outputs, `sampled_coords` where the queries come from FPS; the random
+   ones twice from one seed, bitwise equal; one train step of the first,
+   every new parameter with a finite nonzero gradient. (c) At a small
+   width, card against CPU: a shallow bottleneck (every LAYERS entry 1)
+   in fp32 within phase 4's fp32 form (FP32_PATH_TOL), the first
+   combination within phase 3's tolerance; the shallow
+   bottleneck's maps in bf16 on `dense` within BF16_STACK_MEAN (phase 5)
+   and on `gather_pallas` within phase 4's bf16 bounds; the level
+   embedding skipped in round 2 on the card must fail phase 3's
+   tolerance. (d) `cli test` with
+   ZOO_CLI on 8 written scenes (one batch): the metric keys, 12 / 13 / 1
+   attention, row-gather and LSAP launches, seconds a batch by layer.
+
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
 
@@ -409,6 +437,32 @@ PAR_STEP_TOL = 5e-2
 PAR_BITWISE_TOL = 1e-6
 PAR_SP_BOUNDS = {"pred_class": (5e-2, 5e-2), "pred_masks": (5e-2, 2e-1)}
 PAR_FIT_BATCH = 4
+# the model_zoo phase: the bottleneck Res16UNet101 at full width (every
+# map 1024 wide) on phase 3's scenes, its three paths and what each counted
+# forward launches (the gather_pallas one: the k=5 stem and the 3^3 conv of
+# each of the 40 bottleneck blocks), the timed forwards after the counted
+# one; the decoder options at `Config()`'s width on Res16UNet34C; the
+# options of the `cli test` run
+ZOO_BACKBONE = "Res16UNet101"
+ZOO_PATHS = {"dense": [], "bf16": ["model.compute_dtype=bfloat16"],
+             "gather_pallas": ["model.backbone_impl=gather_pallas"]}
+ZOO_LAUNCHES = {
+    "dense": dict(masked_attention=12, row_gather=13, sparse_conv=0),
+    "bf16": dict(masked_attention=12, row_gather=13, sparse_conv=0),
+    "gather_pallas": dict(masked_attention=12, row_gather=0, sparse_conv=41)}
+ZOO_REPS = 3
+ZOO_COMBOS = {
+    "learned_level_embed_pre_norm_unshared": [
+        "model.non_parametric_queries=false", "model.use_level_embed=true",
+        "model.pre_norm=true", "model.shared_decoder=false"],
+    "np_features": ["model.use_np_features=true"],
+    "random_queries": ["model.non_parametric_queries=false",
+                       "model.random_queries=true"],
+    "random_query_both_normal": ["model.non_parametric_queries=false",
+                                 "model.random_query_both=true",
+                                 "model.random_normal=true"]}
+ZOO_CLI = ["model.backbone=Res16UNet50", "model.non_parametric_queries=false",
+           "model.shared_decoder=false"]
 
 
 LOG_FILE = None  # set by open_log
@@ -1022,21 +1076,29 @@ def write_entry_dataset(np, root, n_train=1, n_test=ENTRY_TEST_SCENES,
     return scenes
 
 
-def count_forward(torch, mt, counters, by_key, mdl, dev, cfg):
-    """One `infer` with every count set to 0 just before it and read just
-    after: (output, launches, counts by key, peak GiB). Raises where a
-    pyramid level or the level-0 bricks overflowed."""
+def counted(torch, counters, by_key, fn):
+    """`fn()` with every count set to 0 just before it and read just
+    after: (its result, launches, counts by key, peak GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    for f in counters.values():
+        f.launches = 0
     for counts, _ in by_key.values():
         counts.clear()
-    out, overflow = mt.infer(mdl, dev, cfg, device="cuda")
+    out = fn()
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: f.launches for k, f in counters.items()}
     keyed = {k: dict(counts) for k, (counts, _) in by_key.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    return out, launches, keyed, torch.cuda.max_memory_allocated() / 2**30
+
+
+def count_forward(torch, mt, counters, by_key, mdl, dev, cfg):
+    """One counted `infer` (`counted`): (output, launches, counts by key,
+    peak GiB). Raises where a pyramid level or the level-0 bricks
+    overflowed."""
+    (out, overflow), launches, keyed, peak = counted(
+        torch, counters, by_key, lambda: mt.infer(mdl, dev, cfg,
+                                                  device="cuda"))
     if bool(overflow):
         raise RuntimeError("a pyramid level or the level-0 bricks "
                            "overflowed their capacity")
@@ -3805,6 +3867,408 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def zoo_cfg(cfg_mod, extra=(), backbone=ZOO_BACKBONE):
+    return cfg_mod.apply_overrides(cfg_mod.Config(), [
+        f"data.point_bucket_multiple={BUCKET}", f"model.backbone={backbone}",
+        *extra])
+
+
+def zoo_maps(torch, mdl, cfg, dev, sparse, items):
+    """The backbone's five maps [strides 16..1] as f32 tensors on the card
+    of the valid rows of the first `items` items (the 1024-wide maps stay
+    on the card: their numpy copies would take a host GiB each)."""
+    build_sparse_batch, level_capacities, sb_kwargs = sparse
+    with torch.inference_mode():
+        sb = build_sparse_batch(
+            dev.coords, dev.counts, dev.dims,
+            level_capacities(cfg, dev.capacity), dev.grid_dims,
+            **sb_kwargs(cfg))
+        _, maps, _ = mdl.backbone(dev.feats, sb, dev.grid_dims)
+        n = sb.num_levels
+        return [m[:items][sb.levels[n - 1 - i].valid[:items]].float()
+                for i, m in enumerate(maps)]
+
+
+def card_diff_stats(torch, ref, got):
+    """`diff_stats` on the card: mean, max and std(ref) over every element,
+    the 99.9% quantile over at most 2^24 of them (every k-th, k fixed:
+    torch.quantile's limit)."""
+    diff = (got.float() - ref.float()).abs().flatten()
+    k = max(1, -(-diff.numel() // 2 ** 24))
+    return dict(mean=float(diff.double().mean()),
+                q999=float(torch.quantile(diff[::k], 0.999)),
+                max=float(diff.max()), ref_std=float(ref.double().std()))
+
+
+def zoo_full_width(torch, np, mt, cfg_mod, counters, by_key, card, host,
+                   sparse, res):
+    """(a): Res16UNet101 through `infer` on `dense` (fp32, then bf16) and
+    `gather_pallas` at batch 8 on phase 3's scenes, one set of seeded
+    weights; each forward counted, timed (median of ZOO_REPS fenced
+    forwards), its peak GiB; bf16 and gather_pallas against fp32 dense
+    with the existing constants. Returns the sparse conv's launches by
+    shape in the counted gather_pallas forward."""
+    from mask3d_tpu_torch.train.loop import split_batch
+
+    dev = host.device
+    state, ref, runs = None, None, {}
+    shapes = {}
+    for path, extra in ZOO_PATHS.items():
+        c = zoo_cfg(cfg_mod, extra)
+        mdl = mt.build_model(c, device="cuda", seed=0)
+        if state is None:
+            state = {k: v.clone() for k, v in mdl.state_dict().items()}
+        else:
+            mdl.load_state_dict(state)
+        batch = dev
+        try:
+            out, launches, keyed, peak = counted(
+                torch, counters, by_key,
+                lambda: mt.infer(mdl, batch, c, device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            if path != "dense":
+                raise
+            # the fp32 grids of batch 8 do not fit: batch 4 (the cut is
+            # listed in PERF.md)
+            torch.cuda.empty_cache()
+            batch = split_batch(dev, 2)[0]
+            log(f"model_zoo {path}: batch 8 out of memory, cut to batch 4")
+            out, launches, keyed, peak = counted(
+                torch, counters, by_key,
+                lambda: mt.infer(mdl, batch, c, device="cuda"))
+        out, overflow = out
+        assert not bool(overflow), path
+        b = batch.coords.shape[0]
+        pc, pm = out.pred_class, out.pred_masks
+        assert tuple(pc.shape) == (b, 25, 2) and \
+            tuple(pm.shape) == (b, dev.capacity, 25), (pc.shape, pm.shape)
+        assert bool(torch.isfinite(pc).all()) and \
+            bool(torch.isfinite(pm).all()), path
+        assert out.backbone_feats.shape[-1] == 1024, out.backbone_feats.shape
+        want = dict(ZOO_LAUNCHES[path], int8_conv=0, lsap=0)
+        assert launches == want, (path, launches, want)
+        assert sum(keyed["attention"].values()) == 12
+        if path == "gather_pallas":
+            shapes = keyed["sparse_conv"]
+            assert sum(shapes.values()) == launches["sparse_conv"]
+        ms = []
+        for _ in range(ZOO_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mt.infer(mdl, batch, c, device="cuda")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        maps = zoo_maps(torch, mdl, c, batch, sparse,
+                        ref["items"] if ref else b)
+        preds = (pc.float(), pm.float())
+        runs[path] = dict(batch=b, launches=launches, peak_gib=peak,
+                          ms=statistics.median(ms), ms_all=ms,
+                          gather_dtypes=keyed["gather_dtypes"])
+        log(f"model_zoo {ZOO_BACKBONE} {path} batch {b}: launches "
+            f"{launches}, attention by key length {keyed['attention']}; "
+            f"forward median {runs[path]['ms']:.2f} ms over {ZOO_REPS} "
+            f"({[round(x, 2) for x in ms]}), peak {peak:.2f} GiB on {card}")
+        if ref is None:
+            ref = dict(items=b, preds=preds, maps=maps)
+        else:
+            n = ref["items"]
+            valid = (torch.arange(dev.capacity, device="cuda")[None]
+                     < batch.counts[:n, None])
+            stats = {"pred_class": card_diff_stats(
+                torch, ref["preds"][0], preds[0][:n]),
+                "pred_masks": card_diff_stats(
+                    torch, ref["preds"][1][valid], preds[1][:n][valid])}
+            for i, (r, g) in enumerate(zip(ref["maps"], maps)):
+                stats[f"map{i} (stride {16 >> i})"] = card_diff_stats(
+                    torch, r, g)
+            tol = BF16_STACK_MEAN if path == "bf16" else BF16_PATH_MEAN
+            ratio = worst_ratio(stats, "mean", tol)
+            for what, st in stats.items():
+                log(f"model_zoo {path} vs fp32 dense {what}: "
+                    f"{json.dumps(st)}")
+            # printed, not gated: bf16 rounding grows with depth in this
+            # random-weight net (Res16UNet101 on an NVIDIA H100 read the
+            # bf16 ratio 6.45, map0 after stage 4's 23 blocks the worst);
+            # the bf16 paths are gated card against CPU at a small width
+            # in (c), as phase 7 does for the hall's bf16 paths
+            log(f"model_zoo {path} vs fp32 dense (printed, not gated): "
+                f"worst mean |diff| / max(1, std) {ratio * tol:.4g} "
+                f"against {tol} (ratio {ratio:.4g})")
+            runs[path]["ratio_to_fp32_gate"] = ratio
+        del mdl, out, maps
+        torch.cuda.empty_cache()
+    res["paths"] = runs
+    return shapes
+
+
+def zoo_kernels(torch, rg, sc, dense_ops, host, cfg_mod, sparse, shapes,
+                res):
+    """(a) the kernels at the new shapes against their plain versions: the
+    row gather at C=1024 (the 1024-wide level-0 tap) in f32 and bf16,
+    bitwise; the sparse conv at every (N, K, Cin, Cout) the counted
+    Res16UNet101 gather_pallas forward launched; each timed beside its
+    bound (and the row gather beside `index_select`, printed: the speed
+    gate of phase 2 is the flagship's)."""
+    build_sparse_batch, level_capacities, sb_kwargs = sparse
+    dev = host.device
+    caps = level_capacities(zoo_cfg(cfg_mod), dev.capacity)
+    res["row_gather"] = check_gather(torch, rg, dense_ops, dev, caps,
+                                     taps={1024: 0})
+    res["row_gather_bf16"] = check_gather(torch, rg, dense_ops, dev, caps,
+                                          torch.bfloat16, {1024: 0})
+    for r in res["row_gather"] + res["row_gather_bf16"]:
+        assert r["equal"], r
+    c = zoo_cfg(cfg_mod, ZOO_PATHS["gather_pallas"])
+    sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                            level_capacities(c, dev.capacity), dev.grid_dims,
+                            **sb_kwargs(c))
+    log(f"model_zoo sparse_conv launches by (N, K, Cin, Cout) in the "
+        f"counted {ZOO_BACKBONE} gather_pallas forward: {shapes}")
+    res["sparse_conv"] = check_sparse_conv(torch, sc, sb, shapes)
+    assert all(r["ok"] for r in res["sparse_conv"]), res["sparse_conv"]
+
+
+def zoo_options(torch, mt, cfg_mod, counters, by_key, card, host, res):
+    """(b): the decoder options at `Config()`'s width on Res16UNet34C,
+    fp32 dense, batch 8: each counted (12 attention launches), finite,
+    `sampled_coords` where the queries come from FPS and `backbone_feats`
+    always; the random ones twice from one seed, bitwise equal; then one
+    train step of the first combination, every new parameter with a
+    finite nonzero gradient."""
+    from mask3d_tpu_torch.train.criterion import make_criterion
+    from mask3d_tpu_torch.train.loop import init_state, make_train_step
+
+    dev = host.device
+    runs = {}
+    for name, extra in ZOO_COMBOS.items():
+        c = zoo_cfg(cfg_mod, extra, backbone="Res16UNet34C")
+        mdl = mt.build_model(c, device="cuda", seed=0)
+
+        def forward():
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            return mt.infer(mdl, dev, c, aux_masks=True, device="cuda",
+                            generator=gen)[0]
+        out, launches, _, peak = counted(torch, counters, by_key,
+                                             forward)
+        assert launches["masked_attention"] == 12, (name, launches)
+        assert all(bool(torch.isfinite(t).all()) for t in (
+            out.aux_pred_class, out.aux_pred_masks)), name
+        fps = not any("non_parametric_queries=false" in e for e in extra)
+        assert (out.sampled_coords is not None) == fps, name
+        if fps:
+            assert tuple(out.sampled_coords.shape) == (8, 25, 3)
+        assert tuple(out.backbone_feats.shape) == (8, dev.capacity, 96)
+        row = dict(launches=launches, peak_gib=peak)
+        if "random" in name:
+            again = forward()
+            row["repeat_bitwise"] = torch.equal(
+                out.aux_pred_class, again.aux_pred_class) and torch.equal(
+                out.aux_pred_masks, again.aux_pred_masks)
+            assert row["repeat_bitwise"], name
+        runs[name] = row
+        log(f"model_zoo option {name}: launches {launches}, peak "
+            f"{peak:.2f} GiB, {json.dumps(row)}")
+        del mdl, out
+    first, extra = next(iter(ZOO_COMBOS.items()))
+    c = zoo_cfg(cfg_mod, extra, backbone="Res16UNet34C")
+    state = init_state(c, seed=0, device="cuda")
+    step = make_train_step(c, make_criterion(c), "cuda")
+    t = time.perf_counter()
+    losses, _ = step(state, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    assert all(bool(torch.isfinite(v)) for v in losses.values()), losses
+    new = {n: p for n, p in state.model.named_parameters()
+           if n in ("query_feat", "query_pos", "level_embed")
+           or any(f".{r}_" in n for r in (1, 2))}
+    assert {"query_feat", "query_pos", "level_embed"} <= set(new), \
+        sorted(new)
+    bad = [n for n, p in new.items() if p.grad is None
+           or not bool(torch.isfinite(p.grad).all())
+           or float(p.grad.abs().sum()) == 0.0]
+    # the attention's K biases have a true gradient of 0 (a per-query
+    # shift of all logits), only rounding noise
+    bad = [n for n in bad if not n.endswith("attn.k.bias")]
+    log(f"model_zoo train step of {first}: loss {float(losses['loss']):.5g} "
+        f"in {secs:.2f} s; {len(new)} new parameters, those without a "
+        f"finite nonzero gradient: {bad}")
+    assert not bad, bad
+    runs[first]["train_step_s"] = secs
+    res["options"] = runs
+
+
+def zoo_small(torch, mt, cfg_mod, np, sparse, res):
+    """(c): card (kernels) against CPU (plain versions) at a small width:
+    a shallow bottleneck (every LAYERS entry 1) on fp32 `dense` in phase
+    4's fp32 form (FP32_PATH_TOL on the maps' max |diff| and the outputs'
+    99.9% quantile; phase 3's reading printed) and the first decoder
+    combination within phase 3's tolerance; the shallow
+    bottleneck's backbone maps on bf16 `dense` (bucket 512) within the
+    bf16 stack's BF16_STACK_MEAN (phase 5) and on `gather_pallas` (bucket
+    1024, levels 0 and 1 on the kernel) within phase 4's bf16 bounds (the
+    bf16 paths' gate: see (a)); the level
+    embedding skipped in round 2 on the card only must fail phase 3's
+    gate."""
+    from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
+    from mask3d_tpu_torch.models import backbone as bb_mod
+    from mask3d_tpu_torch.models.mask3d import Mask3D
+
+    def worst(cfg, host, cpu_model, gpu_model):
+        ref, _ = mt.infer(cpu_model, host.device, cfg, aux_masks=True,
+                          device="cpu")
+        got, _ = mt.infer(gpu_model, host.device, cfg, aux_masks=True,
+                          device="cuda")
+        return max(float((g.cpu() - r).abs().max()) / max(1.0, float(
+            r.std())) for r, g in ((ref.aux_pred_class, got.aux_pred_class),
+                                   (ref.aux_pred_masks, got.aux_pred_masks)))
+
+    name = "Res16UNet50_shallow"
+    bb_mod.BACKBONES[name] = type(name, (bb_mod.BACKBONES["Res16UNet50"],),
+                                  dict(LAYERS=(1,) * 8))
+    try:
+        models = small_models(mt, cfg_mod, make_synthetic_scene, np,
+                              "dense", 512, backbone=name)
+        res["small_bottleneck"] = worst(*models)
+        # phase 4's fp32 form as the gate (the same function in another
+        # summation order: max |diff| of the maps, the 99.9% quantile of
+        # the outputs, within FP32_PATH_TOL): on an NVIDIA H100 it read
+        # 1.06e-4 on the outputs' max against phase 3's 1e-4, a gate that
+        # has read 1.24e-4 on Res16UNet14A too (ROADMAP.md Queue 3)
+        c, host, cpu_model, gpu_model = models
+        ref, _ = mt.infer(cpu_model, host.device, c, device="cpu")
+        got, _ = mt.infer(gpu_model, host.device, c, device="cuda")
+        stats = {w: diff_stats(np, getattr(ref, w).numpy(),
+                               getattr(got, w).cpu().numpy())
+                 for w in ("pred_class", "pred_masks")}
+        for i, (r, g) in enumerate(zip(
+                backbone_maps(torch, cpu_model, c, host.device, sparse),
+                backbone_maps(torch, gpu_model, c, host.device.to("cuda"),
+                              sparse))):
+            stats[f"map{i}"] = diff_stats(np, r, g)
+        res["small_bottleneck_fp32_gate"] = gate_ratio("gather", stats)
+        log(f"model_zoo small shallow bottleneck fp32, card vs CPU: "
+            f"{json.dumps(stats)}; phase 4's fp32 gate ratio "
+            f"{res['small_bottleneck_fp32_gate']:.4g} (passes at <= 1)")
+        res["small_bottleneck_bf16_maps"] = {}
+        for path, impl, bucket, extra in (
+                ("bf16", "dense", 512, ["model.compute_dtype=bfloat16"]),
+                ("gather_pallas", "gather_pallas", 1024, [])):
+            c, host, cpu_model, gpu_model = small_models(
+                mt, cfg_mod, make_synthetic_scene, np, impl, bucket,
+                backbone=name, extra=extra)
+            ref = backbone_maps(torch, cpu_model, c, host.device, sparse)
+            got = backbone_maps(torch, gpu_model, c, host.device.to("cuda"),
+                                sparse)
+            maps = [diff_stats(np, r, g) for r, g in zip(ref, got)]
+            # each path's own bf16 tolerance: the bf16 stack's mean (phase
+            # 5; every grid stored in bf16), the bf16 gather conv's bounds
+            # (phase 4's small-width check; conv inputs rounded only)
+            if path == "bf16":
+                ratio = worst_ratio(dict(enumerate(maps)), "mean",
+                                    BF16_STACK_MEAN)
+                ok = ratio <= 1.0
+                gate = f"ratio to the {BF16_STACK_MEAN} mean {ratio:.4g}"
+            else:
+                ok = all(within_bf16_bounds(st) for st in maps)
+                gate = f"bounds {BF16_BOUNDS}"
+            log(f"model_zoo small shallow bottleneck {path}, card vs CPU, "
+                f"backbone maps: {json.dumps(maps)} ({gate}, passes {ok})")
+            res["small_bottleneck_bf16_maps"][path] = maps
+            res.setdefault("small_bf16_ok", {})[path] = ok
+    finally:
+        del bb_mod.BACKBONES[name]
+    first = next(iter(ZOO_COMBOS.values()))
+    models = small_models(mt, cfg_mod, make_synthetic_scene, np, "dense",
+                          512, extra=first)
+    res["small_options"] = worst(*models)
+    gpu_model = models[3]
+    real = Mask3D._squeezed
+
+    def no_embed_in_round_2(self, key, li, feats):
+        if self is gpu_model and key.startswith("1_"):
+            return self.squeeze[key](feats)
+        return real(self, key, li, feats)
+
+    Mask3D._squeezed = no_embed_in_round_2
+    try:
+        res["small_options_fault"] = worst(*models)
+    finally:
+        Mask3D._squeezed = real
+    log(f"model_zoo small width, card vs CPU max|diff|/max(1,std): shallow "
+        f"bottleneck {res['small_bottleneck']:.3g} (printed; gated in "
+        f"phase 4's form above), first decoder combination "
+        f"{res['small_options']:.3g} (tol 1e-4); planted fault (level "
+        f"embedding skipped in round 2 on the card) "
+        f"{res['small_options_fault']:.3g} (must be > 1e-4)")
+    assert res["small_bottleneck_fp32_gate"] <= 1.0 and \
+        res["small_options"] <= 1e-4, res
+    assert res["small_options_fault"] > 1e-4, res
+    assert all(res["small_bf16_ok"].values()), res["small_bf16_ok"]
+
+
+def zoo_cli(torch, np, mt, counters, card, res):
+    """(d): `cli test` on the card with Res16UNet50, learned queries and a
+    set of decoder layers a round, one batch of written test scenes: the
+    metric keys, the launches around the call, seconds by layer."""
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = os.path.join(tmp, "data")
+        write_entry_dataset(np, root, n_test=ENTRY_BATCH)
+        run = cli_test_recorded(torch, counters, [
+            "--device", "cuda", f"data.data_root={root}",
+            f"data.test_batch_size={ENTRY_BATCH}",
+            f"general.save_dir={tmp}/saved", *ZOO_CLI])
+    assert run["rc"] == 0, run["rc"]
+    metrics = run["seen"]["metrics"]
+    assert set(metrics) == entry_metric_keys("test"), sorted(metrics)
+    assert run["launches"]["masked_attention"] == 12 and \
+        run["launches"]["row_gather"] == 13 and \
+        run["launches"]["lsap"] == 1, run["launches"]
+    per_batch, _, _ = entry_batch_seconds(torch, mt, run, "native")
+    log(f"model_zoo cli test {' '.join(ZOO_CLI)}: {run['secs']:.2f} s, "
+        f"launches {run['launches']}, peak {run['peak']:.2f} GiB; metric "
+        f"keys {sorted(metrics)}; seconds a batch {json.dumps(per_batch)} "
+        f"on {card}")
+    res["cli"] = dict(secs=run["secs"], launches=run["launches"],
+                      peak_gib=run["peak"], per_batch=per_batch)
+
+
+def run_model_zoo(torch, np, mt, cfg_mod, counters, by_key, card, host,
+                  kmods, sparse):
+    """Phase 16 (see the module docstring); returns its numbers."""
+    rg, sc, dense_ops = kmods
+    res = {}
+    t = time.perf_counter()
+    shapes = zoo_full_width(torch, np, mt, cfg_mod, counters, by_key, card,
+                            host, sparse, res)
+    zoo_kernels(torch, rg, sc, dense_ops, host, cfg_mod, sparse, shapes,
+                res)
+    res["seconds"] = {"a": time.perf_counter() - t}
+    failed = []
+    for part, fn in (("b", lambda: zoo_options(torch, mt, cfg_mod, counters,
+                                                by_key, card, host, res)),
+                     ("c", lambda: zoo_small(torch, mt, cfg_mod, np, sparse,
+                                             res)),
+                     ("d", lambda: zoo_cli(torch, np, mt, counters, card,
+                                           res))):
+        t = time.perf_counter()
+        try:
+            fn()
+        except Exception:
+            # the other parts still run; the phase fails below
+            failed.append(part)
+            log(f"model_zoo ({part}) failed\n{traceback.format_exc()}",
+                file=sys.stderr)
+        res["seconds"][part] = time.perf_counter() - t
+    log(f"model_zoo seconds by part: {json.dumps(res['seconds'])}")
+    assert not failed, f"model_zoo parts failed: {failed}"
+    return res
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -4520,6 +4984,11 @@ def main():
         torch, np, mt, cfg_mod, counters, by_key, card, host))
     if parallel is None:
         failures.append("parallel did not run or failed a check")
+    zoo = phase("model_zoo", lambda: run_model_zoo(
+        torch, np, mt, cfg_mod, counters, by_key, card, host,
+        (rg, sc, dense_ops), sparse))
+    if zoo is None:
+        failures.append("model_zoo did not run or failed a check")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
@@ -4619,6 +5088,33 @@ def main():
                          "sparse_conv"],
                      hall_backward_l0=train_large[
                          "hall_sparse_conv_backward"]),
+        # the same kernels at Res16UNet101's shapes (phase model_zoo): the
+        # attention at the flagship's key lengths (the same levels), the
+        # row gather at the 1024-wide level-0 tap, the sparse conv at every
+        # shape of the bottleneck's gather_pallas forward
+        kernel_entry("masked_attention:model_zoo",
+                     "mask3d_tpu_torch/csrc/masked_attention.cu",
+                     "mask3d_tpu/ops/pallas_attention.py:102", attn_rows,
+                     attn_rows[-1] if attn_rows else None,
+                     zoo["paths"]["dense"]["launches"]["masked_attention"],
+                     **forward_sums(attn_rows)),
+        kernel_entry("row_gather:model_zoo",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198",
+                     zoo["row_gather"], zoo["row_gather"][0],
+                     zoo["paths"]["dense"]["launches"]["row_gather"]),
+        kernel_entry("row_gather_bf16:model_zoo",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198",
+                     zoo["row_gather_bf16"], zoo["row_gather_bf16"][0],
+                     zoo["paths"]["bf16"]["gather_dtypes"].get("bfloat16",
+                                                               0)),
+        kernel_entry("sparse_conv:model_zoo",
+                     "mask3d_tpu_torch/csrc/sparse_conv.cu",
+                     "mask3d_tpu/sparse/pallas_conv.py:316",
+                     zoo["sparse_conv"], heaviest(zoo["sparse_conv"]),
+                     zoo["paths"]["gather_pallas"]["launches"]["sparse_conv"],
+                     **forward_sums(zoo["sparse_conv"])),
         # no Pallas counterpart: JAX's device LSAP is lax.while_loop code;
         # its launches are the counted dense train step's (one a criterion)
         kernel_entry("lsap", "mask3d_tpu_torch/csrc/lsap.cu",
@@ -4646,7 +5142,12 @@ def main():
             "nccl_one_rank", "one_ulp_floor", "gates", "fit_vs_global_shapes",
             "ranks_seconds")}
         | {"ranks": [{k: v for k, v in r.items() if k != "fit"}
-                     for r in parallel["ranks"]]}}))
+                     for r in parallel["ranks"]]},
+        "model_zoo": {k: zoo[k] for k in (
+            "paths", "options", "small_bottleneck",
+            "small_bottleneck_fp32_gate", "small_bottleneck_bf16_maps",
+            "small_options",
+            "small_options_fault", "cli", "seconds")}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

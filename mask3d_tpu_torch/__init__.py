@@ -8,7 +8,8 @@ Entry points (each takes `device`, default "cuda"; a CUDA request without
 CUDA raises):
     build_model(cfg, device, seed) -> Mask3D with seeded random weights
     collate(items, device, **collate_kwargs) -> HostBatch
-    infer(model, batch, cfg, aux_masks, device) -> (Mask3DOutput, overflow)
+    infer(model, batch, cfg, aux_masks, device, generator) -> (Mask3DOutput,
+        overflow)
     train.loop.init_state(cfg, example, seed, device) -> TrainState
     train.loop.make_train_step(cfg, criterion, device) -> train_step
     python -m mask3d_tpu_torch.cli train|test [--device cuda|cpu] <overrides>

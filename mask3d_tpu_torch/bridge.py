@@ -8,8 +8,16 @@ Layout conversions:
   [Cin, Cout, 2, 2, 2], no flip (`F.conv_transpose3d` meets the
   out[2i+d] = in[i] @ w[d] contract as it is);
 - backbone `<name>_scale`/`<name>_bias` -> `norms.<name>.weight/.bias`;
+- a squeeze-excitation gate's `<block>_se_fc{1,2}_kernel` [in, out] and
+  `_bias` -> `se.<block>.fc{1,2}.weight` [out, in] and `.bias`;
+- the ResUNet head's `final_conv2_bias` -> `convs.final_conv2.bias`;
 - Flax `Dense` kernels [in, out] -> `nn.Linear` weights [out, in];
-- LayerNorm `scale` -> `weight`.
+- LayerNorm `scale` -> `weight`;
+- the decoder's raw parameters `query_feat`, `query_pos` and `level_embed`
+  keep their names and layouts.
+
+`backbone_from_flax` / `backbone_to_flax` do the same for a standalone
+backbone's parameters (a ResUNet's, say), without the `backbone.` prefix.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ _LAYER_CHILDREN = {
 }
 _LAYER_PREFIX = {"cross": "cross", "self": "self_attn", "ffn": "ffn",
                  "squeeze": "squeeze"}
+# the decoder's parameters that are no module's: learned queries and the
+# level embedding
+_RAW_PARAMS = ("query_feat", "query_pos", "level_embed")
 
 
 def flatten(tree, prefix=()):
@@ -43,10 +54,22 @@ def _backbone_leaf(name: str, arr: np.ndarray):
     if m is None:
         raise KeyError(f"unmapped backbone leaf {name}")
     base, kind = m.groups()
+    se = re.fullmatch(r"(.+)_se_(fc[12])", base)
+    if se:
+        key = f"backbone.se.{se.group(1)}.{se.group(2)}"
+        if kind == "kernel" and arr.ndim == 2:
+            return f"{key}.weight", arr.T
+        if kind == "bias" and arr.ndim == 1:
+            return f"{key}.bias", arr
+        raise KeyError(f"unmapped backbone leaf {name} {arr.shape}")
+    if kind == "bias" and base.startswith("final_conv"):
+        return f"backbone.convs.{base}.bias", arr
     if kind == "scale":
         return f"backbone.norms.{base}.weight", arr
     if kind == "bias":
         return f"backbone.norms.{base}.bias", arr
+    if arr.ndim != 3:
+        raise KeyError(f"unmapped backbone leaf {name} {arr.shape}")
     kvol, cin, cout = arr.shape
     k = round(kvol ** (1.0 / 3.0))
     if k ** 3 != kvol:
@@ -59,6 +82,8 @@ def _backbone_leaf(name: str, arr: np.ndarray):
 def _param_leaf(path):
     """Port state_dict key and layout fn for one non-backbone leaf."""
     *mods, leaf = path
+    if not mods and leaf in _RAW_PARAMS:
+        return leaf, lambda a: a
     out = []
     m = re.fullmatch(r"(cross|self|ffn|squeeze)_(\d+)_(\d+)", mods[0])
     if m:
@@ -139,10 +164,22 @@ def _flax_leaf(key: str, arr: np.ndarray) -> Tuple[str, tuple, np.ndarray]:
     if key == "gauss_B":
         return "buffers", ("gauss_B",), arr
     parts = key.split(".")
+    if key in _RAW_PARAMS:
+        return "params", (key,), arr
     if parts[0] == "backbone":
+        if len(parts) == 5 and parts[1] == "se" and parts[3] in ("fc1",
+                                                                 "fc2"):
+            leaf = {"weight": "kernel", "bias": "bias"}.get(parts[4])
+            if leaf is None:
+                raise KeyError(f"unmapped port key {key}")
+            return "params", ("backbone", f"{parts[2]}_se_{parts[3]}_"
+                              f"{leaf}"), arr.T if leaf == "kernel" else arr
         if len(parts) != 4 or parts[1] not in ("convs", "norms"):
             raise KeyError(f"unmapped port key {key}")
         name, kind = parts[2], parts[3]
+        if parts[1] == "convs" and kind == "bias" and \
+                name.startswith("final_conv"):
+            return "params", ("backbone", f"{name}_bias"), arr
         if parts[1] == "norms":
             leaf = {"weight": "scale", "bias": "bias"}.get(kind)
             if leaf is None:
@@ -199,3 +236,16 @@ def to_flax(state_dict) -> Dict[str, dict]:
             raise KeyError(f"two port keys map to {col}/{'/'.join(path)}")
         node[path[-1]] = flax_val
     return out
+
+
+def backbone_from_flax(params) -> Dict[str, torch.Tensor]:
+    """A standalone backbone's Flax `params` (a Res16UNet's or a
+    ResUNet's, leaves at the top) -> its state_dict."""
+    sd = from_flax({"params": {"backbone": params}})
+    return {k[len("backbone."):]: v for k, v in sd.items()}
+
+
+def backbone_to_flax(state_dict) -> Dict[str, np.ndarray]:
+    """The inverse of `backbone_from_flax`."""
+    return to_flax({f"backbone.{k}": v for k, v in state_dict.items()}
+                   )["params"]["backbone"]

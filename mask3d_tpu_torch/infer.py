@@ -70,12 +70,14 @@ def check_unit_features(cfg, batch: DeviceBatch):
 
 # from mask3d_tpu/train/loop.py:458-479 make_eval_step (forward half)
 def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
-          device="cuda") -> Tuple[Mask3DOutput, torch.Tensor]:
+          device="cuda", generator=None) -> Tuple[Mask3DOutput, torch.Tensor]:
     """Returns (model output, overflow) where `overflow` is a bool tensor:
     some pyramid level of some item exceeded its capacity, or (bricked)
     the scene has more occupied level-0 bricks than `model.brick_capacity`.
     A batch whose `grid_dims` is None runs the gather impls on the sorted
-    pyramid."""
+    pyramid. `generator` (a `torch.Generator` on `device`) draws the
+    queries of a `random_queries` / `random_query_both` model, which
+    raises without one."""
     _check_impl(model, cfg)
     check_unit_features(cfg, batch)
     dev = resolve_device(device)
@@ -86,7 +88,7 @@ def infer(model: Mask3D, batch: DeviceBatch, cfg, aux_masks: bool = False,
             level_capacities(cfg, batch.capacity), batch.grid_dims,
             **_sb_kwargs(cfg))
         out = model(sb, batch.feats, batch.coords.float(), batch.grid_dims,
-                    aux_masks=aux_masks)
+                    aux_masks=aux_masks, generator=generator)
         return out, sb.any_overflow()
 
 
@@ -158,10 +160,24 @@ def make_eval_step(cfg, model: Mask3D, criterion, device="cuda"):
     `data.prediction_label_offset`, and `batch_overflow` (1 where a pyramid
     level of some item overflowed its capacity, `loop.py:241`). Returns
     (pred_class, pred_masks, losses) on `device`; the criterion's matching
-    is the one host round trip."""
+    is the one host round trip.
+
+    A model whose queries are drawn at random cannot be scored: the JAX
+    package's eval step passes no rng for the draws
+    (`mask3d_tpu/train/loop.py:468-471`), so the step raises a ValueError
+    for `random_queries` / `random_query_both` (`infer(generator=)` runs
+    such a forward)."""
     dev = resolve_device(device)
 
     def eval_step(batch: DeviceBatch):
+        if model.query_mode in ("random", "random_both"):
+            opt = ("random_queries" if model.query_mode == "random"
+                   else "random_query_both")
+            raise ValueError(
+                f"model.{opt}=true draws the queries at random, and the "
+                f"eval step has no generator for them (the JAX package's "
+                f"eval step passes no rng either): score a model with FPS "
+                f"or learned queries, or call infer(generator=)")
         batch = batch.to(dev)
         out, overflow = infer(model, batch, cfg, aux_masks=True, device=dev)
         with torch.inference_mode():

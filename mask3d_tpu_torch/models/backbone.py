@@ -36,10 +36,18 @@ the five pyramid outputs as rows at strides [16, 8, 4, 2, 1] (whole on
 every rank under sp), and the final level-0 grid for the pooled pyramid
 (this rank's x-slab under sp; None on the other impls).
 
+Blocks are basic (two 3^3 convs) or, on `Res16UNet50`/`101`, bottlenecks
+(1x1 reduce, 3^3, 1x1 expand x4, so every feature map is PLANES x 4 wide),
+optionally with a squeeze-excitation gate (`SE`, the ResUNet zoo's
+`SEResUNet*` in `models/resunet.py`). `fold_small_stages` runs the
+identity-residual stages of <= 32 channels on `dense` in the z-folded
+layout (`dense_ops.dense_basic_stage_folded`). The int8 stack and `sp_axis`
+run basic blocks without the gate only; the others raise.
+
 Parameters are named after the JAX package's (`conv0p1s1`, `bn0`,
 `block1_0_conv1`, `block1_0_norm1`, ...): `convs[name].weight` holds the
-kernel in PyTorch's layout and `norms[name]` the InstanceNorm gamma/beta.
-Only basic-block variants without squeeze-excitation are ported.
+kernel in PyTorch's layout, `norms[name]` the InstanceNorm gamma/beta and
+`se[block].fc1`/`fc2` a gate's two linear layers.
 """
 
 from __future__ import annotations
@@ -62,13 +70,16 @@ IMPLS = ("dense", "gather", "gather_pallas", "bricked")
 
 
 class Conv(nn.Module):
-    """A bias-free conv weight: [Cout, Cin, k, k, k], or [Cin, Cout, 2, 2, 2]
-    for a transposed conv."""
+    """A conv weight: [Cout, Cin, k, k, k], or [Cin, Cout, 2, 2, 2] for a
+    transposed conv; a bias [Cout] only where asked (the ResUNet head's
+    last 1x1)."""
 
-    def __init__(self, k: int, cin: int, cout: int, transpose=False):
+    def __init__(self, k: int, cin: int, cout: int, transpose=False,
+                 bias: bool = False):
         super().__init__()
         shape = (cin, cout) if transpose else (cout, cin)
         self.weight = nn.Parameter(torch.empty(shape + (k, k, k)))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.fan_in = k ** 3 * cin
 
 
@@ -156,6 +167,14 @@ class _GatherCtx:
     def rows(self, x, level_idx):
         return x
 
+    # from mask3d_tpu/models/backbone.py:140 global_mean
+    def global_mean(self, x, level_idx):
+        """Per-item mean over the valid rows -> [B, 1, C]."""
+        valid = self.sb.levels[level_idx].valid[..., None]
+        s = torch.where(valid, x, 0).sum(dim=1, keepdim=True)
+        cnt = valid.to(x.dtype).sum(dim=1, keepdim=True).clamp_min(1)
+        return s / cnt
+
 
 # from mask3d_tpu/models/backbone.py:150 _DenseCtx (no sp)
 class _DenseCtx:
@@ -233,6 +252,14 @@ class _DenseCtx:
         return dense_ops.gather_rows(x, self.sb.levels[level_idx],
                                      self.grid_dims[level_idx])
 
+    # from mask3d_tpu/models/backbone.py:314 global_mean
+    def global_mean(self, x, level_idx):
+        """Per-item mean over the occupied cells -> [B, 1, 1, 1, C]."""
+        occ = self.occ[level_idx]
+        s = (x * occ).sum(dim=(1, 2, 3), keepdim=True)
+        cnt = occ.to(x.dtype).sum(dim=(1, 2, 3), keepdim=True).clamp_min(1)
+        return s / cnt
+
 
 # from mask3d_tpu/models/backbone.py:150 _DenseCtx (sp_axis set under an
 # active mesh that carries it)
@@ -303,8 +330,7 @@ class _SlabCtx(_DenseCtx):
                                           self.grid_dims[level_idx], s)
 
 
-# from mask3d_tpu/models/backbone.py:324 _BrickCtx (no global_mean: the
-# port has no squeeze-excitation blocks)
+# from mask3d_tpu/models/backbone.py:324 _BrickCtx
 class _BrickCtx:
     """Bricked execution: level 0 as occupied dense bricks
     (`sparse/brick_ops.py`, [NB + 1, bx, by, bz, C]), every coarser level a
@@ -384,19 +410,51 @@ class _BrickCtx:
         return dense_ops.gather_rows(x, self.sb.levels[level_idx],
                                      self.grid_dims[level_idx])
 
+    # from mask3d_tpu/models/backbone.py:433 global_mean
+    def global_mean(self, x, level_idx):
+        """The scene's mean over its occupied cells (B=1) ->
+        [1, 1, 1, 1, C]: level 0 over the bricks' occupied cells."""
+        if level_idx == 0:
+            occ = self.occ_b.to(x.dtype)
+            s = (x * occ).sum(dim=(0, 1, 2, 3))
+            return (s / occ.sum().clamp_min(1))[None, None, None, None]
+        occ = self.occ[level_idx].to(x.dtype)
+        s = (x * occ).sum(dim=(1, 2, 3), keepdim=True)
+        return s / occ.sum(dim=(1, 2, 3), keepdim=True).clamp_min(1)
 
-# from mask3d_tpu/models/backbone.py:447 Res16UNetBase
-class Res16UNetBase(nn.Module):
-    PLANES: Sequence[int] = (32, 64, 128, 256, 256, 256, 256, 256)
-    LAYERS: Sequence[int] = (2, 2, 2, 2, 2, 2, 2, 2)
+
+class SE(nn.Module):
+    """A squeeze-excitation gate's two linear layers over C channels,
+    reduced to max(C // reduction, 1)."""
+
+    def __init__(self, c: int, reduction: int):
+        super().__init__()
+        r = max(c // reduction, 1)
+        self.fc1 = nn.Linear(c, r)
+        self.fc2 = nn.Linear(r, c)
+
+
+class _Backbone(nn.Module):
+    """What the Res16UNet and ResUNet families share: the execution
+    contexts, the residual blocks (basic or bottleneck, with or without
+    the squeeze-excitation gate), the stages and the parameters, named
+    after the JAX package's. `BLOCK`, `EXPANSION` and `SE` are set by the
+    variant."""
+
+    PLANES: Sequence[int] = ()
+    LAYERS: Sequence[int] = ()
     INIT_DIM: int = 32
+    BLOCK: str = "basic"  # "basic" | "bottleneck"
+    EXPANSION: int = 1  # 4 for the bottleneck variants
+    SE: bool = False
+    SE_REDUCTION: int = 16
 
-    def __init__(self, in_channels: int = 1, conv1_kernel_size: int = 5,
-                 impl: str = "dense", compute_dtype=None,
-                 int8_stride1: bool = False, int8_residual: bool = False,
-                 int8_act_sigma: float = 0.0, pallas_chain: bool = False,
-                 unit_features: bool = False, brick_dims=(16, 16, 8),
-                 brick_capacity: int = 8192, sp_axis=None):
+    def __init__(self, in_channels: int, conv1_kernel_size: int, impl: str,
+                 compute_dtype=None, int8_stride1: bool = False,
+                 int8_residual: bool = False, int8_act_sigma: float = 0.0,
+                 pallas_chain: bool = False, unit_features: bool = False,
+                 brick_dims=(16, 16, 8), brick_capacity: int = 8192,
+                 sp_axis=None, fold_small_stages: bool = False):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
@@ -407,7 +465,6 @@ class Res16UNetBase(nn.Module):
                 f"model.sp_axis shards the dense backbone's fp32/bf16 grids "
                 f"only (backbone_impl={impl!r}, int8_stride1="
                 f"{int8_stride1}, pallas_chain={pallas_chain})")
-        self.sp_axis = sp_axis
         if impl != "dense" and (int8_stride1 or pallas_chain):
             raise NotImplementedError(
                 "the int8 stack (int8_stride1, pallas_chain) runs on the "
@@ -416,6 +473,20 @@ class Res16UNetBase(nn.Module):
         if impl in ("gather", "gather_pallas") and unit_features:
             raise NotImplementedError(
                 "unit_features is ported on the dense and bricked impls")
+        name = type(self).__name__
+        if self.BLOCK == "bottleneck" and (int8_stride1 or int8_residual
+                                           or pallas_chain):
+            widest = max(self.PLANES) * self.EXPANSION
+            raise NotImplementedError(
+                f"the int8 stack (int8_stride1, int8_residual, pallas_chain)"
+                f" on the bottleneck {name}: its 1x1 expands write "
+                f"{widest} channels, past the int8 conv's plan() (Cout <= "
+                f"384)")
+        if (self.BLOCK == "bottleneck" or self.SE) and sp_axis is not None:
+            raise NotImplementedError(
+                f"model.sp_axis with {name}: the slab context runs the "
+                f"basic blocks without squeeze-excitation only")
+        self.sp_axis = sp_axis
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
         self.impl = impl
@@ -425,54 +496,89 @@ class Res16UNetBase(nn.Module):
         self.int8_act_sigma = float(int8_act_sigma)
         self.pallas_chain = pallas_chain
         self.unit_features = unit_features
+        self.fold_small_stages = fold_small_stages
         self.brick_dims = tuple(int(d) for d in brick_dims)
         self.brick_capacity = int(brick_capacity)
         self.convs = nn.ModuleDict()
         self.norms = nn.ModuleDict()
-        p, lay, c0 = self.PLANES, self.LAYERS, self.INIT_DIM
-        self._conv("conv0p1s1", conv1_kernel_size, in_channels, c0)
-        self.norms["bn0"] = Norm(c0)
-        # input width of each encoder level's down conv and first block
-        enc_in = [c0, p[0], p[1], p[2]]
-        for i in range(4):
-            name = f"conv{i + 1}p{2 ** i}s2"
-            self._conv(name, 2, enc_in[i], enc_in[i])
-            self.norms[name.replace("conv", "bn")] = Norm(enc_in[i])
-            self._stage(i + 1, enc_in[i], p[i], lay[i])
-        # decoder: convtr{4..7}, stages 5..8 with skip concatenations
-        dec_in = [p[3], p[4], p[5], p[6]]
-        skips = [p[2], p[1], p[0], c0]
-        for i in range(4):
-            name = f"convtr{i + 4}p{2 ** (4 - i)}s2"
-            self._conv(name, 2, dec_in[i], p[4 + i], transpose=True)
-            self.norms[name.replace("convtr", "bntr")] = Norm(p[4 + i])
-            self._stage(i + 5, p[4 + i] + skips[i], p[4 + i], lay[4 + i])
+        self.se = nn.ModuleDict()
 
-    def _conv(self, name, k, cin, cout, transpose=False):
-        self.convs[name] = Conv(k, cin, cout, transpose)
+    def _conv(self, name, k, cin, cout, transpose=False, bias=False):
+        self.convs[name] = Conv(k, cin, cout, transpose, bias)
 
     def _stage(self, stage, cin, planes, n):
+        """The parameters of a stage of n blocks: basic (3^3, 3^3) or
+        bottleneck (1x1 reduce, 3^3, 1x1 expand to planes * EXPANSION), a
+        1x1 downsample of the residual where the width changes, and the
+        squeeze-excitation gate with `SE`."""
+        e = self.EXPANSION
         for i in range(n):
             name = f"block{stage}_{i}"
-            ci = cin if i == 0 else planes
-            self._conv(f"{name}_conv1", 3, ci, planes)
+            ci = cin if i == 0 else planes * e
+            if self.BLOCK == "bottleneck":
+                self._conv(f"{name}_conv1", 1, ci, planes)
+                self._conv(f"{name}_conv2", 3, planes, planes)
+                self._conv(f"{name}_conv3", 1, planes, planes * e)
+                self.norms[f"{name}_norm3"] = Norm(planes * e)
+            else:
+                self._conv(f"{name}_conv1", 3, ci, planes)
+                self._conv(f"{name}_conv2", 3, planes, planes)
             self.norms[f"{name}_norm1"] = Norm(planes)
-            self._conv(f"{name}_conv2", 3, planes, planes)
             self.norms[f"{name}_norm2"] = Norm(planes)
-            if ci != planes:
-                self._conv(f"{name}_downsample", 1, ci, planes)
-                self.norms[f"{name}_downsample_norm"] = Norm(planes)
+            if self.SE:
+                self.se[name] = SE(planes * e, self.SE_REDUCTION)
+            if ci != planes * e:
+                self._conv(f"{name}_downsample", 1, ci, planes * e)
+                self.norms[f"{name}_downsample_norm"] = Norm(planes * e)
 
     def init_weights(self, generator: torch.Generator):
-        """He-normal conv kernels (the JAX package's fan-in variance
-        scaling), unit gamma, zero beta."""
+        """He-normal conv kernels and gate weights (the JAX package's
+        fan-in variance scaling), zero conv and gate biases, unit gamma,
+        zero beta."""
         with torch.no_grad():
             for conv in self.convs.values():
                 conv.weight.normal_(0.0, math.sqrt(2.0 / conv.fan_in),
                                     generator=generator)
+                if conv.bias is not None:
+                    conv.bias.zero_()
+            for se in self.se.values():
+                for fc in (se.fc1, se.fc2):
+                    fc.weight.normal_(0.0, math.sqrt(2.0 / fc.in_features),
+                                      generator=generator)
+                    fc.bias.zero_()
             for norm in self.norms.values():
                 norm.weight.fill_(1.0)
                 norm.bias.zero_()
+
+    def _context(self, feats, sb: SparseBatch, grid_dims, int8: bool):
+        """(execution context, level-0 input) of one forward."""
+        if grid_dims is None and self.impl in ("dense", "bricked"):
+            raise ValueError(f"backbone_impl={self.impl} needs the batch's "
+                             f"static grid dims")
+        plan = (slab_plan(grid_dims, self.sp_axis) if self.impl == "dense"
+                else None)
+        unit = self.unit_features and self.in_channels == 1
+        if plan is not None:
+            ctx = _SlabCtx(sb, grid_dims, plan, sp_group(self.sp_axis),
+                           self.compute_dtype)
+            return ctx, (ctx.occ[0].to(feats.dtype) if unit
+                         else ctx.scatter(feats, 0))
+        if self.impl == "dense":
+            ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
+                            int8_stride1=self.int8_stride1 and int8,
+                            int8_act_sigma=self.int8_act_sigma,
+                            int8_residual=self.int8_residual)
+            # the scatter of unit features is the occupancy grid
+            return ctx, (ctx.occ[0].to(feats.dtype) if unit
+                         else ctx.scatter(feats, 0))
+        if self.impl == "bricked":
+            ctx = _BrickCtx(sb, grid_dims, self.compute_dtype,
+                            self.brick_dims, self.brick_capacity)
+            return ctx, (ctx.occ_b.to(feats.dtype) if unit
+                         else ctx.scatter(feats, 0))
+        ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas",
+                         compute_dtype=self.compute_dtype)
+        return ctx, ctx.scatter(feats, 0)
 
     # from mask3d_tpu/models/backbone.py:498 _act_bound
     def _act_bound(self, ctx, norm: Norm):
@@ -488,25 +594,26 @@ class Res16UNetBase(nn.Module):
     def _cat_bound(a, b):
         return None if a is None or b is None else torch.cat([a, b])
 
-    # from mask3d_tpu/models/backbone.py:539 _block
-    def _block(self, ctx, name, x, level_idx, bin_=None, want_q=False):
-        """BasicBlock: conv-norm-relu-conv-norm, residual (1x1 conv + norm
-        where the width changes), relu of the sum. `bin_` is the static
-        bound on |x|; returns (out, bound of out). `want_q`: the output may
-        come back as a QGrid (`int8_residual`)."""
+    # from mask3d_tpu/models/backbone.py:525 _se
+    def _se(self, ctx, name, x, level_idx):
+        """Squeeze-excitation: the item's mean over its occupied cells ->
+        fc1 -> relu -> fc2 -> sigmoid, a per-channel gate in (0, 1) that
+        multiplies x (empty cells stay 0)."""
+        se = self.se[name]
+        y = ctx.global_mean(x, level_idx).float()
+        y = torch.sigmoid(se.fc2(torch.relu(se.fc1(y))))
+        return x * y.to(x.dtype)
+
+    def _join(self, ctx, name, x, out, level_idx, bin_, bout, want_q):
+        """A block's tail: the gate (`SE`), the residual (1x1 conv + norm
+        where the width changes) and relu(out + residual)."""
+        if self.SE:
+            # a sigmoid gate in (0, 1): the bound stays a bound
+            out = self._se(ctx, name, out, level_idx)
         residual = x
-        n1, n2 = self.norms[f"{name}_norm1"], self.norms[f"{name}_norm2"]
-        out = ctx.conv3(x, self.convs[f"{name}_conv1"], level_idx,
-                        bound=bin_)
-        out = torch.relu(ctx.norm(out, n1, level_idx))
-        out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx,
-                        bound=self._act_bound(ctx, n1))
-        out = ctx.norm(out, n2, level_idx)
-        bout = self._act_bound(ctx, n2)
         if f"{name}_downsample" in self.convs:
             nd = self.norms[f"{name}_downsample_norm"]
-            residual = ctx.conv1x1(residual,
-                                   self.convs[f"{name}_downsample"],
+            residual = ctx.conv1x1(x, self.convs[f"{name}_downsample"],
                                    level_idx, bound=bin_)
             residual = ctx.norm(residual, nd, level_idx)
             bres = self._act_bound(ctx, nd)
@@ -516,52 +623,151 @@ class Res16UNetBase(nn.Module):
         return ctx.block_join(out, residual, level_idx, bound=bout,
                               want_q=want_q), bout
 
+    # from mask3d_tpu/models/backbone.py:539 _block
+    def _block(self, ctx, name, x, level_idx, bin_=None, want_q=False):
+        """BasicBlock: conv-norm-relu-conv-norm, the gate, the residual,
+        relu of the sum. `bin_` is the static bound on |x|; returns (out,
+        bound of out). `want_q`: the output may come back as a QGrid
+        (`int8_residual`)."""
+        n1, n2 = self.norms[f"{name}_norm1"], self.norms[f"{name}_norm2"]
+        out = ctx.conv3(x, self.convs[f"{name}_conv1"], level_idx,
+                        bound=bin_)
+        out = torch.relu(ctx.norm(out, n1, level_idx))
+        out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx,
+                        bound=self._act_bound(ctx, n1))
+        out = ctx.norm(out, n2, level_idx)
+        return self._join(ctx, name, x, out, level_idx, bin_,
+                          self._act_bound(ctx, n2), want_q)
+
+    # from mask3d_tpu/models/backbone.py:576 _block_bottleneck
+    def _block_bottleneck(self, ctx, name, x, level_idx, bin_=None,
+                          want_q=False):
+        """Bottleneck block: 1x1 reduce -> norm -> relu -> 3^3 -> norm ->
+        relu -> 1x1 expand (x EXPANSION) -> norm, then `_join`."""
+        n1, n2, n3 = (self.norms[f"{name}_norm{i}"] for i in (1, 2, 3))
+        out = ctx.conv1x1(x, self.convs[f"{name}_conv1"], level_idx,
+                          bound=bin_)
+        out = torch.relu(ctx.norm(out, n1, level_idx))
+        out = ctx.conv3(out, self.convs[f"{name}_conv2"], level_idx,
+                        bound=self._act_bound(ctx, n1))
+        out = torch.relu(ctx.norm(out, n2, level_idx))
+        out = ctx.conv1x1(out, self.convs[f"{name}_conv3"], level_idx,
+                          bound=self._act_bound(ctx, n2))
+        out = ctx.norm(out, n3, level_idx)
+        return self._join(ctx, name, x, out, level_idx, bin_,
+                          self._act_bound(ctx, n3), want_q)
+
     def _stage_widths(self, stage):
         """(cin, planes) of a stage, from its first block's conv1."""
         planes, cin = self.convs[f"block{stage}_0_conv1"].weight.shape[:2]
         return cin, planes
 
-    # from mask3d_tpu/models/backbone.py:617 _blocks_fused
-    def _blocks_fused(self, ctx, stage, x, level_idx, bin_):
-        """The whole stage through the fused int8 chain; the same
-        parameters as `_block`."""
+    def _stage_params(self, stage, keys):
+        """Per block of the stage: {w<key>: weight, g<key>, b<key>: norm
+        affine} for each (key, conv, norm) of `keys` the block has."""
         blocks = []
         for i in range(self.LAYERS[stage - 1]):
             name = f"block{stage}_{i}"
             blk = {}
-            for key, conv, norm in (("1", "conv1", "norm1"),
-                                    ("2", "conv2", "norm2"),
-                                    ("d", "downsample", "downsample_norm")):
+            for key, conv, norm in keys:
                 if f"{name}_{conv}" in self.convs:
                     nrm = self.norms[f"{name}_{norm}"]
-                    blk[f"w{key}"] = _kernel_rows(self.convs[f"{name}_{conv}"])
+                    blk[f"w{key}"] = self.convs[f"{name}_{conv}"].weight
                     blk[f"g{key}"], blk[f"b{key}"] = nrm.weight, nrm.bias
             blocks.append(blk)
+        return blocks
+
+    # from mask3d_tpu/models/backbone.py:617 _blocks_fused
+    def _blocks_fused(self, ctx, stage, x, level_idx, bin_):
+        """The whole stage through the fused int8 chain; the same
+        parameters as `_block`."""
+        blocks = self._stage_params(stage, (("1", "conv1", "norm1"),
+                                            ("2", "conv2", "norm2"),
+                                            ("d", "downsample",
+                                             "downsample_norm")))
+        for blk in blocks:
+            for key in [k for k in blk if k[0] == "w"]:
+                blk[key] = weight_rows(blk[key])
         y, bout = chain.fused_basic_stage(x, bin_, ctx.occ[level_idx],
                                           blocks, self.int8_act_sigma)
         # the chain emits bf16; downstream ops take the compute dtype
         return y.to(self.compute_dtype or torch.float32), bout
 
-    # from mask3d_tpu/models/backbone.py:650 _blocks (basic blocks, no SE,
-    # no sp, no fold_small_stages)
+    # from mask3d_tpu/models/backbone.py:673-701 fold_small_stages (the
+    # z-folded branch of _blocks)
+    def _blocks_folded(self, ctx, stage, x, level_idx, bin_):
+        """The whole stage in the z-folded layout
+        (`dense_ops.dense_basic_stage_folded`); the same parameters as
+        `_block`, so a checkpoint runs either way."""
+        blocks = self._stage_params(stage, (("1", "conv1", "norm1"),
+                                            ("2", "conv2", "norm2")))
+        y = dense_ops.dense_basic_stage_folded(
+            x, ctx.occ[level_idx], blocks, compute_dtype=self.compute_dtype)
+        bnd = bin_
+        for i in range(len(blocks)):
+            b2 = self._act_bound(ctx, self.norms[f"block{stage}_{i}_norm2"])
+            bnd = None if bnd is None or b2 is None else b2 + bnd
+        return y, bnd
+
+    # from mask3d_tpu/models/backbone.py:650 _blocks
     def _blocks(self, ctx, stage, x, level_idx, bin_=None):
         cin, planes = self._stage_widths(stage)
+        basic = self.BLOCK == "basic" and not self.SE
         # a bound exists only on the dense int8 path with static scales
-        if (self.pallas_chain and bin_ is not None
+        if (self.pallas_chain and basic and bin_ is not None
                 and not isinstance(x, QGrid)
                 and min(cin, planes) >= 96 and cin <= 128
                 and planes < 128  # the TPU layout's spare occupancy lane
                 and chain.padded_rows(ctx.grid_dims[level_idx])
                 >= chain.MIN_ROWS):
             return self._blocks_fused(ctx, stage, x, level_idx, bin_)
+        if (self.fold_small_stages and self.impl == "dense" and basic
+                and cin == planes <= 32 and self.sp_axis is None
+                and not isinstance(x, QGrid)):
+            return self._blocks_folded(ctx, stage, x, level_idx, bin_)
+        block = (self._block_bottleneck if self.BLOCK == "bottleneck"
+                 else self._block)
         # int8_residual: intermediate block outputs (read only by the next
         # block) may live as int8 QGrids; the stage output stays a grid
-        wq = getattr(ctx, "int8_res", False) and planes >= 96
+        wq = getattr(ctx, "int8_res", False) and \
+            planes * self.EXPANSION >= 96
         n = self.LAYERS[stage - 1]
         for i in range(n):
-            x, bin_ = self._block(ctx, f"block{stage}_{i}", x, level_idx,
-                                  bin_=bin_, want_q=wq and i < n - 1)
+            x, bin_ = block(ctx, f"block{stage}_{i}", x, level_idx,
+                            bin_=bin_, want_q=wq and i < n - 1)
         return x, bin_
+
+
+# from mask3d_tpu/models/backbone.py:447 Res16UNetBase
+class Res16UNetBase(_Backbone):
+    PLANES: Sequence[int] = (32, 64, 128, 256, 256, 256, 256, 256)
+    LAYERS: Sequence[int] = (2, 2, 2, 2, 2, 2, 2, 2)
+
+    def __init__(self, in_channels: int = 1, conv1_kernel_size: int = 5,
+                 impl: str = "dense", compute_dtype=None, **opts):
+        """`opts`: the int8 knobs, `unit_features`, the brick shape and
+        capacity, `sp_axis` and `fold_small_stages` (`_Backbone`)."""
+        super().__init__(in_channels, conv1_kernel_size, impl,
+                         compute_dtype, **opts)
+        p, lay, c0, e = self.PLANES, self.LAYERS, self.INIT_DIM, \
+            self.EXPANSION
+        self._conv("conv0p1s1", conv1_kernel_size, in_channels, c0)
+        self.norms["bn0"] = Norm(c0)
+        # input width of each encoder level's down conv and first block
+        enc_in = [c0, p[0] * e, p[1] * e, p[2] * e]
+        for i in range(4):
+            name = f"conv{i + 1}p{2 ** i}s2"
+            self._conv(name, 2, enc_in[i], enc_in[i])
+            self.norms[name.replace("conv", "bn")] = Norm(enc_in[i])
+            self._stage(i + 1, enc_in[i], p[i], lay[i])
+        # decoder: convtr{4..7}, stages 5..8 with skip concatenations
+        dec_in = [p[3] * e, p[4] * e, p[5] * e, p[6] * e]
+        skips = [p[2] * e, p[1] * e, p[0] * e, c0]
+        for i in range(4):
+            name = f"convtr{i + 4}p{2 ** (4 - i)}s2"
+            self._conv(name, 2, dec_in[i], p[4 + i], transpose=True)
+            self.norms[name.replace("convtr", "bntr")] = Norm(p[4 + i])
+            self._stage(i + 5, p[4 + i] + skips[i], p[4 + i], lay[4 + i])
 
     # from mask3d_tpu/models/backbone.py:725 __call__ of Res16UNetBase
     def forward(self, feats, sb: SparseBatch, grid_dims, int8: bool = True
@@ -571,37 +777,7 @@ class Res16UNetBase(nn.Module):
         says: the model's train mode (the JAX package builds its backbone
         with `int8_stride1 and is_eval`, mask3d.py:406). `grid_dims` None
         (a batch without static grid dims) runs on the gather impls only."""
-        if grid_dims is None and self.impl in ("dense", "bricked"):
-            raise ValueError(f"backbone_impl={self.impl} needs the batch's "
-                             f"static grid dims")
-        plan = (slab_plan(grid_dims, self.sp_axis) if self.impl == "dense"
-                else None)
-        if plan is not None:
-            ctx = _SlabCtx(sb, grid_dims, plan, sp_group(self.sp_axis),
-                           self.compute_dtype)
-            x = (ctx.occ[0].to(feats.dtype)
-                 if self.unit_features and self.in_channels == 1
-                 else ctx.scatter(feats, 0))
-        elif self.impl == "dense":
-            ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
-                            int8_stride1=self.int8_stride1 and int8,
-                            int8_act_sigma=self.int8_act_sigma,
-                            int8_residual=self.int8_residual)
-            if self.unit_features and self.in_channels == 1:
-                # the scatter of unit features is the occupancy grid
-                x = ctx.occ[0].to(feats.dtype)
-            else:
-                x = ctx.scatter(feats, 0)
-        elif self.impl == "bricked":
-            ctx = _BrickCtx(sb, grid_dims, self.compute_dtype,
-                            self.brick_dims, self.brick_capacity)
-            x = (ctx.occ_b.to(feats.dtype)
-                 if self.unit_features and self.in_channels == 1
-                 else ctx.scatter(feats, 0))
-        else:
-            ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas",
-                             compute_dtype=self.compute_dtype)
-            x = ctx.scatter(feats, 0)
+        ctx, x = self._context(feats, sb, grid_dims, int8)
 
         # Encoder. The stem is conv -> norm -> relu (the JAX package's
         # dense impl runs the same arithmetic as a fused z-folded conv).
@@ -653,6 +829,19 @@ class Res16UNet34(Res16UNetBase):
     LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
 
 
+# from mask3d_tpu/models/backbone.py:932 Res16UNet50
+class Res16UNet50(Res16UNetBase):
+    """The bottleneck variant: every feature map is PLANES x 4 wide."""
+
+    LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
+    BLOCK = "bottleneck"
+    EXPANSION = 4
+
+
+class Res16UNet101(Res16UNet50):
+    LAYERS = (2, 3, 4, 23, 2, 2, 2, 2)
+
+
 # from mask3d_tpu/models/backbone.py:856-929 Res16UNet14 .. (the basic-block
 # variants: name -> (base, PLANES, LAYERS or None for the base's))
 _VARIANTS = {
@@ -683,7 +872,8 @@ _VARIANTS = {
 }
 
 BACKBONES = {"Res16UNet14": Res16UNet14, "Res16UNet18": Res16UNet18,
-             "Res16UNet34": Res16UNet34}
+             "Res16UNet34": Res16UNet34, "Res16UNet50": Res16UNet50,
+             "Res16UNet101": Res16UNet101}
 for _name, (_base, _planes, _layers) in _VARIANTS.items():
     BACKBONES[_name] = type(_name, (_base,), dict(
         PLANES=_planes, LAYERS=_layers or _base.LAYERS))

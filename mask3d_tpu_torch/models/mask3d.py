@@ -11,7 +11,10 @@ level and reused by every shared decoder round. In train mode
 the caller's `torch.Generator`) unless `max_sample_size`, the int8 convs
 stay off, and `remat_backbone` recomputes the backbone in the backward.
 Every masked cross-attention runs the CUDA kernel of
-`ops/masked_attention.py`.
+`ops/masked_attention.py`. Every decoder option of the JAX package runs:
+FPS, random or learned queries (with the backbone's rows as FPS query
+features), pre-norm layers, a level embedding, and a set of layers a round
+(`shared_decoder=False`).
 Attention masks come from the pooled mask-feature pyramid: on the dense
 grids (pooling commutes with the linear mask head) on the dense backbone,
 by row-space average pooling over the PoolMaps on the gather backbones.
@@ -21,13 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mask3d_tpu_torch.device import resolve_device
-from mask3d_tpu_torch.models.backbone import BACKBONES, IMPLS
+from mask3d_tpu_torch.models.backbone import BACKBONES
 from mask3d_tpu_torch.models.posenc import fourier_embeddings, \
     sine_embeddings
 from mask3d_tpu_torch.ops.fps import furthest_point_sample
@@ -44,10 +48,14 @@ LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
 @dataclasses.dataclass
 class Mask3DOutput:
     """Every mask-module output in emission order; the last is the final
-    prediction."""
+    prediction. `sampled_coords` holds the FPS query positions (None
+    unless `non_parametric_queries`), `backbone_feats` the backbone's
+    stride-1 rows."""
 
     aux_pred_class: torch.Tensor  # f32[L, B, Q, C+1]
     aux_pred_masks: torch.Tensor  # f32[L or 1, B, N1, Q]
+    sampled_coords: Optional[torch.Tensor] = None  # f32[B, Q, 3]
+    backbone_feats: Optional[torch.Tensor] = None  # [B, N1, C_bb]
 
     @property
     def pred_class(self):
@@ -93,13 +101,19 @@ class MultiheadAttention(nn.Module):
         return self.out(out.reshape(b, nq, d))
 
 
-# from mask3d_tpu/models/mask3d.py:192 CrossAttentionLayer (post-norm)
+# from mask3d_tpu/models/mask3d.py:192 CrossAttentionLayer
 class CrossAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    """Masked cross-attention of the queries to a level's memory, with its
+    residual and LayerNorm after (post-norm) or the LayerNorm on the
+    queries first (`pre_norm`)."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 pre_norm: bool = False):
         super().__init__()
         self.attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
+        self.pre_norm = pre_norm
 
     def project_kv(self, memory, pos):
         """K attends to memory+pos, V to memory; constant across the
@@ -107,35 +121,49 @@ class CrossAttentionLayer(nn.Module):
         return self.attn.project_kv(memory + pos, memory)
 
     def forward(self, tgt, memory_mask, query_pos, kv_proj):
+        if self.pre_norm:
+            t2 = self.attn(self.norm(tgt) + query_pos, mask=memory_mask,
+                           kv_proj=kv_proj)
+            return tgt + self.drop(t2)
         t2 = self.attn(tgt + query_pos, mask=memory_mask, kv_proj=kv_proj)
         return self.norm(tgt + self.drop(t2))
 
 
-# from mask3d_tpu/models/mask3d.py:231 SelfAttentionLayer (post-norm)
+# from mask3d_tpu/models/mask3d.py:231 SelfAttentionLayer
 class SelfAttentionLayer(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0,
+                 pre_norm: bool = False):
         super().__init__()
         self.attn = MultiheadAttention(d_model, num_heads)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
+        self.pre_norm = pre_norm
 
     def forward(self, tgt, query_pos):
+        if self.pre_norm:
+            t2 = self.norm(tgt)
+            t2 = self.attn(t2 + query_pos, t2 + query_pos, t2)
+            return tgt + self.drop(t2)
         t2 = self.attn(tgt + query_pos, tgt + query_pos, tgt)
         return self.norm(tgt + self.drop(t2))
 
 
-# from mask3d_tpu/models/mask3d.py:252 FFNLayer (post-norm)
+# from mask3d_tpu/models/mask3d.py:252 FFNLayer
 class FFNLayer(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, pre_norm: bool = False):
         super().__init__()
         self.lin1 = nn.Linear(d_model, dim_feedforward)
         self.lin2 = nn.Linear(dim_feedforward, d_model)
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.drop = nn.Dropout(dropout)
+        self.pre_norm = pre_norm
 
     def forward(self, tgt):
-        t2 = self.lin2(self.drop(torch.relu(self.lin1(tgt))))
+        t2 = self.norm(tgt) if self.pre_norm else tgt
+        t2 = self.lin2(self.drop(torch.relu(self.lin1(t2))))
+        if self.pre_norm:
+            return tgt + self.drop(t2)
         return self.norm(tgt + self.drop(t2))
 
 
@@ -162,19 +190,31 @@ def sample_memory_idx(r, valid, s: int):
     return torch.argsort(r, dim=-1, stable=True)[:, :s]
 
 
-# from mask3d_tpu/models/mask3d.py:288 Mask3D (one set of decoder layers
-# shared by every round, post-norm layers)
+# from mask3d_tpu/models/mask3d.py:288 Mask3D
 class Mask3D(nn.Module):
     def __init__(self, num_classes=1, hidden_dim=128, dim_feedforward=1024,
                  num_queries=25, num_heads=8, num_decoders=3, dropout=0.0,
+                 pre_norm=False, use_level_embed=False,
                  normalize_pos_enc=True, positional_encoding_type="fourier",
                  gauss_scale=1.0, hlevels=(0, 1, 2, 3),
+                 non_parametric_queries=True, random_query_both=False,
+                 random_normal=False, random_queries=False,
+                 use_np_features=False,
                  sample_sizes=(200, 800, 3200, 12800, 51200),
-                 max_sample_size=False, backbone_name="Res16UNet34C",
-                 in_channels=1, conv1_kernel_size=5, backbone_impl="dense",
+                 max_sample_size=False, shared_decoder=True,
+                 backbone_name="Res16UNet34C", in_channels=1,
+                 conv1_kernel_size=5, backbone_impl="dense",
                  remat_backbone=False, sp_axis=None, **backbone_opts):
-        """`backbone_opts`: the backbone's compute dtype and int8 options
-        (`Res16UNetBase`)."""
+        """`backbone_opts`: the backbone's compute dtype, int8 options and
+        `fold_small_stages` (`models/backbone.py`). Queries come from FPS
+        positions (`non_parametric_queries`, the default; with
+        `use_np_features` their features are an MLP of the backbone's rows
+        there), else uniform or normal draws (`random_queries`,
+        `random_query_both` + `random_normal`, from the forward's
+        generator), else learned `query_feat`/`query_pos`. With
+        `shared_decoder=False` each of the `num_decoders` rounds has its
+        own layers (keys "{round}_{level}"); `use_level_embed` adds a
+        learned vector a level to the squeezed memory."""
         super().__init__()
         d = hidden_dim
         self.hidden_dim = d
@@ -186,6 +226,12 @@ class Mask3D(nn.Module):
         self.positional_encoding_type = positional_encoding_type
         self.gauss_scale = gauss_scale
         self.hlevels = tuple(hlevels)
+        self.non_parametric_queries = non_parametric_queries
+        self.random_queries = random_queries
+        self.random_query_both = random_query_both
+        self.random_normal = random_normal
+        self.use_np_features = use_np_features
+        self.shared_decoder = shared_decoder
         self.sample_sizes = tuple(sample_sizes)
         self.max_sample_size = max_sample_size
         self.remat_backbone = remat_backbone
@@ -193,29 +239,59 @@ class Mask3D(nn.Module):
         self.backbone = BACKBONES[backbone_name](
             in_channels=in_channels, conv1_kernel_size=conv1_kernel_size,
             impl=backbone_impl, sp_axis=sp_axis, **backbone_opts)
-        planes = self.backbone.PLANES
+        e = self.backbone.EXPANSION
+        planes = [c * e for c in self.backbone.PLANES]
         # channels of feature_maps[i] (strides 16, 8, 4, 2, 1)
         fm_channels = [planes[3], planes[4], planes[5], planes[6], planes[7]]
 
         self.mask_features_head = nn.Linear(planes[7], d)
-        self.query_proj_hidden = nn.Linear(d, d)
-        self.query_proj_out = nn.Linear(d, d)
-        # keys "0_{i}": the JAX package's shared-decoder names cross_0_{i} ...
-        keys = [f"0_{i}" for i in range(len(self.hlevels))]
+        if self.query_mode == "fps":
+            self.query_proj_hidden = nn.Linear(d, d)
+            self.query_proj_out = nn.Linear(d, d)
+            if use_np_features:
+                self.np_proj_hidden = nn.Linear(planes[7], d)
+                self.np_proj_out = nn.Linear(d, d)
+        elif self.query_mode == "parametric":
+            self.query_feat = nn.Parameter(torch.empty(num_queries, d))
+            self.query_pos = nn.Parameter(torch.empty(num_queries, d))
+        if use_level_embed:
+            self.level_embed = nn.Parameter(torch.empty(len(self.hlevels), d))
+        # keys "{round}_{level}": the JAX package's names cross_{d}_{i} ...;
+        # one round's set (round 0) when the rounds share their layers
+        n_sets = 1 if shared_decoder else num_decoders
+        keys = [f"{r}_{i}" for r in range(n_sets)
+                for i in range(len(self.hlevels))]
         self.cross = nn.ModuleDict(
-            {k: CrossAttentionLayer(d, num_heads, dropout) for k in keys})
+            {k: CrossAttentionLayer(d, num_heads, dropout, pre_norm)
+             for k in keys})
         self.self_attn = nn.ModuleDict(
-            {k: SelfAttentionLayer(d, num_heads, dropout) for k in keys})
+            {k: SelfAttentionLayer(d, num_heads, dropout, pre_norm)
+             for k in keys})
         self.ffn = nn.ModuleDict(
-            {k: FFNLayer(d, dim_feedforward, dropout) for k in keys})
+            {k: FFNLayer(d, dim_feedforward, dropout, pre_norm)
+             for k in keys})
         self.squeeze = nn.ModuleDict({
-            k: nn.Linear(fm_channels[h], d)
-            for k, h in zip(keys, self.hlevels)})
+            k: nn.Linear(fm_channels[self.hlevels[int(k.split("_")[1])]], d)
+            for k in keys})
         self.decoder_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.mask_embed_hidden = nn.Linear(d, d)
         self.mask_embed_out = nn.Linear(d, d)
         self.class_embed_head = nn.Linear(d, num_classes + 1)
         self.register_buffer("gauss_B", torch.zeros(3, d // 2))
+
+    @property
+    def query_mode(self) -> str:
+        """How the queries start (the JAX package's order of precedence,
+        mask3d.py:539-572): "fps", "random" (uniform positions, zero
+        features), "random_both" (features and positions drawn) or
+        "parametric"."""
+        if self.non_parametric_queries:
+            return "fps"
+        if self.random_queries:
+            return "random"
+        if self.random_query_both:
+            return "random_both"
+        return "parametric"
 
     def init_weights(self, generator: torch.Generator):
         """Seeded random weights: He-normal backbone kernels, Glorot-uniform
@@ -236,6 +312,11 @@ class Mask3D(nn.Module):
                     mod.bias.zero_()
             self.gauss_B.normal_(0.0, 1.0, generator=generator)
             self.gauss_B.mul_(self.gauss_scale)
+            # unit-normal learned queries and level embeddings
+            for name in ("query_feat", "query_pos", "level_embed"):
+                if hasattr(self, name):
+                    getattr(self, name).normal_(0.0, 1.0,
+                                                generator=generator)
 
     def _pos_enc(self, xyz, mins, maxs):
         if self.positional_encoding_type == "fourier":
@@ -261,7 +342,8 @@ class Mask3D(nn.Module):
         coordinates, the PE/FPS positions). `aux_masks=False` skips the
         auxiliary full-resolution mask logits; `aux_pred_masks` then holds
         only the final prediction. `generator` (a `torch.Generator` on the
-        model's device) draws the sampled memories of train mode.
+        model's device) draws the sampled memories of train mode and, in
+        either mode, the random queries (drawn before the memories).
         `phase_mark(name)` is called at each phase boundary of the JAX
         package's markers (mask3d.py:414-735): "backbone_part1",
         "backbone_part2", "pos_enc", "queries", then "decoder_<d>" after
@@ -342,15 +424,8 @@ class Mask3D(nn.Module):
                           if li in pe_levels else None)
         mark("pos_enc")
 
-        # Query initialization: FPS positions -> PE -> MLP.
-        fps_idx = furthest_point_sample(coords_pyr[0], valid0,
-                                        self.num_queries)
-        sampled = torch.gather(coords_pyr[0], 1,
-                               fps_idx[..., None].expand(-1, -1, 3))
-        qp = self._pos_enc(sampled, *minmax_pyr[0])
-        qp = torch.relu(self.query_proj_hidden(qp))
-        query_pos = torch.relu(self.query_proj_out(qp))
-        queries = torch.zeros_like(query_pos)
+        queries, query_pos, sampled = self._queries(
+            bb_out, coords_pyr[0], valid0, minmax_pyr[0], generator)
         mark("queries")
 
         def mask_module(qs, num_pooling_steps, ret_attn=True,
@@ -376,15 +451,16 @@ class Mask3D(nn.Module):
                 out_class, out_masks, attn = mask_module(
                     queries, lvl, ret_masks=aux_masks)
                 level = sb.levels[lvl]
-                key = f"0_{li}"
+                key = f"{0 if self.shared_decoder else dec}_{li}"
                 cross = self.cross[key]
                 cap = level.capacity
                 s = self._sampled(hlevel, cap)
                 if s == cap:
                     # The full padded level: its squeezed memory and K/V
-                    # are the same in every shared-decoder round.
+                    # are the same in every round that shares the layers.
                     if key not in kv_cache:
-                        src = self.squeeze[key](feature_maps[hlevel].float())
+                        src = self._squeezed(key, li,
+                                             feature_maps[hlevel].float())
                         kv_cache[key] = cross.project_kv(src, pe_pyr[lvl])
                     kvp = kv_cache[key]
                     n_rows = level.count
@@ -406,7 +482,8 @@ class Mask3D(nn.Module):
                         return torch.gather(
                             x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
-                    src = self.squeeze[key](take(feature_maps[hlevel].float()))
+                    src = self._squeezed(key, li,
+                                         take(feature_maps[hlevel].float()))
                     kvp = cross.project_kv(src, take(pe_pyr[lvl]))
                     attn = take(attn)  # [B, S, Q]
                     n_rows = torch.clamp(level.count, max=s)
@@ -431,23 +508,76 @@ class Mask3D(nn.Module):
         predictions_class.append(out_class)
         predictions_masks.append(out_masks)
         return Mask3DOutput(aux_pred_class=torch.stack(predictions_class),
-                            aux_pred_masks=torch.stack(predictions_masks))
+                            aux_pred_masks=torch.stack(predictions_masks),
+                            sampled_coords=sampled, backbone_feats=bb_out)
+
+    def _squeezed(self, key, li, feats):
+        """A level's memory projected to the hidden width, plus its level
+        embedding with `use_level_embed`."""
+        src = self.squeeze[key](feats)
+        if hasattr(self, "level_embed"):
+            src = src + self.level_embed[li]
+        return src
+
+    def _draw(self, shape, generator, normal: bool, device):
+        """Uniform (or normal) draws of `shape` [B, ...] for this dp rank's
+        items: every rank draws the global batch's and keeps its items'
+        (the one-process draws, as the sampled memories do)."""
+        if generator is None:
+            opt = ("random_queries" if self.query_mode == "random"
+                   else "random_query_both")
+            raise ValueError(f"model.{opt} draws the queries at random: "
+                             f"the forward needs a torch.Generator "
+                             f"(generator=)")
+        n_dp, dp_rank, _ = dp_coords()
+        b = shape[0]
+        fn = torch.randn if normal else torch.rand
+        return fn((b * n_dp,) + tuple(shape[1:]), generator=generator,
+                  device=device)[dp_rank * b:(dp_rank + 1) * b]
+
+    # from mask3d_tpu/models/mask3d.py:537-576 Query (initialization)
+    def _queries(self, bb_out, coords0, valid0, minmax0, generator):
+        """(queries, query_pos, FPS positions or None), each [B, Q, D]."""
+        b, q, d = bb_out.shape[0], self.num_queries, self.hidden_dim
+        dev = bb_out.device
+        mode = self.query_mode
+        if mode == "fps":
+            # FPS positions -> PE -> MLP; features zero, or an MLP of the
+            # backbone's rows there
+            fps_idx = furthest_point_sample(coords0, valid0, q)
+            sampled = torch.gather(coords0, 1,
+                                   fps_idx[..., None].expand(-1, -1, 3))
+            qp = torch.relu(self.query_proj_hidden(
+                self._pos_enc(sampled, *minmax0)))
+            query_pos = torch.relu(self.query_proj_out(qp))
+            if not self.use_np_features:
+                return torch.zeros_like(query_pos), query_pos, sampled
+            np_feats = torch.gather(
+                bb_out.float(), 1,
+                fps_idx[..., None].expand(-1, -1, bb_out.shape[-1]))
+            queries = self.np_proj_out(
+                torch.relu(self.np_proj_hidden(np_feats)))
+            return queries, query_pos, sampled
+        if mode == "random":
+            query_pos = self._draw((b, q, d), generator, False, dev) - 0.5
+            return torch.zeros_like(query_pos), query_pos, None
+        if mode == "random_both":
+            qpf = self._draw((b, q, 2 * d), generator, self.random_normal,
+                             dev)
+            if not self.random_normal:
+                qpf = qpf - 0.5
+            return qpf[..., :d], qpf[..., d:], None
+        queries = self.query_feat[None].expand(b, -1, -1)
+        return queries, self.query_pos[None].expand(b, -1, -1), None
 
 
-# model options the port has not fully ported -> the values it runs (the
-# same in train and eval mode)
+# the schedules of the JAX package's TPU sparse-conv kernel, which leave
+# its outputs as they are: the port runs its one CUDA kernel for each value
 _SUPPORTED_VALUES = {
-    "non_parametric_queries": (True,), "random_queries": (False,),
-    "random_query_both": (False,), "use_np_features": (False,),
-    "use_level_embed": (False,), "backbone_impl": IMPLS,
-    "compute_dtype": (None, "bfloat16"),
-    "pre_norm": (False,), "shared_decoder": (True,),
-    "fold_small_stages": (False,),
-    # schedules of the JAX package's TPU sparse-conv kernel, which leave its
-    # outputs as they are; the port runs its one CUDA kernel for each
     "pallas_conv_select": ("onehot", "gather"),
     "pallas_window_mode": ("per_offset", "grouped_dx"),
 }
+COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 
 
 def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
@@ -462,7 +592,11 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     train step takes micro-batches of one scene (`data.batch_size` equal to
     `trainer.grad_accum_steps`). `model.sp_axis` shards the `dense`
     backbone's grids over that axis of the active mesh (`parallel/mesh.py`;
-    a no-op without one); other impls and the int8 knobs raise with it."""
+    a no-op without one); other impls and the int8 knobs raise with it.
+    Every backbone of `models.backbone.BACKBONES` and every decoder option
+    builds; the bottleneck backbones (`Res16UNet50`/`101`) refuse the int8
+    knobs and `sp_axis` (`models/backbone.py`). Random queries are drawn
+    from the forward's `generator=`."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():
@@ -470,26 +604,36 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
             raise NotImplementedError(
                 f"model.{opt}={getattr(m, opt)!r} is not ported yet "
                 f"(the port runs {opt} in {supported!r})")
+    if m.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"model.compute_dtype={m.compute_dtype!r} is not ported (the "
+            f"port runs {tuple(COMPUTE_DTYPES)})")
     if m.backbone not in BACKBONES:
-        raise NotImplementedError(f"backbone {m.backbone} is not ported")
+        raise ValueError(f"unknown backbone {m.backbone!r} (the backbones "
+                         f"are {sorted(BACKBONES)})")
     model = Mask3D(
         num_classes=m.num_classes, hidden_dim=m.hidden_dim,
         dim_feedforward=m.dim_feedforward, num_queries=m.num_queries,
         num_heads=m.num_heads, num_decoders=m.num_decoders,
-        dropout=m.dropout, normalize_pos_enc=m.normalize_pos_enc,
+        dropout=m.dropout, pre_norm=m.pre_norm,
+        use_level_embed=m.use_level_embed,
+        normalize_pos_enc=m.normalize_pos_enc,
         positional_encoding_type=m.positional_encoding_type,
         gauss_scale=m.gauss_scale, hlevels=m.hlevels,
+        non_parametric_queries=m.non_parametric_queries,
+        random_query_both=m.random_query_both, random_normal=m.random_normal,
+        random_queries=m.random_queries, use_np_features=m.use_np_features,
         sample_sizes=m.sample_sizes, max_sample_size=m.max_sample_size,
-        backbone_name=m.backbone,
+        shared_decoder=m.shared_decoder, backbone_name=m.backbone,
         in_channels=cfg.data.in_channels,
         conv1_kernel_size=m.conv1_kernel_size,
         backbone_impl=m.backbone_impl, remat_backbone=m.remat_backbone,
-        compute_dtype=(torch.bfloat16 if m.compute_dtype == "bfloat16"
-                       else None),
+        compute_dtype=COMPUTE_DTYPES[m.compute_dtype],
         int8_stride1=m.int8_stride1, int8_residual=m.int8_residual,
         int8_act_sigma=m.int8_act_sigma, pallas_chain=m.pallas_chain,
         unit_features=m.unit_features, brick_dims=tuple(m.brick_dims),
         brick_capacity=m.brick_capacity, sp_axis=m.sp_axis,
+        fold_small_stages=m.fold_small_stages,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -157,6 +157,91 @@ def dense_conv_same_slab(x, weight, occ, slab, compute_dtype=None):
     return _mask(out, occ)
 
 
+def _fold(x):
+    """[B, X, Y, Z, C] -> the z-folded [B, Z*C, X, Y] (channel z*C + c)
+    that F.conv2d takes."""
+    b, gx, gy, gz, c = x.shape
+    return x.permute(0, 3, 4, 1, 2).reshape(b, gz * c, gx, gy)
+
+
+def _unfold(xf, gz):
+    """The z-folded [B, Z*C, X, Y] -> contiguous [B, X, Y, Z, C]."""
+    b, zc, gx, gy = xf.shape
+    return xf.reshape(b, gz, zc // gz, gx, gy).permute(0, 3, 4, 1, 2) \
+        .contiguous()
+
+
+def _zfold_weight(weight, gz):
+    """A k^3 weight [Cout, Cin, k, k, k] as the banded 2D weight
+    [Z*Cout, Z*Cin, k, k] of the z-folded conv: w2d[z_out*Cout + co,
+    z_in*Cin + ci, dx, dy] = weight[co, ci, dx, dy, z_in - z_out + k//2],
+    zero outside the band (so the fold adds exact-zero products only)."""
+    cout, cin, k = weight.shape[0], weight.shape[1], weight.shape[-1]
+    z = torch.arange(gz, device=weight.device)
+    # band[dz, z_in, z_out] = 1 iff z_in == z_out + dz - k // 2
+    band = torch.stack([z[:, None] == z[None, :] + dz - k // 2
+                        for dz in range(k)]).to(weight.dtype)
+    return torch.einsum("dio,fcxyd->oficxy", band, weight).reshape(
+        gz * cout, gz * cin, k, k)
+
+
+# from mask3d_tpu/sparse/dense_ops.py:259 _zfold_conv
+def _zfold_conv(xf, weight, gz):
+    """A k^3 same-stride conv as a banded 2D conv over the z-folded layout
+    [B, Z*Cin, X, Y] -> [B, Z*Cout, X, Y] (no mask): z lives in the
+    channels, so the contraction is (k^2 Z Cin) x (Z Cout)."""
+    k = weight.shape[-1]
+    return F.conv2d(xf, _zfold_weight(weight, gz), padding=k // 2)
+
+
+# from mask3d_tpu/sparse/dense_ops.py:294 dense_conv_same_zfold (no bias)
+def dense_conv_same_zfold(x, weight, occ, compute_dtype=None):
+    """`dense_conv_same` through the z-folded conv: the same function, the
+    banded weight's zeros aside."""
+    x, weight = _cast(x, weight, compute_dtype)
+    out = _unfold(_zfold_conv(_fold(x), weight, x.shape[3]), x.shape[3])
+    return _mask(out, occ)
+
+
+# from mask3d_tpu/sparse/dense_ops.py:353 dense_basic_stage_folded
+def dense_basic_stage_folded(x, occ, blocks, compute_dtype=None, eps=1e-5):
+    """A stack of identity-residual BasicBlocks (Cin == Cout == C) run
+    whole in the z-folded layout: one fold in, per block [banded conv ->
+    norm -> relu -> banded conv -> norm -> + residual -> relu], one unfold
+    out. The norm statistics are fold-aware (sums over x, y per folded
+    channel, then over z), as the JAX package's are; the result equals the
+    unfolded `dense_conv_same` / `dense_instance_norm` chain up to float
+    rounding. blocks: per block a dict of w1, g1, b1, w2, g2, b2 (weights
+    [C, C, k, k, k], norm affines [C])."""
+    b, gx, gy, gz, c = x.shape
+    dt = compute_dtype or x.dtype
+    xf = _fold(x.to(dt))
+    occf = occ[..., 0].permute(0, 3, 1, 2)  # [B, Z, X, Y]
+    occy = occf.to(dt).repeat_interleave(c, dim=1)  # [B, Z*C, X, Y]
+    cnt = occf.float().sum(dim=(1, 2, 3)).clamp_min(1.0)[:, None]  # [B, 1]
+
+    def norm(yf, gamma, beta):
+        """The masked norm's affine (k, t), tiled over the fold."""
+        ym = (yf * occy).float()
+        s1 = ym.sum(dim=(2, 3)).reshape(b, gz, c).sum(dim=1)
+        s2 = (ym * ym).sum(dim=(2, 3)).reshape(b, gz, c).sum(dim=1)
+        mean = s1 / cnt
+        var = (s2 / cnt - mean * mean).clamp_min(0.0)
+        rs = torch.rsqrt(var + eps)
+        kk = (rs * gamma).to(dt).repeat(1, gz)[..., None, None]
+        tt = (beta - mean * rs * gamma).to(dt).repeat(1, gz)[..., None, None]
+        return kk, tt
+
+    for blk in blocks:
+        y1 = _zfold_conv(xf, blk["w1"].to(dt), gz)
+        k1, t1 = norm(y1, blk["g1"], blk["b1"])
+        h = torch.relu(y1 * occy * k1 + occy * t1)
+        y2 = _zfold_conv(h, blk["w2"].to(dt), gz)
+        k2, t2 = norm(y2, blk["g2"], blk["b2"])
+        xf = torch.relu(y2 * occy * k2 + occy * t2 + xf)
+    return _unfold(xf, gz)
+
+
 def _pad_odd(x, value=0.0):
     """Right-pad odd spatial dims of [B, X, Y, Z, C] by one cell."""
     pads = (0, 0, 0, x.shape[3] % 2, 0, x.shape[2] % 2, 0, x.shape[1] % 2)

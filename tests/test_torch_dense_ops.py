@@ -194,3 +194,27 @@ def test_row_gather_matches_monotone_gather(case):
     got = row_gather(_t(src), _t(idx), _t(ok))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert jax.default_backend() == "cpu"
+
+
+def test_zfold_conv_and_folded_stage_match_jax():
+    """`dense_conv_same_zfold` against the JAX package's and the port's
+    unfolded conv, and a two-block `dense_basic_stage_folded` against the
+    JAX package's, on one grid (TOL); the JAX side jitted (an eager call
+    compiles each small op alone)."""
+    rng = np.random.default_rng(4)
+    x, occ = _grid(rng, 8)
+    w = rng.normal(size=(27, 8, 8)).astype(np.float32) / 8
+    got = T.dense_conv_same_zfold(_t(x), _conv_w(w, 3), _t(occ))
+    _close(jax.jit(J.dense_conv_same_zfold)(x, w, occ), got)
+    _close(T.dense_conv_same(_t(x), _conv_w(w, 3), _t(occ)).numpy(), got)
+    blocks = [dict(w1=rng.normal(size=(27, 8, 8)).astype(np.float32) / 8,
+                   w2=rng.normal(size=(27, 8, 8)).astype(np.float32) / 8,
+                   g1=rng.uniform(0.5, 1.5, 8).astype(np.float32),
+                   b1=rng.normal(0, 0.2, 8).astype(np.float32),
+                   g2=rng.uniform(0.5, 1.5, 8).astype(np.float32),
+                   b2=rng.normal(0, 0.2, 8).astype(np.float32))
+              for _ in range(2)]
+    tblocks = [{k: _conv_w(v, 3) if k[0] == "w" else _t(v)
+                for k, v in blk.items()} for blk in blocks]
+    _close(jax.jit(J.dense_basic_stage_folded)(x, occ, blocks),
+           T.dense_basic_stage_folded(_t(x), _t(occ), tblocks))

@@ -195,13 +195,16 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    "model.compute_dtype=float16", "model.pre_norm=true",
-    "model.backbone=Res16UNet50", "model.fold_small_stages=true",
+    "model.compute_dtype=float16",
+    "model.backbone=Res16UNet50 model.int8_stride1=true",
+    "model.backbone=Res16UNet101 model.pallas_chain=true",
+    "model.backbone=Res16UNet50 model.sp_axis=sp",
     "model.backbone_impl=bricked model.int8_stride1=true",
     "model.backbone_impl=gather model.pallas_chain=true"])
 def test_build_model_refuses_unported_options(override):
-    """Options the port has not ported raise instead of being ignored: the
-    z-folded stages, fp16, and the int8 stack off the dense path."""
+    """Options the port has not ported raise instead of being ignored:
+    fp16, the int8 stack and sequence parallelism on the bottleneck
+    backbones, and the int8 stack off the dense path."""
     import mask3d_tpu_torch as mt
     from mask3d_tpu_torch.config import Config, apply_overrides
     from tests.torch_parity import SMALL_OVERRIDES
