@@ -192,7 +192,7 @@ beside this script. Phases:
    The criteria of phases 8-11 match with this kernel (`lsap_method`'s
    default), one launch a criterion call, counted with the others.
 14. `preprocess`, the data-preparation path into `cli test` (host numpy
-   but (e)): (a) 6 raw Structured3D-layout scenes (PREP_SCENES: 4 test,
+   but (e)): (a) 4 raw Structured3D-layout scenes (PREP_SCENES: 2 test,
    one train, one validation) of 3x2 rooms with 200 mm walls and a door,
    one PREP_PANO depth panorama a room ray-cast against the room's box,
    written by the port's PNG writer with every row filter in turn; the C++
@@ -208,7 +208,7 @@ beside this script. Phases:
    `point_cloud_rasterized_{vs}.ply` equal to the records; (d)
    `analyze.main` and `kfold_splits`, their keys; (e) `cli test` on the
    card at each voxel size (`Config()` defaults, fp32 dense, seeded random
-   weights, one batch of the 4 test scenes, `run_test_entry`'s hooks): 12
+   weights, one batch of the 2 test scenes, `run_test_entry`'s hooks): 12
    attention, 13 row-gather and 1 LSAP launches, finite outputs, the
    metric keys; voxels a scene, bucket, seconds a batch by layer, points/s
    and peak GiB.
@@ -267,6 +267,32 @@ beside this script. Phases:
    tolerance. (d) `cli test` with
    ZOO_CLI on 8 written scenes (one batch): the metric keys, 12 / 13 / 1
    attention, row-gather and LSAP launches, seconds a batch by layer.
+17. `config_matrix`, the rest of `Config`: (a) Res16UNet101 at full width
+   on `dense` with `int8` and `int8_chain` (`profile_forward.CONFIGS`) on
+   phase 3's 8 scenes, one set of seeded weights: counted (attention 12,
+   gather 13, the int8 convs by shape, none a fused chain step: a
+   bottleneck runs the unfused int8 blocks, bitwise `int8`'s), timed
+   (median of MATRIX_REPS), peak GiB; the int8 outputs' distance from
+   bf16 on the same weights printed; the int8 conv kernel against its
+   plain version at every shape that forward launched (Cout up to 1024 in
+   channel groups; bitwise, a second launch bitwise), each timed by graph
+   replay beside its bound, the plain version and, for a 1x1,
+   `torch._int_mm` (cuBLAS's int8 product); a shallow bottleneck whose
+   planes reach 96-128 in `int8`, card against CPU within INT8_PATH_MEAN.
+   (b) The attention kernel's partial form on two halves of the keys at
+   the flagship's key lengths against its plain form, combined against
+   the one-shot attention within ATTN_TOL, timed; a combine reading one
+   rank's max for both must fail. Two gloo ranks sharing the card
+   (MATRIX_SP): `Config()` at sp=2 on `dense` and `gather_pallas` with the
+   decoder's rows sharded, a shallow bottleneck with the gate at
+   Res16UNet50's widths on two scenes in fp32, bf16 and `int8`, each
+   against the one-process forward at its own precision within JAX's
+   sharded bounds (`par_excess`), 12 partial attention launches; the
+   gate's mean over the rank's slab only (a planted fault) outside them;
+   the decoder's row bytes against the all-reduce of whole rows that a
+   train-mode forward of `Config()` still runs; a slab's int8 conv
+   against the whole grid's, bitwise, and with its absmax left unreduced
+   over sp (a planted fault) not.
 
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
@@ -340,7 +366,7 @@ ENTRY_TOL = 1e-5  # entry vs `infer` where cuDNN picked another algorithm
 # runs read 2.2e-5 on small_config and 2.1e-3 on parity_config, whose
 # stride-1 InstanceNorms amplify float32 rounding at init (PERF.md)
 TRAIN_ATTN_S = (200, 800, 3200, 12800)
-TRAIN_STEPS = 10
+TRAIN_STEPS = 5
 # `cli train` takes its batches of 8 as 2 micro-batches of 4: the stru3d
 # augmentations rotate the scenes, and the batch's dense grid grows to
 # ~2.9x the unrotated one's cells, past the card's 80 GB at batch 8 whole
@@ -416,7 +442,7 @@ RF_EPOCHS = 2
 # at experiment 1's voxel sizes and read by `cli test` at each: 4 test
 # scenes (one batch) and one train and one validation scene, converted in
 # a spawn pool of PREP_WORKERS; the row of the planted filter-byte fault
-PREP_SCENES = {"train": (0, 1), "validation": (3000, 1), "test": (3250, 4)}
+PREP_SCENES = {"train": (0, 1), "validation": (3000, 1), "test": (3250, 2)}
 PREP_PANO = (512, 1024)
 PREP_VOXEL_SIZES = (100, 150, 200)
 PREP_WORKERS = 6
@@ -450,7 +476,7 @@ ZOO_LAUNCHES = {
     "dense": dict(masked_attention=12, row_gather=13, sparse_conv=0),
     "bf16": dict(masked_attention=12, row_gather=13, sparse_conv=0),
     "gather_pallas": dict(masked_attention=12, row_gather=0, sparse_conv=41)}
-ZOO_REPS = 3
+ZOO_REPS = 2
 ZOO_COMBOS = {
     "learned_level_embed_pre_norm_unshared": [
         "model.non_parametric_queries=false", "model.use_level_embed=true",
@@ -465,6 +491,38 @@ ZOO_CLI = ["model.backbone=Res16UNet50", "model.non_parametric_queries=false",
            "model.shared_decoder=false"]
 
 
+# phase 17 (config_matrix): Res16UNet101 at full width in the int8 stacks
+MATRIX_BACKBONE = "Res16UNet101"
+MATRIX_PATHS = ("int8", "int8_chain")  # profile_forward.CONFIGS
+MATRIX_REPS = 2
+# (a) a shallow bottleneck whose planes reach 96-128, card vs CPU in int8:
+# name -> (base, class attributes)
+MATRIX_SMALL = ("Res16UNet50_int8_small", ("Res16UNet50", dict(
+    PLANES=(32, 64, 96, 128, 128, 96, 96, 96),
+    LAYERS=(1, 1, 1, 1, 1, 1, 1, 2))))
+# (b) a shallow bottleneck with the gate at Res16UNet50's widths
+MATRIX_BACKBONES = {"Res16UNet50_shallow_se": ("Res16UNet50", dict(
+    LAYERS=(1,) * 8, SE=True))}
+# (b) the sp=2 forwards: name -> (profile_forward.CONFIGS key, overrides,
+# scenes of phase 3): Config() where MATRIX_SP_BACKBONE names no backbone;
+# "dense" also runs once in train mode, whose decoder still all-reduces
+# whole rows (for their bytes). Each is held to the one-process forward at
+# its own precision within JAX's sharded bounds (`par_excess`)
+MATRIX_SP = {
+    "dense": ("fp32", [], 8),
+    "gather_pallas": ("fp32", ["model.backbone_impl=gather_pallas"], 8),
+    "bottleneck_se_fp32": ("fp32", [], 2),
+    "bottleneck_se_bf16": ("bf16", [], 2),
+    "bottleneck_se_int8": ("int8", [], 2),
+}
+MATRIX_SP_BACKBONE = {k: "Res16UNet50_shallow_se" for k in MATRIX_SP
+                      if k.startswith("bottleneck_se")}
+# (b) a planted fault on "bottleneck_se_fp32", "fault_slab_se_mean": the
+# gate's mean over the rank's slab only, which must fall outside those
+# bounds. (The int8 absmax left unreduced over sp is planted on a slab's
+# conv instead: `int8` runs static scales, and a dynamic-scale forward
+# leaves those bounds at sp=2 by itself, as on the CPU, where each
+# rounding flip that moves an absmax moves a scale.)
 LOG_FILE = None  # set by open_log
 
 
@@ -3605,10 +3663,12 @@ def ranks_shaped_validation(torch, np, one, world, device="cuda"):
     return out
 
 
-def _parallel_rank(rank, world, store, work_dir, data_root):
-    """A spawned rank of the parallel phase: one gloo group through a file
-    store, the rank's card the one card; writes its numbers (or its
-    traceback) to `work_dir/rank<r>.pt`."""
+def _rank_entry(rank, world, store, work_dir, fn_name, args):
+    """A spawned rank of the parallel phases: one gloo group through a file
+    store, the rank's card the one card, the parent's numerics
+    (`configure_torch(True)`); runs `fn_name(torch, np, rank, world,
+    work_dir, *args)` and writes its numbers (or its traceback) to
+    `work_dir/rank<r>.pt`."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -3623,14 +3683,39 @@ def _parallel_rank(rank, world, store, work_dir, data_root):
         configure_torch(True)
         tdist.init_process_group("gloo", init_method=f"file://{store}",
                                  rank=rank, world_size=world)
-        torch.save({"ok": par_rank_work(torch, np, rank, world, work_dir,
-                                        data_root)}, path)
+        torch.save({"ok": globals()[fn_name](torch, np, rank, world,
+                                             work_dir, *args)}, path)
     except BaseException:
         torch.save({"error": traceback.format_exc()}, path)
         raise
     finally:
         if tdist.is_initialized():
             tdist.destroy_process_group()
+
+
+def run_ranks(torch, work, fn_name, *args):
+    """PAR_RANKS spawned gloo ranks sharing the card, each running
+    `fn_name` (`_rank_entry`); every rank's numbers, rank order (a failed
+    rank raises with its traceback)."""
+    ctx = torch.multiprocessing.start_processes(
+        _rank_entry, args=(PAR_RANKS, os.path.join(work, "store"), work,
+                           fn_name, args),
+        nprocs=PAR_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join():
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    ranks = []
+    for r in range(PAR_RANKS):
+        got = torch.load(os.path.join(work, f"rank{r}.pt"),
+                         weights_only=False)
+        if "error" in got:
+            raise RuntimeError(f"rank {r}:\n{got['error']}")
+        ranks.append(got["ok"])
+    return ranks
 
 
 def free_port():
@@ -3750,24 +3835,7 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
 
         # (b) and (c): two gloo ranks sharing the card
         t = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _parallel_rank, args=(PAR_RANKS, os.path.join(work, "store"),
-                                  work, root),
-            nprocs=PAR_RANKS, join=False, start_method="spawn")
-        try:
-            while not ctx.join():
-                pass
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
-        ranks = []
-        for r in range(PAR_RANKS):
-            got = torch.load(os.path.join(work, f"rank{r}.pt"),
-                             weights_only=False)
-            if "error" in got:
-                raise RuntimeError(f"rank {r}:\n{got['error']}")
-            ranks.append(got["ok"])
+        ranks = run_ranks(torch, work, "par_rank_work", root)
         res["ranks_seconds"] = time.perf_counter() - t
         for r, got in enumerate(ranks):
             for tag, v in got.items():
@@ -4266,6 +4334,477 @@ def run_model_zoo(torch, np, mt, cfg_mod, counters, by_key, card, host,
         res["seconds"][part] = time.perf_counter() - t
     log(f"model_zoo seconds by part: {json.dumps(res['seconds'])}")
     assert not failed, f"model_zoo parts failed: {failed}"
+    return res
+
+
+def matrix_int8_shapes(torch, ic, sb, shape_launches, res):
+    """(a) The int8 conv kernel against its plain version at every (grid,
+    Cin, Cout, k) the counted Res16UNet101 `int8` forward launched, on the
+    batch's occupancy at that grid: outputs bitwise, a second launch
+    bitwise; each timed by graph replay beside its bound (operations of the
+    occupied outputs, or bytes), the plain version (one call) and, for a
+    1x1, `torch._int_mm` (cuBLAS's int8 product of the same integers over
+    every cell of the grid, without the requant: the library yardstick)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    level_of = {tuple(o.shape[1:4]): li for li, o in enumerate(sb.occ)}
+    rows = []
+    for (dims, cin, cout, k, step), n_launch in sorted(
+            shape_launches.items(), key=lambda kv: kv[0][:4]):
+        occ = sb.occ[level_of[dims]]
+        args, kw = int8_inputs(torch, gen, occ, cin, cout, k, step)
+        got = ic.int8_conv(*args, **kw)
+        again = ic.int8_conv(*args, **kw)
+        ref = ic.int8_conv_plain(*args, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(got.out, ref.out)
+        repeat = torch.equal(got.out, again.out)
+        p = ic.plan(occ.shape[0], dims, cin, cout, k)
+        cells = occ[..., 0].numel()
+        occupied = int(occ.sum().item())
+        nbytes = cells * (cin + 4 + 2 * cout) + k ** 3 * cin * cout
+        row = dict(
+            step=step, grid=list(dims), Cin=cin, Cout=cout, k=k,
+            launches=n_launch, cells=cells, occupied=occupied, equal=equal,
+            repeat_equal=repeat,
+            max_abs_err=float((got.out.float() - ref.out.float()).abs()
+                              .max()),
+            plan=dict(tile=p.tile, groups=p.groups, splits=p.splits,
+                      kcs=p.kcs, mf=p.mf, smem=p.smem),
+            ms=time_graph_ms(torch, lambda: ic.int8_conv(*args, **kw)),
+            plain_ms=time_ms(torch, lambda: ic.int8_conv_plain(*args, **kw),
+                             iters=1, warmup=0),
+            library_ms=None)
+        if k == 1:
+            a = args[0].reshape(cells, cin)
+            b = args[2][0].contiguous()
+            try:
+                row["library_ms"] = time_ms(torch,
+                                            lambda: torch._int_mm(a, b))
+            except RuntimeError as e:  # printed; the row keeps null
+                log(f"config_matrix torch._int_mm {cin}->{cout}: {e}")
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2 * k ** 3 * cin * cout * occupied, INT8_OPS_PER_S)
+        log(f"config_matrix int8_conv {list(dims)} {cin}->{cout} k{k} "
+            f"x{n_launch}: bitwise {equal}, repeat {repeat}; plan "
+            f"{row['plan']}; kernel {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.2f} ms, torch._int_mm "
+            f"{row['library_ms'] if k == 1 else None}")
+        rows.append(row)
+        del args, kw, got, again, ref
+    res["int8_shapes"] = rows
+    assert all(r["equal"] and r["repeat_equal"] for r in rows), [
+        (r["grid"], r["Cin"], r["Cout"], r["k"]) for r in rows
+        if not (r["equal"] and r["repeat_equal"])]
+    return rows
+
+
+def matrix_full_width(torch, np, mt, cfg_mod, counters, by_key, card, host,
+                      ic, res):
+    """(a) Res16UNet101 at full width on `dense` with `int8` and
+    `int8_chain` (`profile_forward.CONFIGS`) on phase 3's 8 scenes, one set
+    of seeded weights: counted (12 attention, 13 row gathers, the int8
+    convs by shape), timed (median of MATRIX_REPS), peak GiB; int8_chain
+    runs the unfused int8 blocks on a bottleneck (bitwise `int8`'s, no
+    chain step); the int8 outputs' distance from bf16 on the same weights
+    printed. Returns the int8 launches by shape and the batch's sparse
+    batch."""
+    from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+    from mask3d_tpu_torch.profile_forward import CONFIGS
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+    dev = host.device
+    runs, outs = {}, {}
+    c = zoo_cfg(cfg_mod, CONFIGS["int8"])
+    mdl = mt.build_model(c, device="cuda", seed=0)
+    shapes = None
+    for path in MATRIX_PATHS:
+        mdl.backbone.pallas_chain = path == "int8_chain"
+        ic.int8_conv.launches_by_shape.clear()
+        ic.int8_conv.launches_by_step.clear()
+        (out, overflow), launches, keyed, peak = counted(
+            torch, counters, by_key,
+            lambda: mt.infer(mdl, dev, c, device="cuda"))
+        assert not bool(overflow), path
+        by_shape = dict(ic.int8_conv.launches_by_shape)
+        steps = dict(ic.int8_conv.launches_by_step)
+        assert set(steps) == {"conv"}, steps  # no fused chain step
+        assert launches["masked_attention"] == 12 and \
+            launches["row_gather"] == 13 and launches["int8_conv"] == \
+            sum(by_shape.values()) > 0, launches
+        ms = []
+        for _ in range(MATRIX_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mt.infer(mdl, dev, c, device="cuda")
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        outs[path] = (out.pred_class.float(), out.pred_masks.float())
+        wide = sum(n for (_, _, co, _, _), n in by_shape.items() if co > 384)
+        runs[path] = dict(launches=launches, int8_launches=steps["conv"],
+                          int8_launches_past_384=wide, peak_gib=peak,
+                          ms=statistics.median(ms), ms_all=ms)
+        log(f"config_matrix {MATRIX_BACKBONE} {path} batch 8: launches "
+            f"{launches} ({wide} int8 convs past 384 outputs, "
+            f"{len(by_shape)} shapes); forward median "
+            f"{runs[path]['ms']:.2f} ms over {MATRIX_REPS} "
+            f"({[round(x, 2) for x in ms]}), peak {peak:.2f} GiB on {card}")
+        if shapes is None:
+            shapes = {(d, ci, co, k, s): n
+                      for (d, ci, co, k, s), n in by_shape.items()}
+    mdl.backbone.pallas_chain = False
+    same = all(torch.equal(a, b) for a, b in zip(outs["int8"],
+                                                 outs["int8_chain"]))
+    assert same, "int8_chain on a bottleneck is not the unfused int8 blocks"
+    # the int8 distance from bf16 on the same weights (printed)
+    mdl.backbone.int8_stride1 = False
+    with torch.inference_mode():
+        ref, _ = mt.infer(mdl, dev, c, device="cuda")
+    valid = (torch.arange(dev.capacity, device="cuda")[None]
+             < dev.counts[:, None])
+    stats = {"pred_class": card_diff_stats(torch, ref.pred_class,
+                                           outs["int8"][0]),
+             "pred_masks": card_diff_stats(torch, ref.pred_masks[valid],
+                                           outs["int8"][1][valid])}
+    ratio = worst_ratio(stats, "mean", INT8_PATH_MEAN)
+    log(f"config_matrix {MATRIX_BACKBONE} int8 vs bf16 on the same weights "
+        f"(printed, not gated: random-weight noise grows with depth): "
+        f"{json.dumps(stats)}; ratio to INT8_PATH_MEAN {ratio:.4g}")
+    runs["int8_vs_bf16"] = dict(stats=stats, ratio=ratio)
+    res["full_width"] = runs
+    res["int8_chain_bitwise_int8"] = same
+    sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                            level_capacities(c, dev.capacity),
+                            dev.grid_dims, **_sb_kwargs(c))
+    del mdl, ref, outs
+    torch.cuda.empty_cache()
+    return shapes, sb
+
+
+def matrix_small(torch, np, mt, cfg_mod, res):
+    """(a) Card (kernels) against CPU (plain versions) on a shallow
+    bottleneck whose planes reach 96-128 (MATRIX_SMALL: stage 8 of two
+    blocks, a 384-channel QGrid junction at level 0) with the `int8`
+    stack at a small width, bucket 1024: the backbone maps' and outputs'
+    mean |diff| within INT8_PATH_MEAN x max(1, std)."""
+    from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
+    from mask3d_tpu_torch.models import backbone as bb_mod
+    from mask3d_tpu_torch.profile_forward import CONFIGS
+
+    name, (base, attrs) = MATRIX_SMALL
+    bb_mod.BACKBONES[name] = type(name, (bb_mod.BACKBONES[base],), attrs)
+    try:
+        c, host_s, cpu_model, gpu_model = small_models(
+            mt, cfg_mod, make_synthetic_scene, np, "dense", 1024, name,
+            CONFIGS["int8"])
+        with torch.inference_mode():
+            ref, _ = mt.infer(cpu_model, host_s.device, c, device="cpu")
+            got, _ = mt.infer(gpu_model, host_s.device, c, device="cuda")
+        stats = {w: diff_stats(np, getattr(ref, w).numpy(),
+                               getattr(got, w).cpu().numpy())
+                 for w in ("pred_class", "pred_masks")}
+        from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+        from mask3d_tpu_torch.sparse.context import build_sparse_batch
+
+        sparse = (build_sparse_batch, level_capacities, _sb_kwargs)
+        for i, (r, g) in enumerate(zip(
+                backbone_maps(torch, cpu_model, c, host_s.device, sparse),
+                backbone_maps(torch, gpu_model, c, host_s.device.to("cuda"),
+                              sparse))):
+            stats[f"map{i}"] = diff_stats(np, r, g)
+    finally:
+        del bb_mod.BACKBONES[name]
+    ratio = worst_ratio(stats, "mean", INT8_PATH_MEAN)
+    log(f"config_matrix small bottleneck int8, card vs CPU: "
+        f"{json.dumps(stats)}; ratio to INT8_PATH_MEAN {ratio:.4g} (passes "
+        f"at <= 1)")
+    res["small_int8"] = dict(stats=stats, ratio=ratio)
+    assert ratio <= 1.0, ratio
+
+
+def matrix_attention(torch, ma, res):
+    """(b) The attention kernel's partial form at the flagship's key
+    lengths, split into two ranks' halves: each half against the plain
+    partial form (out and sum within ATTN_TOL relative, the max within
+    1e-5 relative), timed by graph replay beside its bound and the plain
+    form; the two combined against the plain one-shot attention within
+    ATTN_TOL; a combine that reads rank 0's max for both ranks (a planted
+    fault) must miss it."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, nq, d, h = 8, 25, 128, 8
+    rows = []
+    for s in ATTN_S:
+        q = torch.randn(b, nq, d, device="cuda", generator=gen)
+        k = torch.randn(b, s, d, device="cuda", generator=gen)
+        v = torch.randn(b, s, d, device="cuda", generator=gen)
+        mask = torch.rand(b, nq, s, device="cuda", generator=gen) < 0.4
+        mask |= torch.arange(s, device="cuda")[None, None] >= s - s // 8
+        mask[0, 0] = True  # blocked everywhere: uniform weights
+        mask[1, 2, :s // 2] = True  # blocked on rank 0's half
+        ref = ma.masked_cross_attention_plain(q, k, v, mask, h)
+        halves = [(k[:, a:z].contiguous(), v[:, a:z].contiguous(),
+                   mask[:, :, a:z].contiguous())
+                  for a, z in ((0, s // 2), (s // 2, s))]
+        parts, errs = [], []
+        for kk, vv, mm in halves:
+            got = ma.masked_cross_attention_partial(q, kk, vv, mm, h)
+            want = ma.masked_cross_attention_partial_plain(q, kk, vv, mm, h)
+            errs.append(max(float(((g - w).abs() / w.abs().clamp_min(1))
+                                  .max()) for g, w in zip(got, want)))
+            parts.append(got)
+        outs, maxes, sums = zip(*parts)
+        comb = ma.combine_partial_softmax(outs, maxes, sums, h)
+        bad = ma.combine_partial_softmax(outs, [maxes[0]] * 2, sums, h)
+        torch.cuda.synchronize()
+        err = float((comb - ref).abs().max())
+        fault = float((bad - ref).abs().max())
+        kk, vv, mm = halves[0]
+        half = s // 2
+        row = dict(
+            S=s, S_rank=half, B=b, max_abs_err=err, partial_rel_err=errs,
+            fault_err=fault,
+            ms=time_graph_ms(torch, lambda: ma.masked_cross_attention_partial(
+                q, kk, vv, mm, h)),
+            plain_ms=time_ms(torch, lambda: ma
+                             .masked_cross_attention_partial_plain(
+                                 q, kk, vv, mm, h), iters=5),
+            combine_ms=time_ms(torch, lambda: ma.combine_partial_softmax(
+                outs, maxes, sums, h)),
+            library_ms=None)
+        nbytes = 4 * (b * nq * d + 2 * b * half * d + b * nq * d
+                      + 2 * b * h * nq) + b * nq * half
+        row["bound_ms"], row["bound_by"] = bound(nbytes,
+                                                 4 * b * nq * half * d)
+        log(f"config_matrix attention partial form, S={s} as two halves: "
+            f"partial vs plain rel err {errs}, combined vs one-shot "
+            f"{err:.3g} (tol {ATTN_TOL}); planted fault (rank 0's max for "
+            f"both) {fault:.3g}; partial kernel {row['ms']:.4f} ms a half "
+            f"(bound {row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, combine {row['combine_ms']:.4f} ms")
+        rows.append(row)
+        assert err <= ATTN_TOL and max(errs) <= ATTN_TOL, row
+        assert fault > ATTN_TOL, row
+        del q, k, v, mask, halves, parts
+    res["attention_partial"] = rows
+    return rows
+
+
+def matrix_rank_work(torch, np, rank, world, work_dir):
+    """(b) on one spawned gloo rank of `world` sharing the card: the sp=2
+    eval forwards of MATRIX_SP against the one-process outputs the parent
+    saved (JAX's sharded bounds, `par_excess`), counted, timed, with each
+    forward's collective bytes; the planted gate fault; `Config()` on
+    `dense` once more in train mode, whose decoder all-reduces whole
+    rows, for their bytes; and a slab's int8 conv against the whole
+    grid's (bitwise), and with the absmax not reduced over sp (a planted
+    fault)."""
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch import config as cfg_mod
+    from mask3d_tpu_torch.models import backbone as bb_mod
+    from mask3d_tpu_torch.parallel import comm, make_mesh_2d, use_mesh
+    from mask3d_tpu_torch.parallel.mesh import slab_plan
+    from mask3d_tpu_torch.profile_forward import CONFIGS, flagship_items
+    from mask3d_tpu_torch.sparse import int8_ops
+
+    counters, _ = kernel_counters()
+    register_matrix_backbones(bb_mod)
+    items = flagship_items()
+    mesh = make_mesh_2d(1, world)
+    out = {}
+
+    def forward(model, dev, c, ref):
+        comm.reset_bytes()
+        for fn in counters.values():
+            fn.launches = 0
+        ma_fn = counters["masked_attention"]
+        ma_fn.partial_by_shape.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with use_mesh(mesh):
+            o, _ = mt.infer(model, dev, c, device="cuda")
+        torch.cuda.synchronize()
+        res = dict(
+            seconds=time.perf_counter() - t,
+            launches={k: fn.launches for k, fn in counters.items()},
+            partial_by_s=dict(ma_fn.partial_by_shape),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            bytes=dict(comm.BYTES))
+        got = (o.pred_class.cpu().numpy(), o.pred_masks.cpu().numpy())
+        res["gates"] = par_excess(np, ref, got)
+        res["stats"] = {w: diff_stats(np, r, g) for w, r, g in zip(
+            ("pred_class", "pred_masks"), ref, got)}
+        return res
+
+    def train_mode_rows(model, dev, c):
+        """The collective bytes of a train-mode forward (sampled memories
+        from a seeded generator): the decoder's rows whole on every
+        rank."""
+        comm.reset_bytes()
+        model.train()
+        try:
+            with use_mesh(mesh):
+                mt.infer(model, dev, c, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+        finally:
+            model.eval()
+        return dict(bytes=dict(comm.BYTES))
+
+    for name, (path, extra, n_items) in MATRIX_SP.items():
+        c = zoo_cfg(cfg_mod, CONFIGS[path] + extra + ["model.sp_axis=sp"],
+                    backbone=MATRIX_SP_BACKBONE.get(name, "Res16UNet34C"))
+        dev = mt.collate(items[:n_items], device="cuda",
+                         point_bucket_multiple=BUCKET).device
+        model = mt.build_model(c, device="cuda", seed=0)
+        ref = np.load(os.path.join(work_dir, f"{name}.npz"))
+        ref = (ref["pred_class"], ref["pred_masks"])
+        if name == "dense":
+            forward(model, dev, c, ref)  # warm-up: the first forward
+            out["dense_train_mode"] = train_mode_rows(model, dev, c)
+        out[name] = forward(model, dev, c, ref)
+        if name == "bottleneck_se_fp32":
+            # planted: `_DenseCtx`'s mean over the slab's cells, not summed
+            # over sp
+            with PatchAttr(bb_mod._SlabCtx, "global_mean",
+                           bb_mod._DenseCtx.global_mean):
+                out["fault_slab_se_mean"] = forward(model, dev, c, ref)
+        del model, dev
+        torch.cuda.empty_cache()
+    # a slab's int8 conv (dynamic scales) against the whole grid's
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    grid = (112, 80, 40)
+    occ = (torch.rand((2, *grid, 1), generator=gen, device="cuda")
+           < 0.11).float()
+    x = (torch.randn((2, *grid, 256), generator=gen, device="cuda")
+         * occ).bfloat16()
+    conv = bb_mod.Conv(3, 256, 256).cuda()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                      device="cuda") * 0.02)
+    with use_mesh(mesh), torch.inference_mode():
+        s = slab_plan([grid], "sp")[0]
+        sb = type("SB", (), {"occ": [occ], "levels": [None]})()
+        ctx = bb_mod._SlabCtx(sb, [grid], [s], s.group, torch.bfloat16,
+                              int8_stride1=True)
+        whole = int8_ops.dense_conv_same_int8(x, conv.weight, occ)
+        got = ctx.conv3(x[:, s.x0:s.x1].contiguous(), conv, 0)
+        with PatchAttr(bb_mod._SlabCtx, "_absmax",
+                       lambda self, x_, s_: x_.float().abs().amax(
+                           dim=(0, 1, 2, 3))):
+            bad = ctx.conv3(x[:, s.x0:s.x1].contiguous(), conv, 0)
+    want = whole[:, s.x0:s.x1]
+    out["slab_int8"] = dict(
+        bitwise=bool(torch.equal(got, want)),
+        fault_max_abs_diff=float((bad.float() - want.float()).abs().max()))
+    return out
+
+
+def register_matrix_backbones(bb_mod):
+    """The phase's test backbones in the port's `BACKBONES`."""
+    for name, (base, attrs) in MATRIX_BACKBONES.items():
+        if name not in bb_mod.BACKBONES:
+            bb_mod.BACKBONES[name] = type(name, (bb_mod.BACKBONES[base],),
+                                          dict(attrs))
+
+
+def matrix_sp(torch, np, mt, cfg_mod, card, res):
+    """(b) Two gloo ranks sharing the card (`matrix_rank_work`) against
+    one-process forwards on the same weights, computed here first."""
+    import shutil
+    import tempfile
+
+    from mask3d_tpu_torch.models import backbone as bb_mod
+    from mask3d_tpu_torch.profile_forward import CONFIGS, flagship_items
+
+    register_matrix_backbones(bb_mod)
+    torch.cuda.empty_cache()  # the ranks share the card
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    work = tempfile.mkdtemp(dir=build)
+    items = flagship_items()
+    try:
+        for name, (path, extra, n_items) in MATRIX_SP.items():
+            c = zoo_cfg(cfg_mod, CONFIGS[path] + extra,
+                        backbone=MATRIX_SP_BACKBONE.get(name, "Res16UNet34C"))
+            dev = mt.collate(items[:n_items], device="cuda",
+                             point_bucket_multiple=BUCKET).device
+            model = mt.build_model(c, device="cuda", seed=0)
+            with torch.inference_mode():
+                o, _ = mt.infer(model, dev, c, device="cuda")
+            np.savez(os.path.join(work, f"{name}.npz"),
+                     pred_class=o.pred_class.cpu().numpy(),
+                     pred_masks=o.pred_masks.cpu().numpy())
+            del model, dev, o
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = run_ranks(torch, work, "matrix_rank_work")
+        res["ranks_seconds"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, got in enumerate(ranks):
+        for tag, v in got.items():
+            log(f"config_matrix rank {r} {tag}: {json.dumps(v)} on {card}")
+    rows_keys = ("rows", "attention_partials", "minmax", "unblock",
+                 "out_masks", "np_features")
+    summary = {}
+    for r, got in enumerate(ranks):
+        excess = {}
+        for name, v in got.items():
+            if name in ("slab_int8", "dense_train_mode"):
+                continue
+            excess[name] = max(g["excess"] for g in v["gates"].values())
+            if name.startswith("fault_"):
+                assert excess[name] > 0, (r, name, v["gates"])
+            else:
+                assert excess[name] <= 0, (r, name, v["gates"])
+            assert v["launches"]["masked_attention"] == 12, (r, name, v)
+            # the decoder over row chunks: every launch the partial form
+            assert sum(v["partial_by_s"].values()) == 12, (r, name, v)
+        sharded = sum(got["dense"]["bytes"].get(k, 0) for k in rows_keys)
+        whole = got["dense_train_mode"]["bytes"].get("rows", 0)
+        summary[r] = dict(rows_bytes_sharded=sharded,
+                          rows_bytes_whole=whole, excess=excess,
+                          peak_gib={n: v["peak_gib"] for n, v in got.items()
+                                    if "peak_gib" in v},
+                          slab_int8=got["slab_int8"])
+        assert got["slab_int8"]["bitwise"], got["slab_int8"]
+        assert got["slab_int8"]["fault_max_abs_diff"] > 0, got["slab_int8"]
+        assert sharded < whole, (sharded, whole)
+    log(f"config_matrix (b) by rank: {json.dumps(summary)} (excess: the "
+        f"worst of each forward over JAX's sharded bounds, passing at <= 0, "
+        f"the planted faults' > 0; the decoder's row bytes of a Config() "
+        f"forward on dense at sp=2, this rank's payload: row chunks against "
+        f"a train-mode forward's all-reduce of whole rows) on {card}")
+    res["sp"] = ranks
+    res["sp_summary"] = summary
+
+
+def run_config_matrix(torch, np, mt, cfg_mod, counters, by_key, card, host,
+                      ic, ma):
+    """Phase 17 (see the module docstring); returns its numbers."""
+    res = {"seconds": {}}
+    failed = []
+    t = time.perf_counter()
+    shapes, sb = matrix_full_width(torch, np, mt, cfg_mod, counters, by_key,
+                                   card, host, ic, res)
+    for part, fn in (
+            ("a_shapes", lambda: matrix_int8_shapes(torch, ic, sb, shapes,
+                                                    res)),
+            ("a_small", lambda: matrix_small(torch, np, mt, cfg_mod, res)),
+            ("b_attention", lambda: matrix_attention(torch, ma, res)),
+            ("b_ranks", lambda: matrix_sp(torch, np, mt, cfg_mod, card,
+                                          res))):
+        try:
+            fn()
+        except Exception:
+            failed.append(part)
+            log(f"config_matrix ({part}) failed\n{traceback.format_exc()}",
+                file=sys.stderr)
+        res["seconds"][part] = time.perf_counter() - t
+        t = time.perf_counter()
+    log(f"config_matrix seconds by part: {json.dumps(res['seconds'])}")
+    assert not failed, f"config_matrix parts failed: {failed}"
     return res
 
 
@@ -4989,6 +5528,10 @@ def main():
         (rg, sc, dense_ops), sparse))
     if zoo is None:
         failures.append("model_zoo did not run or failed a check")
+    matrix = phase("config_matrix", lambda: run_config_matrix(
+        torch, np, mt, cfg_mod, counters, by_key, card, host, ic, ma))
+    if matrix is None:
+        failures.append("config_matrix did not run or failed a check")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
@@ -5115,6 +5658,22 @@ def main():
                      zoo["sparse_conv"], heaviest(zoo["sparse_conv"]),
                      zoo["paths"]["gather_pallas"]["launches"]["sparse_conv"],
                      **forward_sums(zoo["sparse_conv"])),
+        # the same kernels in phase config_matrix: the int8 conv at every
+        # shape of Res16UNet101's int8 forward (Cout up to 1024 in channel
+        # groups), the attention's partial form over a rank's half of the
+        # keys (launches: a sharded rank's Config() forward)
+        kernel_entry("int8_conv:config_matrix",
+                     "mask3d_tpu_torch/csrc/int8_conv.cu",
+                     "mask3d_tpu/sparse/pallas_chain.py:512",
+                     matrix["int8_shapes"], heaviest(matrix["int8_shapes"]),
+                     matrix["full_width"]["int8"]["int8_launches"],
+                     **forward_sums(matrix["int8_shapes"])),
+        kernel_entry("masked_attention_partial:config_matrix",
+                     "mask3d_tpu_torch/csrc/masked_attention.cu",
+                     "mask3d_tpu/ops/pallas_attention.py:102",
+                     matrix["attention_partial"],
+                     matrix["attention_partial"][-1],
+                     sum(matrix["sp"][0]["dense"]["partial_by_s"].values())),
         # no Pallas counterpart: JAX's device LSAP is lax.while_loop code;
         # its launches are the counted dense train step's (one a criterion)
         kernel_entry("lsap", "mask3d_tpu_torch/csrc/lsap.cu",
@@ -5147,7 +5706,10 @@ def main():
             "paths", "options", "small_bottleneck",
             "small_bottleneck_fp32_gate", "small_bottleneck_bf16_maps",
             "small_options",
-            "small_options_fault", "cli", "seconds")}}))
+            "small_options_fault", "cli", "seconds")},
+        "config_matrix": {k: matrix[k] for k in (
+            "full_width", "int8_chain_bitwise_int8", "small_int8",
+            "sp_summary", "seconds")}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

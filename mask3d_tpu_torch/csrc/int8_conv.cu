@@ -58,7 +58,14 @@
 //    filled by 16-byte cp.async, the first stages issued before the block
 //    reads its occupancy. The tile's outputs are staged in shared memory
 //    and written as whole rows of 16-byte stores.
-// 4. Filling the card on the coarse levels: the plan splits each tile's
+// 4. Cout above 384 (the bottleneck's 512- and 1024-wide 1x1 expands and
+//    residual downsamples): a grid dimension over channel groups of at most
+//    256 outputs. A block computes one group with the tile of a Cout-256
+//    conv (4 or 8 fragments) and streams only that group's weights; the
+//    halo is loaded and quantized once a group (Cin bytes a cell a group,
+//    small next to the weights). Each group writes its own channel range of
+//    the outputs, of the split scratch and of the per-tile sums.
+// 5. Filling the card on the coarse levels: the plan splits each tile's
 //    (tap, chunk) stages over several blocks; each adds its int32 partial
 //    sums into zeroed scratch with atomicAdd (integer sums are exact in any
 //    order) and int8_conv_kernel_epilogue requantizes once after the sum.
@@ -105,9 +112,10 @@ struct Args {
   float* stats;        // [B, nstats, Cout]
   float* parts;        // [B * nparts, nstats, Cout]: per tile (or per
                        // epilogue block) sums, then reduced into stats
-  int* part;           // split: [B*X*Y*Z, CoutP] int32, zeroed
+  int* part;           // split: [B*X*Y*Z, groups * CoutP] int32, zeroed
   int* part2;          // split + second output: the same
-  int B, X, Y, Z, Cin, Cout, CinP, CoutP;
+  int B, X, Y, Z, Cin, Cout, CinP, CoutP;  // CoutP: one group's padded width
+  int groups, coutg;   // channel groups (grid z) of coutg outputs
   int gx, gy, gz;      // fragments a tile, per axis
   int ntx, nty, ntz;   // tiles per axis
   int ys, xs, npos;    // halo position strides and count
@@ -193,6 +201,18 @@ __host__ __device__ inline Smem smem_layout(int cinp, int coutp, int npos,
 struct Tile {
   int b, x0, y0, z0, tx, ty, tz;
 };
+
+// this block's channel group: outputs [c0, c0 + n)
+struct Group {
+  int g, c0, n;
+};
+__device__ __forceinline__ Group group_of(const Args& a) {
+  Group G;
+  G.g = blockIdx.z;
+  G.c0 = G.g * a.coutg;
+  G.n = min(a.coutg, a.Cout - G.c0);
+  return G;
+}
 
 __device__ __forceinline__ Tile tile_of(const Args& a, int t) {
   Tile T;
@@ -304,12 +324,13 @@ __device__ __forceinline__ void load_halo(const Args& a, const Tile& T,
 
 // zeros for every output of a tile with no occupied output cell
 template <int MODE, bool SECOND>
-__device__ void write_dead_tile(const Args& a, const Tile& T, bool outputs) {
+__device__ void write_dead_tile(const Args& a, const Tile& T, const Group& G,
+                                bool outputs) {
   const int cells = T.tx * T.ty * T.tz;
   if (outputs) {
-    const int per = a.Cout / 2;  // pairs of channels
+    const int per = G.n / 2;  // pairs of the group's channels
     for (int e = threadIdx.x; e < cells * per; e += blockDim.x) {
-      const int l = e / per, c = 2 * (e % per);
+      const int l = e / per, c = G.c0 + 2 * (e % per);
       const int lz = l % T.tz, ly = (l / T.tz) % T.ty, lx = l / (T.tz * T.ty);
       const int gx = T.x0 + lx, gy = T.y0 + ly, gz = T.z0 + lz;
       if (gx >= a.X || gy >= a.Y || gz >= a.Z) continue;
@@ -323,7 +344,7 @@ __device__ void write_dead_tile(const Args& a, const Tile& T, bool outputs) {
       if (SECOND) *reinterpret_cast<uint32_t*>(a.out2 + o) = 0u;
     }
   }
-  if (MODE == kJoin) {
+  if (MODE == kJoin && G.g == 0) {
     const int nch = a.Cin / 16;
     for (int e = threadIdx.x; e < cells * nch; e += blockDim.x) {
       const int l = e / nch, c = e % nch;
@@ -336,9 +357,9 @@ __device__ void write_dead_tile(const Args& a, const Tile& T, bool outputs) {
     }
   }
   if (outputs && a.stats != nullptr) {  // this tile's slot of the sums
-    float* dst = a.parts + (long long)blockIdx.x * a.nstats * a.Cout;
-    for (int e = threadIdx.x; e < a.nstats * a.Cout; e += blockDim.x)
-      dst[e] = 0.f;
+    float* dst = a.parts + (long long)blockIdx.x * a.nstats * a.Cout + G.c0;
+    for (int e = threadIdx.x; e < a.nstats * G.n; e += blockDim.x)
+      dst[(e / G.n) * a.Cout + e % G.n] = 0.f;
   }
 }
 
@@ -377,13 +398,13 @@ __device__ __forceinline__ Rows<kMF> lane_rows(const Args& a, const Tile& T,
 template <int kMF, int NT>
 __device__ __forceinline__ void stage_outputs(
     const Args& a, const Rows<kMF>& w, const int (&acc)[kMF][NT][4],
-    const float* scale, unsigned char* staged, bool f32, int nt0,
+    const float* scale, unsigned char* staged, bool f32, int nt0, int ncg,
     int lane) {
   const int row = stage_row(a.CoutP, f32 ? 4 : 2);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    const int n = (nt0 + nt) * 8 + (lane & 3) * 2;
-    if (n >= a.Cout) continue;
+    const int n = (nt0 + nt) * 8 + (lane & 3) * 2;  // within the group
+    if (n >= ncg) continue;
     const float sc0 = scale[n], sc1 = scale[n + 1];
 #pragma unroll
     for (int i = 0; i < kMF; ++i)
@@ -408,13 +429,14 @@ __device__ __forceinline__ void stage_outputs(
 // the sum and sum of squares of each output channel over the staged rows
 // of the tile's occupied cells (the others are 0), in the order of the
 // cells, into rows row0, row0 + 1 of this block's slot of `parts`
-__device__ __forceinline__ void tile_stats(const Args& a,
+__device__ __forceinline__ void tile_stats(const Args& a, const Group& G,
                                            const unsigned char* staged,
                                            const uint8_t* s_occ, int cells,
                                            bool f32, int row0) {
   const int row = stage_row(a.CoutP, f32 ? 4 : 2);
-  float* dst = a.parts + ((long long)blockIdx.x * a.nstats + row0) * a.Cout;
-  for (int n = threadIdx.x; n < a.Cout; n += blockDim.x) {
+  float* dst = a.parts + ((long long)blockIdx.x * a.nstats + row0) * a.Cout +
+               G.c0;
+  for (int n = threadIdx.x; n < G.n; n += blockDim.x) {
     float s1 = 0.f, s2 = 0.f;
     for (int l = 0; l < cells; ++l) {
       if (!s_occ[l]) continue;
@@ -434,20 +456,26 @@ __device__ __forceinline__ void tile_stats(const Args& a,
 // per cell (z-runs of cells are contiguous too): 16-byte stores where the
 // rows allow, else 4-byte ones
 __device__ __forceinline__ void copy_out(const Args& a, const Tile& T,
+                                         const Group& G,
                                          const unsigned char* staged,
                                          void* dst, int esize) {
   const int row = stage_row(a.CoutP, esize);
-  const int bytes = a.Cout * esize;
+  const int cell_bytes = a.Cout * esize;     // a cell's whole output row
+  const int bytes = G.n * esize;             // this group's part of it
   const int cells = T.tx * T.ty * T.tz;
-  unsigned char* out = static_cast<unsigned char*>(dst);
-  const int vec = bytes % 16 == 0 ? 16 : 4;
+  unsigned char* out = static_cast<unsigned char*>(dst) + G.c0 * esize;
+  const int vec =
+      (bytes % 16 == 0 && cell_bytes % 16 == 0 && (G.c0 * esize) % 16 == 0)
+          ? 16
+          : 4;
   const int per = bytes / vec;
   for (int e = threadIdx.x; e < cells * per; e += blockDim.x) {
     const int l = e / per, v = e - (e / per) * per;
     const int lz = l % T.tz, ly = (l / T.tz) % T.ty, lx = l / (T.tz * T.ty);
     const int gx = T.x0 + lx, gy = T.y0 + ly, gz = T.z0 + lz;
     if (gx >= a.X || gy >= a.Y || gz >= a.Z) continue;
-    unsigned char* g = out + cell_index(a, T.b, gx, gy, gz) * bytes + v * vec;
+    unsigned char* g =
+        out + cell_index(a, T.b, gx, gy, gz) * cell_bytes + v * vec;
     const unsigned char* s = staged + l * row + v * vec;
     if (vec == 16)
       *reinterpret_cast<uint4*>(g) = *reinterpret_cast<const uint4*>(s);
@@ -469,7 +497,8 @@ __device__ __forceinline__ void add_partials(const Args& a,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       if (w.cell[i][hh] < 0) continue;
-      int* p = part + w.cell[i][hh] * a.CoutP + nt0 * 8 + (lane & 3) * 2;
+      int* p = part + w.cell[i][hh] * (a.groups * a.CoutP) + nt0 * 8 +
+               (lane & 3) * 2;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         atomicAdd(p + nt * 8, acc[i][nt][2 * hh]);
@@ -529,6 +558,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   constexpr int TAPS = KS * KS * KS;
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile T = tile_of(a, blockIdx.x);
+  const Group G = group_of(a);
   const int split = blockIdx.y;
   const int nfrag = a.gx * a.gy * a.gz;
   const int cells = T.tx * T.ty * T.tz;
@@ -549,6 +579,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   const int lo = nst * split / a.splits, hi = nst * (split + 1) / a.splits;
   const int n_my = hi - lo;
   const int np_all = a.CoutP / 16;
+  // this group's packed weights: [groups][taps][KC][CoutP/16][32][4 words]
+  const uint4* wg = a.w + (long long)G.g * TAPS * nkc * np_all * 32;
   auto stage_k = [&](int st, int& tap, int& k0, int& k1) {
     tap = st / ngroups;
     k0 = (st % ngroups) * a.kcs;
@@ -565,7 +597,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_my) issue(lo + s, s, a.w);
+    if (s < n_my) issue(lo + s, s, wg);
     cp_async_commit();
   }
 
@@ -587,7 +619,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   }
   if (!__syncthreads_or(any)) {
     cp_async_wait<0>();  // no copy may land in a block that has left
-    if (split == 0) write_dead_tile<MODE, SECOND>(a, T, a.splits == 1);
+    if (split == 0) write_dead_tile<MODE, SECOND>(a, T, G, a.splits == 1);
     return;
   }
 
@@ -636,7 +668,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
       cp_async_wait<kStages - 2>();
     __syncthreads();  // ... for every thread; slot t-1 is free
     if (t + kStages - 1 < n_my)
-      issue(lo + t + kStages - 1, (t + kStages - 1) % kStages, a.w);
+      issue(lo + t + kStages - 1, (t + kStages - 1) % kStages, wg);
     cp_async_commit();
     if (!any_live) continue;
     int tap, k0, k1;
@@ -651,8 +683,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   cp_async_wait<0>();
   __syncthreads();  // the ring is free
 
-  // 5. yq: the quantized centre cells of a junction
-  if (MODE == kJoin && split == 0) {
+  // 5. yq: the quantized centre cells of a junction (group 0 writes them)
+  if (MODE == kJoin && split == 0 && G.g == 0) {
     const int nch = a.Cin / 16;
     for (int e = tid; e < cells * nch; e += blockDim.x) {
       const int l = e / nch, c = e % nch;
@@ -671,19 +703,21 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
   const Rows<kMF> w = lane_rows<kMF>(a, T, s_occ, f0, lane);
   const bool stats = a.stats != nullptr;
   if (a.splits == 1) {
-    stage_outputs<kMF, NT>(a, w, acc, a.sw, ring, a.out_f32, nt0, lane);
+    stage_outputs<kMF, NT>(a, w, acc, a.sw + G.c0, ring, a.out_f32, nt0,
+                           G.n, lane);
     __syncthreads();
-    copy_out(a, T, ring, a.out, a.out_f32 ? 4 : 2);
-    if (stats) tile_stats(a, ring, s_occ, cells, a.out_f32, 0);
+    copy_out(a, T, G, ring, a.out, a.out_f32 ? 4 : 2);
+    if (stats) tile_stats(a, G, ring, s_occ, cells, a.out_f32, 0);
   } else {
-    add_partials<kMF, NT>(a, w, acc, lv, a.part, nt0, lane);
+    add_partials<kMF, NT>(a, w, acc, lv, a.part + G.g * a.CoutP, nt0, lane);
   }
   if (SECOND && split == 0) {
     zero_acc<kMF, NT>(acc);
     const int centre = R * a.xs + R * a.ys + R;
     for (int k0 = 0; k0 < nkc; k0 += a.kcs) {
       const int k1 = min(nkc, k0 + a.kcs);
-      const uint4* src = a.wd + (long long)k0 * np_all * 32;
+      const uint4* src =
+          a.wd + ((long long)G.g * nkc + k0) * np_all * 32;
       uint4* dst = reinterpret_cast<uint4*>(ring);
       __syncthreads();  // the ring's staged rows / last chunk are consumed
       for (int e = tid; e < (k1 - k0) * np_all * 32; e += blockDim.x)
@@ -697,12 +731,14 @@ __global__ void __launch_bounds__(32 * kWarps, kMF == 1 ? 2 : 1)
     }
     __syncthreads();
     if (a.splits == 1) {
-      stage_outputs<kMF, NT>(a, w, acc, a.swd, ring, false, nt0, lane);
+      stage_outputs<kMF, NT>(a, w, acc, a.swd + G.c0, ring, false, nt0, G.n,
+                             lane);
       __syncthreads();
-      copy_out(a, T, ring, a.out2, 2);
-      if (stats) tile_stats(a, ring, s_occ, cells, false, 2);
+      copy_out(a, T, G, ring, a.out2, 2);
+      if (stats) tile_stats(a, G, ring, s_occ, cells, false, 2);
     } else {
-      add_partials<kMF, NT>(a, w, acc, lv, a.part2, nt0, lane);
+      add_partials<kMF, NT>(a, w, acc, lv, a.part2 + G.g * a.CoutP, nt0,
+                            lane);
     }
   }
 }
@@ -719,11 +755,14 @@ __global__ void __launch_bounds__(256) int8_conv_kernel_epilogue(
   for (int n = threadIdx.x; n < a.Cout; n += blockDim.x) {
     float s1 = 0.f, s2 = 0.f, d1 = 0.f, d2 = 0.f;
     const float sc = a.sw[n], sc2 = SECOND ? a.swd[n] : 0.f;
+    // column of channel n in the scratch: its group's CoutP-wide block
+    const int pn = (n / a.coutg) * a.CoutP + n % a.coutg;
+    const int pw = a.groups * a.CoutP;
     for (int l = 0; l < 32 && c0 + l < xyz; ++l) {
       const long long cell = b * xyz + c0 + l;
       const float o = a.occ[cell] > 0.5f ? 1.f : 0.f;
       const float v = __fmul_rn(
-          __fmul_rn(__int2float_rn(a.part[cell * a.CoutP + n]), sc), o);
+          __fmul_rn(__int2float_rn(a.part[cell * pw + pn]), sc), o);
       float r = v;
       if (a.out_f32) {
         static_cast<float*>(a.out)[cell * a.Cout + n] = v;
@@ -736,7 +775,7 @@ __global__ void __launch_bounds__(256) int8_conv_kernel_epilogue(
       s2 = __fadd_rn(s2, __fmul_rn(r, r));
       if (SECOND) {
         const __nv_bfloat16 vb = __float2bfloat16_rn(__fmul_rn(
-            __fmul_rn(__int2float_rn(a.part2[cell * a.CoutP + n]), sc2), o));
+            __fmul_rn(__int2float_rn(a.part2[cell * pw + pn]), sc2), o));
         a.out2[cell * a.Cout + n] = vb;
         const float r2 = __bfloat162float(vb);
         d1 = __fadd_rn(d1, r2);
@@ -794,8 +833,8 @@ int launch(const Args& a, cudaStream_t s) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)a.B * a.ntx * a.nty * a.ntz;
-  kern<<<dim3((unsigned)tiles, (unsigned)a.splits), 32 * kWarps, L.total,
-         s>>>(a);
+  kern<<<dim3((unsigned)tiles, (unsigned)a.splits, (unsigned)a.groups),
+         32 * kWarps, L.total, s>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   long long nparts = tiles / a.B;  // slots of the sums an item
@@ -843,9 +882,12 @@ int dispatch(const Args& a, int ks, int mode, int res_i8, bool second,
 // (mode 2); stats: f32 [B, 2 or 4, Cout] or null; parts: with stats, f32
 // scratch [B * nparts, 2 or 4, Cout], nparts the tiles of an item
 // (ceil(X/tx) * ceil(Y/ty) * ceil(Z/tz)) or, when split, ceil(X*Y*Z / 32);
-// part/part2: int32 zeroed [B*X*Y*Z, CoutP] when split. plan: gx, gy, gz (4x4x1 fragments a
-// tile, per axis), ys, xs, npos (halo positions), kcs, splits, nt (12 or
-// 16 n-tiles a warp), mf (1 or 2 fragments a warp).
+// part/part2: int32 zeroed [B*X*Y*Z, groups * CoutP] when split. plan: gx,
+// gy, gz (4x4x1 fragments a tile, per axis), ys, xs, npos (halo
+// positions), kcs, splits, nt (12 or 16 n-tiles a warp), mf (1 or 2
+// fragments a warp), groups, coutg (channel groups of coutg outputs; w and
+// wd then hold each group's packed weights one after the other, CoutP
+// being one group's padded width).
 // Cin % 16 == 0, Cout % 2 == 0; all contiguous and 16-byte aligned.
 // Returns the cudaError_t of the launches.
 extern "C" int int8_conv(const void* x, const void* res, const void* occ,
@@ -894,12 +936,16 @@ extern "C" int int8_conv(const void* x, const void* res, const void* occ,
   a.kcs = plan[6];
   a.splits = plan[7];
   const int nt = plan[8], mf = plan[9];
+  a.groups = plan[10];
+  a.coutg = plan[11];
   a.ntx = (X + kFX * a.gx - 1) / (kFX * a.gx);
   a.nty = (Y + kFY * a.gy - 1) / (kFY * a.gy);
   a.ntz = (Z + kFZ * a.gz - 1) / (kFZ * a.gz);
   a.out_f32 = out_f32;
   a.nstats = out2 ? 4 : 2;
-  if (Cin % 16 || Cout % 2 || CinP % 32 ||
+  if (Cin % 16 || Cout % 2 || CinP % 32 || a.groups < 1 || a.coutg % 2 ||
+      a.coutg > CoutP || (long long)a.groups * a.coutg < Cout ||
+      (long long)(a.groups - 1) * a.coutg >= Cout ||
       a.splits < 1 || a.kcs < 1 || (a.splits > 1 && !part) ||
       (stats && !parts) ||
       (a.splits > 1 && out2 && !part2))

@@ -40,6 +40,12 @@
 // - Each block writes its partial (max, sum, accumulator) to scratch, and
 //   mca_combine merges the chunks. The wrapper's `plan()` picks kQ, KSL, HG
 //   and the chunk count (one wave of blocks over the 132 SMs).
+// - The partial form (out_m, out_l given): the keys are one sequence-
+//   parallel rank's chunk of a level's rows. mca_combine also writes each
+//   (item, head, query)'s max logit (base e, the -1e9 fill included) and its
+//   sum of exponentials relative to that max, so that the ranks' normalized
+//   outputs combine into the softmax over every row
+//   (ops/masked_attention.py: combine_partial_softmax).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -283,7 +289,8 @@ template <int HD>
 __global__ void mca_combine(const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
                             const float* __restrict__ part_acc,
-                            float* __restrict__ out, int B, int Q, int H,
+                            float* __restrict__ out, float* __restrict__ out_m,
+                            float* __restrict__ out_l, int B, int Q, int H,
                             int nch) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = (long long)B * Q * H * HD;
@@ -306,13 +313,18 @@ __global__ void mca_combine(const float* __restrict__ part_m,
   }
   out[((long long)b * Q + qi) * (H * HD) + h * HD + d] =
       a / fmaxf(lsum, 1e-20f);
+  if (out_m != nullptr && d == 0) {  // the partial form: [B, H, Q]
+    const long long o = ((long long)b * H + h) * Q + qi;
+    out_m[o] = mx;
+    out_l[o] = lsum;
+  }
 }
 
 template <int HD, int KSL, int kQ>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* pm, void* pl, void* pacc, void* out, int B, int Q, int S,
-           int Sm, int H, int HG, int threads, int chunk, int nch,
-           float scale, cudaStream_t stream) {
+           void* pm, void* pl, void* pacc, void* out, void* om, void* ol,
+           int B, int Q, int S, int Sm, int H, int HG, int threads, int chunk,
+           int nch, float scale, cudaStream_t stream) {
   constexpr int TK = kKeysPerSlice * KSL;
   if (threads > kMaxThreads || threads % 32 ||
       threads < HG * ((Q + kQ - 1) / kQ) * KSL)
@@ -333,26 +345,26 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   const int cthreads = 256;
   mca_combine<HD><<<(unsigned)((total + cthreads - 1) / cthreads), cthreads,
                     0, stream>>>((const float*)pm, (const float*)pl,
-                                 (const float*)pacc, (float*)out, B, Q, H,
-                                 nch);
+                                 (const float*)pacc, (float*)out, (float*)om,
+                                 (float*)ol, B, Q, H, nch);
   return (int)cudaGetLastError();
 }
 
 template <int HD, int kQ>
 int dispatch(int ksl, const void* q, const void* k, const void* v,
              const void* mask, void* pm, void* pl, void* pacc, void* out,
-             int B, int Q, int S, int Sm, int H, int HG, int threads,
-             int chunk, int nch, float scale, cudaStream_t s) {
+             void* om, void* ol, int B, int Q, int S, int Sm, int H, int HG,
+             int threads, int chunk, int nch, float scale, cudaStream_t s) {
   switch (ksl) {
     case 1:
-      return launch<HD, 1, kQ>(q, k, v, mask, pm, pl, pacc, out, B, Q, S, Sm,
-                               H, HG, threads, chunk, nch, scale, s);
+      return launch<HD, 1, kQ>(q, k, v, mask, pm, pl, pacc, out, om, ol, B,
+                               Q, S, Sm, H, HG, threads, chunk, nch, scale, s);
     case 2:
-      return launch<HD, 2, kQ>(q, k, v, mask, pm, pl, pacc, out, B, Q, S, Sm,
-                               H, HG, threads, chunk, nch, scale, s);
+      return launch<HD, 2, kQ>(q, k, v, mask, pm, pl, pacc, out, om, ol, B,
+                               Q, S, Sm, H, HG, threads, chunk, nch, scale, s);
     case 4:
-      return launch<HD, 4, kQ>(q, k, v, mask, pm, pl, pacc, out, B, Q, S, Sm,
-                               H, HG, threads, chunk, nch, scale, s);
+      return launch<HD, 4, kQ>(q, k, v, mask, pm, pl, pacc, out, om, ol, B,
+                               Q, S, Sm, H, HG, threads, chunk, nch, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -365,21 +377,23 @@ int dispatch(int ksl, const void* q, const void* k, const void* v,
 // {1, 2, 4} key slices a group of lanes (tiles of 16 * ksl keys); nqt
 // queries a thread (4, 1 at HD 32); hg heads a block (divides H);
 // threads a block (a multiple of 32, at least hg * ceil(Q / nqt) * ksl, at
-// most 256); chunk keys a block (a multiple of the tile). Returns the
-// cudaError_t of the launches.
+// most 256); chunk keys a block (a multiple of the tile). out_m/out_l: null,
+// or f32 [B, H, Q] for the partial form's max logit and sum of
+// exponentials. Returns the cudaError_t of the launches.
 extern "C" int masked_cross_attention_f32(
     const void* q, const void* k, const void* v, const void* mask, void* pm,
-    void* pl, void* pacc, void* out, int B, int Q, int S, int Sm, int H,
-    int HD, int ksl, int nqt, int hg, int threads, int chunk, int nch,
-    float scale, void* stream) {
+    void* pl, void* pacc, void* out, void* out_m, void* out_l, int B, int Q,
+    int S, int Sm, int H, int HD, int ksl, int nqt, int hg, int threads,
+    int chunk, int nch, float scale, void* stream) {
   if (hg < 1 || H % hg || Sm % 16 || Sm < S ||
-      chunk % (kKeysPerSlice * ksl))
+      chunk % (kKeysPerSlice * ksl) || (out_m == nullptr) != (out_l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define MCA_CASE(D_, NQ_)                                                   \
   if (HD == D_ && nqt == NQ_)                                               \
-    return dispatch<D_, NQ_>(ksl, q, k, v, mask, pm, pl, pacc, out, B, Q, S, \
-                             Sm, H, hg, threads, chunk, nch, scale, s);
+    return dispatch<D_, NQ_>(ksl, q, k, v, mask, pm, pl, pacc, out, out_m,  \
+                             out_l, B, Q, S, Sm, H, hg, threads, chunk, nch, \
+                             scale, s);
   MCA_CASE(8, 4)
   MCA_CASE(16, 4)
   MCA_CASE(32, 1)

@@ -29,20 +29,24 @@ sparse-conv kernel for each of their values (`models/mask3d.py` checks
 them).
 
 With `sp_axis` under an active mesh that carries it (`parallel/mesh.py`),
-`dense` runs on x-slabs of its grids over the `sp` ranks (`_SlabCtx`).
+`dense` runs on x-slabs of its grids over the `sp` ranks (`_SlabCtx`), with
+every block type, the gate and the int8 knobs; the other impls run whole on
+every rank.
 
 Returns `(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]],
 the five pyramid outputs as rows at strides [16, 8, 4, 2, 1] (whole on
-every rank under sp), and the final level-0 grid for the pooled pyramid
-(this rank's x-slab under sp; None on the other impls).
+every rank under sp, or with `chunks` this rank's chunk of each level's
+rows on `dense`), and the final level-0 grid for the pooled pyramid (this
+rank's x-slab under sp; None on the other impls).
 
 Blocks are basic (two 3^3 convs) or, on `Res16UNet50`/`101`, bottlenecks
 (1x1 reduce, 3^3, 1x1 expand x4, so every feature map is PLANES x 4 wide),
 optionally with a squeeze-excitation gate (`SE`, the ResUNet zoo's
 `SEResUNet*` in `models/resunet.py`). `fold_small_stages` runs the
 identity-residual stages of <= 32 channels on `dense` in the z-folded
-layout (`dense_ops.dense_basic_stage_folded`). The int8 stack and `sp_axis`
-run basic blocks without the gate only; the others raise.
+layout (`dense_ops.dense_basic_stage_folded`). The int8 stack runs every
+block type on `dense` (the fused chain only on basic blocks without the
+gate and without sp, as the JAX package gates it).
 
 Parameters are named after the JAX package's (`conv0p1s1`, `bn0`,
 `block1_0_conv1`, `block1_0_norm1`, ...): `convs[name].weight` holds the
@@ -271,15 +275,21 @@ class _SlabCtx(_DenseCtx):
     norms sum their statistics over `sp`, the stride-2 convs stay local on
     aligned slabs, and the step from the last sharded level to the first
     whole one gathers the slabs (and the transposed conv back slices them).
-    `rows()` hands the decoder whole rows on every rank. Gradients follow
-    `parallel/comm.py`'s convention: the backbone's parameters get partial
-    gradients, summed over `sp` by the train step."""
+    The int8 convs quantize with the whole grid's scale (the dynamic
+    absmax max-reduced over `sp`, or the static bound) and read their halo
+    planes quantized, a QGrid's as its int8 planes. `rows()` hands the
+    decoder whole rows on every rank, or with `chunks`
+    (`parallel.mesh.RowChunks`, inference) this rank's chunk of them.
+    Gradients follow `parallel/comm.py`'s convention: the backbone's
+    parameters get partial gradients, summed over `sp` by the train
+    step."""
 
     def __init__(self, sb: SparseBatch, grid_dims, plan, group,
-                 compute_dtype=None):
-        super().__init__(sb, grid_dims, compute_dtype)
+                 compute_dtype=None, chunks=None, **int8):
+        super().__init__(sb, grid_dims, compute_dtype, **int8)
         self.plan = plan
         self.group = group
+        self.chunks = chunks
         self.occ = [o if s is None else o[:, s.x0:s.x1]
                     for o, s in zip(sb.occ, plan)]
 
@@ -294,11 +304,33 @@ class _SlabCtx(_DenseCtx):
     def conv3(self, x, conv: Conv, level_idx, bound=None):
         s = self.plan[level_idx]
         if s is None:
-            return super().conv3(x, conv, level_idx)
-        return dense_ops.dense_conv_same_slab(
-            x, conv.weight, self.occ[level_idx], s, compute_dtype=self.dt)
+            return super().conv3(x, conv, level_idx, bound=bound)
+        occ = self.occ[level_idx]
+        if not self._int8(conv):
+            if isinstance(x, QGrid):
+                x = dequantize(x, self.dt or torch.float32)
+            return dense_ops.dense_conv_same_slab(
+                x, conv.weight, occ, s, compute_dtype=self.dt)
+        bound = bound if self.int8_sigma > 0 else None
+        if bound is None and not isinstance(x, QGrid):
+            bound = self._absmax(x, s)
+        p = conv.weight.shape[-1] // 2
+        if p:  # the halo planes, then the conv on the padded slab, cropped
+            x = (QGrid(comm.halo(x.q, p, s.group), x.scale)
+                 if isinstance(x, QGrid) else comm.halo(x, p, s.group))
+            occ = torch.nn.functional.pad(occ, (0, 0, 0, 0, 0, 0, p, p))
+        out = dense_conv_same_int8(x, conv.weight, occ,
+                                   out_dtype=self.dt or torch.float32,
+                                   act_bound=bound)
+        return out[:, p:out.shape[1] - p].contiguous() if p else out
 
     conv1x1 = conv3  # k=1: no halo
+
+    def _absmax(self, x, s):
+        """Per channel, the whole grid's max |x|: the dynamic int8 scale of
+        a slab, as GSPMD reduces the JAX package's over the sharded x."""
+        return comm.max_over(x.float().abs().amax(dim=(0, 1, 2, 3)),
+                             s.group, name="int8_absmax")
 
     def conv_down(self, x, conv: Conv, fine_idx):
         fine, coarse = self.plan[fine_idx], self.plan[fine_idx + 1]
@@ -323,11 +355,34 @@ class _SlabCtx(_DenseCtx):
 
     def rows(self, x, level_idx):
         s = self.plan[level_idx]
+        level = self.sb.levels[level_idx]
+        if s is None and self.chunks is not None:
+            return self.chunks.take(super().rows(x, level_idx),
+                                    level.capacity)
         if s is None:
             # a whole level: the decoder's gradient counted once over sp
             return comm.to_partial(super().rows(x, level_idx), self.group)
-        return dense_ops.gather_rows_slab(x, self.sb.levels[level_idx],
-                                          self.grid_dims[level_idx], s)
+        return dense_ops.gather_rows_slab(x, level,
+                                          self.grid_dims[level_idx], s,
+                                          self.chunks)
+
+    # from mask3d_tpu/models/backbone.py:314 global_mean (GSPMD's sum over
+    # the sharded x axis)
+    def global_mean(self, x, level_idx):
+        """Per-item mean over the occupied cells of the whole grid: the
+        slab's sums and counts summed over `sp`, then `_DenseCtx`'s
+        arithmetic (the count in x's dtype, so bf16 rounds a count above
+        256 as the whole grid's sum does)."""
+        s = self.plan[level_idx]
+        if s is None:
+            return super().global_mean(x, level_idx)
+        occ = self.occ[level_idx]
+        tot = (x * occ).sum(dim=(1, 2, 3), keepdim=True)
+        part = torch.cat([occ.float().sum(dim=(1, 2, 3), keepdim=True),
+                          tot.float()], dim=-1)
+        part = comm.sum_over(part, s.group)
+        cnt = part[..., :1].to(x.dtype).clamp_min(1)
+        return part[..., 1:].to(tot.dtype) / cnt
 
 
 # from mask3d_tpu/models/backbone.py:324 _BrickCtx
@@ -458,13 +513,6 @@ class _Backbone(nn.Module):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"backbone impl {impl!r} is not one of {IMPLS}")
-        if sp_axis is not None and (impl != "dense" or int8_stride1
-                                    or pallas_chain):
-            # from mask3d_tpu/models/backbone.py:463 sp_axis (dense impl)
-            raise NotImplementedError(
-                f"model.sp_axis shards the dense backbone's fp32/bf16 grids "
-                f"only (backbone_impl={impl!r}, int8_stride1="
-                f"{int8_stride1}, pallas_chain={pallas_chain})")
         if impl != "dense" and (int8_stride1 or pallas_chain):
             raise NotImplementedError(
                 "the int8 stack (int8_stride1, pallas_chain) runs on the "
@@ -473,19 +521,6 @@ class _Backbone(nn.Module):
         if impl in ("gather", "gather_pallas") and unit_features:
             raise NotImplementedError(
                 "unit_features is ported on the dense and bricked impls")
-        name = type(self).__name__
-        if self.BLOCK == "bottleneck" and (int8_stride1 or int8_residual
-                                           or pallas_chain):
-            widest = max(self.PLANES) * self.EXPANSION
-            raise NotImplementedError(
-                f"the int8 stack (int8_stride1, int8_residual, pallas_chain)"
-                f" on the bottleneck {name}: its 1x1 expands write "
-                f"{widest} channels, past the int8 conv's plan() (Cout <= "
-                f"384)")
-        if (self.BLOCK == "bottleneck" or self.SE) and sp_axis is not None:
-            raise NotImplementedError(
-                f"model.sp_axis with {name}: the slab context runs the "
-                f"basic blocks without squeeze-excitation only")
         self.sp_axis = sp_axis
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
@@ -550,7 +585,8 @@ class _Backbone(nn.Module):
                 norm.weight.fill_(1.0)
                 norm.bias.zero_()
 
-    def _context(self, feats, sb: SparseBatch, grid_dims, int8: bool):
+    def _context(self, feats, sb: SparseBatch, grid_dims, int8: bool,
+                 chunks=None):
         """(execution context, level-0 input) of one forward."""
         if grid_dims is None and self.impl in ("dense", "bricked"):
             raise ValueError(f"backbone_impl={self.impl} needs the batch's "
@@ -558,16 +594,16 @@ class _Backbone(nn.Module):
         plan = (slab_plan(grid_dims, self.sp_axis) if self.impl == "dense"
                 else None)
         unit = self.unit_features and self.in_channels == 1
+        int8_opts = dict(int8_stride1=self.int8_stride1 and int8,
+                         int8_act_sigma=self.int8_act_sigma,
+                         int8_residual=self.int8_residual)
         if plan is not None:
             ctx = _SlabCtx(sb, grid_dims, plan, sp_group(self.sp_axis),
-                           self.compute_dtype)
+                           self.compute_dtype, chunks, **int8_opts)
             return ctx, (ctx.occ[0].to(feats.dtype) if unit
                          else ctx.scatter(feats, 0))
         if self.impl == "dense":
-            ctx = _DenseCtx(sb, grid_dims, self.compute_dtype,
-                            int8_stride1=self.int8_stride1 and int8,
-                            int8_act_sigma=self.int8_act_sigma,
-                            int8_residual=self.int8_residual)
+            ctx = _DenseCtx(sb, grid_dims, self.compute_dtype, **int8_opts)
             # the scatter of unit features is the occupancy grid
             return ctx, (ctx.occ[0].to(feats.dtype) if unit
                          else ctx.scatter(feats, 0))
@@ -715,7 +751,7 @@ class _Backbone(nn.Module):
         basic = self.BLOCK == "basic" and not self.SE
         # a bound exists only on the dense int8 path with static scales
         if (self.pallas_chain and basic and bin_ is not None
-                and not isinstance(x, QGrid)
+                and self.sp_axis is None and not isinstance(x, QGrid)
                 and min(cin, planes) >= 96 and cin <= 128
                 and planes < 128  # the TPU layout's spare occupancy lane
                 and chain.padded_rows(ctx.grid_dims[level_idx])
@@ -770,14 +806,17 @@ class Res16UNetBase(_Backbone):
             self._stage(i + 5, p[4 + i] + skips[i], p[4 + i], lay[4 + i])
 
     # from mask3d_tpu/models/backbone.py:725 __call__ of Res16UNetBase
-    def forward(self, feats, sb: SparseBatch, grid_dims, int8: bool = True
-                ) -> Tuple[torch.Tensor, List[torch.Tensor],
-                           Optional[torch.Tensor]]:
+    def forward(self, feats, sb: SparseBatch, grid_dims, int8: bool = True,
+                chunks=None) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                      Optional[torch.Tensor]]:
         """`int8=False` runs the fp32/bf16 convs whatever `int8_stride1`
         says: the model's train mode (the JAX package builds its backbone
         with `int8_stride1 and is_eval`, mask3d.py:406). `grid_dims` None
-        (a batch without static grid dims) runs on the gather impls only."""
-        ctx, x = self._context(feats, sb, grid_dims, int8)
+        (a batch without static grid dims) runs on the gather impls only.
+        `chunks` (`parallel.mesh.RowChunks`, inference under sp): the
+        sharded `dense` backbone returns this rank's chunk of each level's
+        rows; the other impls return whole rows."""
+        ctx, x = self._context(feats, sb, grid_dims, int8, chunks)
 
         # Encoder. The stem is conv -> norm -> relu (the JAX package's
         # dense impl runs the same arithmetic as a fused z-folded conv).

@@ -18,6 +18,19 @@ features), pre-norm layers, a level embedding, and a set of layers a round
 Attention masks come from the pooled mask-feature pyramid: on the dense
 grids (pooling commutes with the linear mask head) on the dense backbone,
 by row-space average pooling over the PoolMaps on the gather backbones.
+
+With `model.sp_axis` at inference, each sp rank holds one contiguous chunk
+of every level's rows (`parallel.mesh.RowChunks`, as the JAX package's
+`maybe_constrain` splits its row arrays): the feature maps, the mask
+features and their pyramid, the coordinate pyramid, the attention masks
+and the mask logits. The sharded dense backbone reduce-scatters its rows
+to the chunks; the other impls run whole on every rank and each takes its
+chunk. The positional encodings' min/max and the un-blocking of fully
+blocked queries reduce over `sp`; each cross-attention runs the kernel's
+partial form over the rank's rows and combines the ranks' softmax states
+(`ops.masked_attention.combine_partial_softmax`); FPS reads the input
+coordinates, whole on every rank; the output masks are gathered whole. In
+training the decoder keeps whole rows on every rank (`parallel/comm.py`).
 """
 
 from __future__ import annotations
@@ -35,8 +48,10 @@ from mask3d_tpu_torch.models.backbone import BACKBONES
 from mask3d_tpu_torch.models.posenc import fourier_embeddings, \
     sine_embeddings
 from mask3d_tpu_torch.ops.fps import furthest_point_sample
+from mask3d_tpu_torch.ops import masked_attention as ma
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
-from mask3d_tpu_torch.parallel.mesh import dp_coords, slab_plan
+from mask3d_tpu_torch.parallel import comm
+from mask3d_tpu_torch.parallel.mesh import dp_coords, row_chunks, slab_plan
 from mask3d_tpu_torch.sparse import dense_ops
 from mask3d_tpu_torch.sparse.context import SparseBatch
 from mask3d_tpu_torch.sparse.ops import avg_pool
@@ -83,10 +98,15 @@ class MultiheadAttention(nn.Module):
     def project_kv(self, k, v):
         return self.k(k), self.v(v)
 
-    def forward(self, q, k=None, v=None, mask=None, kv_proj=None):
+    def forward(self, q, k=None, v=None, mask=None, kv_proj=None,
+                group=None):
+        """`group`: the keys are this sp rank's chunk of the rows (see
+        `sharded_attention`)."""
         h = self.num_heads
         wq = self.q(q)
         wk, wv = kv_proj if kv_proj is not None else self.project_kv(k, v)
+        if mask is not None and group is not None:
+            return self.out(sharded_attention(wq, wk, wv, mask, h, group))
         if mask is not None:
             return self.out(masked_cross_attention(wq, wk, wv, mask, h))
         b, nq, d = wq.shape
@@ -120,12 +140,13 @@ class CrossAttentionLayer(nn.Module):
         shared-decoder rounds, so the caller hoists them."""
         return self.attn.project_kv(memory + pos, memory)
 
-    def forward(self, tgt, memory_mask, query_pos, kv_proj):
+    def forward(self, tgt, memory_mask, query_pos, kv_proj, group=None):
         if self.pre_norm:
             t2 = self.attn(self.norm(tgt) + query_pos, mask=memory_mask,
-                           kv_proj=kv_proj)
+                           kv_proj=kv_proj, group=group)
             return tgt + self.drop(t2)
-        t2 = self.attn(tgt + query_pos, mask=memory_mask, kv_proj=kv_proj)
+        t2 = self.attn(tgt + query_pos, mask=memory_mask, kv_proj=kv_proj,
+                       group=group)
         return self.norm(tgt + self.drop(t2))
 
 
@@ -167,15 +188,41 @@ class FFNLayer(nn.Module):
         return self.norm(tgt + self.drop(t2))
 
 
+# the masked cross-attention over row chunks (GSPMD's softmax over the
+# sharded key axis of mask3d_tpu/ops/pallas_attention.py:102's caller)
+def sharded_attention(q, k, v, mask, num_heads: int, group):
+    """The masked attention over every sp rank's chunk of the keys: the
+    kernel's partial form over this rank's (out, max, sum), one all-gather
+    of the ranks' triples ([B, Q, D + 2H] floats) and their combine, the
+    same on every rank. Inference only (no gradient)."""
+    o, m, lsum = ma.masked_cross_attention_partial(q, k, v, mask, num_heads)
+    b, nq, d = o.shape
+    hq = num_heads * nq
+    packed = torch.cat([o.reshape(b, -1), m.reshape(b, -1),
+                        lsum.reshape(b, -1)], dim=1)
+    parts = comm.all_gather(packed, group, name="attention_partials")
+    return ma.combine_partial_softmax(
+        [t[:, :nq * d].reshape(b, nq, d) for t in parts],
+        [t[:, nq * d:nq * d + hq].reshape(b, num_heads, nq) for t in parts],
+        [t[:, nq * d + hq:].reshape(b, num_heads, nq) for t in parts],
+        num_heads)
+
+
 # from mask3d_tpu/models/mask3d.py:274 _masked_minmax
-def _masked_minmax(coords, valid):
-    """Per-item min/max over valid rows; empty items collapse to zeros."""
+def _masked_minmax(coords, valid, group=None):
+    """Per-item min/max over valid rows; empty items collapse to zeros.
+    With `group`, the rows are this sp rank's chunk and the min, max and
+    any-valid reduce over it."""
     big = 1e9
     c = coords.float()
     v = valid[..., None]
     mins = torch.where(v, c, big).amin(dim=1)
     maxs = torch.where(v, c, -big).amax(dim=1)
     any_valid = valid.any(dim=1)[:, None]
+    if group is not None:  # one max: of -min, max and any
+        red = comm.max_over(torch.cat([-mins, maxs, any_valid.float()],
+                                      dim=1), group, name="minmax")
+        mins, maxs, any_valid = -red[:, :3], red[:, 3:6], red[:, 6:] > 0
     return (torch.where(any_valid, mins, 0.0),
             torch.where(any_valid, maxs, 0.0))
 
@@ -348,6 +395,12 @@ class Mask3D(nn.Module):
         package's markers (mask3d.py:414-735): "backbone_part1",
         "backbone_part2", "pos_enc", "queries", then "decoder_<d>" after
         each decoder round (`train.loop.measure_model_phases`)."""
+        impl = self.backbone.impl
+        if self.training and self.sp_axis is not None and impl != "dense":
+            raise NotImplementedError(
+                f"model.sp_axis in training with backbone_impl={impl!r}: "
+                f"the sharded train step runs the dense backbone only (the "
+                f"decoder over sharded rows is ported at inference)")
         mark = phase_mark or (lambda name: None)
         b = feats.shape[0]
         n_levels = sb.num_levels
@@ -361,6 +414,14 @@ class Mask3D(nn.Module):
 
         # int8 convs at eval only: quantization has no useful gradient
         int8 = not self.training
+        # this rank's chunk of every level's rows (inference under sp)
+        chunks = row_chunks(self.sp_axis) if not self.training else None
+        group = chunks.group if chunks is not None else None
+
+        def take(x, li, dim=1):
+            return x if chunks is None else chunks.take(
+                x, sb.levels[li].capacity, dim)
+
         if self.training and self.remat_backbone:
             # from mask3d_tpu/models/mask3d.py:389-395 remat_backbone:
             # recompute the backbone in the backward instead of keeping its
@@ -369,21 +430,24 @@ class Mask3D(nn.Module):
                 self.backbone, feats, sb, grid_dims, int8,
                 use_reentrant=False)
         else:
-            bb_out, feature_maps, bb_grid = self.backbone(feats, sb,
-                                                          grid_dims, int8)
+            # the sharded dense backbone returns this rank's row chunks
+            bb_out, feature_maps, bb_grid = self.backbone(
+                feats, sb, grid_dims, int8, chunks)
         mark("backbone_part1")
         # feature_maps: [s16, s8, s4, s2, s1]; sparse level of fm[i] = 4-i
         fm_level = [n_levels - 1 - i for i in range(n_levels)]
+        whole_rows = chunks is not None and bb_grid is None
 
         # A bf16 backbone's rows go into the f32 heads as f32 (Flax's Dense
         # promotes bf16 inputs with f32 kernels; nn.Linear would refuse).
         mask_feats = self.mask_features_head(bb_out.float()) * \
-            valid0[..., None]
+            (valid0 if whole_rows else take(valid0, 0))[..., None]
         # The coordinate and pooled mask-feature pyramids only place the
         # positional encodings and threshold the attention masks: no
         # gradient flows through them (the JAX package's stop_gradients,
         # mask3d.py:438, :450, :477-478, :494).
-        coords_pyr = [raw_coords.float().detach()]
+        coords_pyr = [(raw_coords.float() if whole_rows
+                       else take(raw_coords.float(), 0)).detach()]
         mask_feats_pyr = [mask_feats.detach()]
         if bb_grid is not None:
             # Pooled pyramid on the dense grids: mean-pool the coordinate
@@ -401,7 +465,7 @@ class Mask3D(nn.Module):
                 dims0, b, device=feats.device, x0=x0) * occ0
             for crow, brow in dense_ops.pooled_row_pyramid(
                     [coord_grid, bb_grid.detach()], sb.occ, sb.levels,
-                    grid_dims, plan=plan):
+                    grid_dims, plan=plan, chunks=chunks):
                 coords_pyr.append(crow)
                 mask_feats_pyr.append(
                     self.mask_features_head(brow.float()).detach())
@@ -413,19 +477,30 @@ class Mask3D(nn.Module):
                 fused = avg_pool(fused, pool, sb.levels[i + 1].capacity)
                 coords_pyr.append(fused[..., :3])
                 mask_feats_pyr.append(fused[..., 3:])
+            if whole_rows:  # the whole backbone ran here: take the chunks
+                coords_pyr = [take(c, li) for li, c in enumerate(coords_pyr)]
+                mask_feats_pyr = [take(m, li)
+                                  for li, m in enumerate(mask_feats_pyr)]
+                mask_feats = take(mask_feats, 0)
+                bb_out = take(bb_out, 0)
+                feature_maps = [take(f, fm_level[i])
+                                for i, f in enumerate(feature_maps)]
         mark("backbone_part2")
 
         pe_levels = {fm_level[h] for h in self.hlevels}
         pe_pyr, minmax_pyr = [], []
         for li in range(n_levels):
-            mins, maxs = _masked_minmax(coords_pyr[li], sb.levels[li].valid)
+            mins, maxs = _masked_minmax(coords_pyr[li],
+                                        take(sb.levels[li].valid, li), group)
             minmax_pyr.append((mins, maxs))
             pe_pyr.append(self._pos_enc(coords_pyr[li], mins, maxs)
                           if li in pe_levels else None)
         mark("pos_enc")
 
+        # FPS reads the input coordinates, whole on every rank
         queries, query_pos, sampled = self._queries(
-            bb_out, coords_pyr[0], valid0, minmax_pyr[0], generator)
+            bb_out, raw_coords.float().detach(), valid0, minmax_pyr[0],
+            generator, chunks)
         mark("queries")
 
         def mask_module(qs, num_pooling_steps, ret_attn=True,
@@ -455,6 +530,7 @@ class Mask3D(nn.Module):
                 cross = self.cross[key]
                 cap = level.capacity
                 s = self._sampled(hlevel, cap)
+                rows = torch.arange(s, device=attn.device)[None]
                 if s == cap:
                     # The full padded level: its squeezed memory and K/V
                     # are the same in every round that shares the layers.
@@ -464,6 +540,7 @@ class Mask3D(nn.Module):
                         kv_cache[key] = cross.project_kv(src, pe_pyr[lvl])
                     kvp = kv_cache[key]
                     n_rows = level.count
+                    rows = take(rows, lvl)  # this rank's rows under sp
                 else:
                     # from mask3d_tpu/models/mask3d.py:693-716 uniform: a
                     # fresh sample of the level's valid rows each round
@@ -478,25 +555,28 @@ class Mask3D(nn.Module):
                         dp_rank * b:(dp_rank + 1) * b]
                     idx = sample_memory_idx(r, level.valid, s)
 
-                    def take(x):
+                    def pick(x):
                         return torch.gather(
                             x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
                     src = self._squeezed(key, li,
-                                         take(feature_maps[hlevel].float()))
-                    kvp = cross.project_kv(src, take(pe_pyr[lvl]))
-                    attn = take(attn)  # [B, S, Q]
+                                         pick(feature_maps[hlevel].float()))
+                    kvp = cross.project_kv(src, pick(pe_pyr[lvl]))
+                    attn = pick(attn)  # [B, S, Q]
                     n_rows = torch.clamp(level.count, max=s)
                 # Unblock queries whose mask blocks every row, then block
                 # the padding rows.
-                pad = torch.arange(s, device=attn.device)[None] \
-                    >= n_rows[:, None]
-                all_blocked = attn.sum(dim=1) == s  # [B, Q]
+                pad = rows >= n_rows[:, None]
+                all_blocked = attn.all(dim=1)  # [B, Q]
+                if group is not None:  # every rank's rows blocked
+                    all_blocked = comm.max_over(
+                        (~all_blocked).to(torch.uint8), group,
+                        name="unblock") == 0
                 attn = attn & ~all_blocked[:, None, :]
                 attn = attn | pad[..., None]
                 mem_mask = attn.transpose(1, 2).contiguous()  # [B, Q, S]
 
-                queries = cross(queries, mem_mask, query_pos, kvp)
+                queries = cross(queries, mem_mask, query_pos, kvp, group)
                 queries = self.self_attn[key](queries, query_pos)
                 queries = self.ffn[key](queries)
                 predictions_class.append(out_class)
@@ -507,9 +587,14 @@ class Mask3D(nn.Module):
         out_class, out_masks, _ = mask_module(queries, 0, ret_attn=False)
         predictions_class.append(out_class)
         predictions_masks.append(out_masks)
+        masks = torch.stack(predictions_masks)
+        if chunks is not None:  # the output masks whole on every rank
+            masks = chunks.gather(masks, sb.levels[0].capacity, dim=2,
+                                  name="out_masks")
+        # under sp at inference `backbone_feats` is this rank's row chunk
         return Mask3DOutput(aux_pred_class=torch.stack(predictions_class),
-                            aux_pred_masks=torch.stack(predictions_masks),
-                            sampled_coords=sampled, backbone_feats=bb_out)
+                            aux_pred_masks=masks, sampled_coords=sampled,
+                            backbone_feats=bb_out)
 
     def _squeezed(self, key, li, feats):
         """A level's memory projected to the hidden width, plus its level
@@ -536,8 +621,12 @@ class Mask3D(nn.Module):
                   device=device)[dp_rank * b:(dp_rank + 1) * b]
 
     # from mask3d_tpu/models/mask3d.py:537-576 Query (initialization)
-    def _queries(self, bb_out, coords0, valid0, minmax0, generator):
-        """(queries, query_pos, FPS positions or None), each [B, Q, D]."""
+    def _queries(self, bb_out, coords0, valid0, minmax0, generator,
+                 chunks=None):
+        """(queries, query_pos, FPS positions or None), each [B, Q, D].
+        With `chunks`, `bb_out` is this rank's chunk of the level-0 rows:
+        a query's features come from the rank that holds its row, summed
+        over `sp`."""
         b, q, d = bb_out.shape[0], self.num_queries, self.hidden_dim
         dev = bb_out.device
         mode = self.query_mode
@@ -552,9 +641,20 @@ class Mask3D(nn.Module):
             query_pos = torch.relu(self.query_proj_out(qp))
             if not self.use_np_features:
                 return torch.zeros_like(query_pos), query_pos, sampled
-            np_feats = torch.gather(
-                bb_out.float(), 1,
-                fps_idx[..., None].expand(-1, -1, bb_out.shape[-1]))
+            if chunks is None:
+                np_feats = torch.gather(
+                    bb_out.float(), 1,
+                    fps_idx[..., None].expand(-1, -1, bb_out.shape[-1]))
+            else:
+                lo, hi = chunks.span(valid0.shape[1])
+                mine = (fps_idx >= lo) & (fps_idx < hi)
+                local = torch.where(mine, fps_idx - lo, 0)
+                np_feats = torch.gather(
+                    bb_out.float(), 1,
+                    local[..., None].expand(-1, -1, bb_out.shape[-1]))
+                np_feats = comm.all_reduce(
+                    np_feats * mine[..., None], group=chunks.group,
+                    name="np_features")
             queries = self.np_proj_out(
                 torch.relu(self.np_proj_hidden(np_feats)))
             return queries, query_pos, sampled
@@ -592,11 +692,12 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     train step takes micro-batches of one scene (`data.batch_size` equal to
     `trainer.grad_accum_steps`). `model.sp_axis` shards the `dense`
     backbone's grids over that axis of the active mesh (`parallel/mesh.py`;
-    a no-op without one); other impls and the int8 knobs raise with it.
-    Every backbone of `models.backbone.BACKBONES` and every decoder option
-    builds; the bottleneck backbones (`Res16UNet50`/`101`) refuse the int8
-    knobs and `sp_axis` (`models/backbone.py`). Random queries are drawn
-    from the forward's `generator=`."""
+    a no-op without one), with every backbone and int8 knob; at inference
+    it splits the decoder's rows over the axis on every impl, and a train
+    forward on another impl than `dense` raises with it. Every backbone of
+    `models.backbone.BACKBONES`, every decoder option and every int8 knob
+    on `dense` builds. Random queries are drawn from the forward's
+    `generator=`."""
     dev = resolve_device(device)
     m = cfg.model
     for opt, supported in _SUPPORTED_VALUES.items():

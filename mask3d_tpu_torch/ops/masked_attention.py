@@ -10,6 +10,15 @@ tensor it launches the hand-written kernel and adds one to
 tensor it runs `masked_cross_attention_plain`, the one-shot softmax in
 plain PyTorch.
 
+`masked_cross_attention_partial` is the same kernel over one sequence-
+parallel rank's chunk of the keys: beside the normalized output it returns
+each (item, head, query)'s max logit and sum of exponentials, and
+`combine_partial_softmax` merges the ranks' triples into the softmax over
+every key (`models/mask3d.py` runs the decoder's rows sharded over `sp` at
+inference). Its launches count in `masked_cross_attention.launches` and in
+`masked_cross_attention.partial_by_shape[S]`; it has no gradient (the
+sharded decoder runs at inference only).
+
 It is differentiable in q, k and v (`MaskedCrossAttention`): the forward
 is the kernel (or the plain version on the CPU), the backward the VJP of
 the plain one-shot form, recomputed from the saved inputs, as the JAX
@@ -60,6 +69,48 @@ def masked_cross_attention_plain(q, k, v, mask, num_heads: int):
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, split(v).float())
     return out.reshape(b, nq, d).to(q.dtype)
+
+
+# the partial form: the same softmax over one chunk of the keys
+def masked_cross_attention_partial_plain(q, k, v, mask, num_heads: int):
+    """(out f32[B, Q, D] normalized over this chunk's keys, max f32[B, H,
+    Q] of the logits with the -1e9 fill, sum f32[B, H, Q] of exp(logit -
+    max)). A chunk without keys gives out 0, max -1e9 and sum 0."""
+    b, nq, d = q.shape
+    hd = d // num_heads
+    s = k.shape[1]
+    if s == 0:
+        return (torch.zeros_like(q, dtype=torch.float32),
+                q.new_full((b, num_heads, nq), -1e9, dtype=torch.float32),
+                q.new_zeros((b, num_heads, nq), dtype=torch.float32))
+
+    def split(x):
+        return x.reshape(x.shape[0], x.shape[1], num_heads, hd)
+
+    logits = torch.einsum(
+        "bqhd,bkhd->bhqk", split(q).float(), split(k).float()
+    ) / (hd ** 0.5)
+    logits = logits.masked_fill(mask.bool()[:, None], -1e9)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    lsum = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, split(v).float())
+    out = out / lsum.transpose(1, 2)[..., None]
+    return out.reshape(b, nq, d), m, lsum
+
+
+def combine_partial_softmax(outs, maxes, sums, num_heads: int):
+    """The softmax over every key from the ranks' partial triples (lists in
+    rank order of out [B, Q, D], max and sum [B, H, Q]): each rank's
+    normalized output weighted by sum * exp(max - the ranks' max)."""
+    b, nq, d = outs[0].shape
+    hd = d // num_heads
+    m = torch.stack(maxes)  # [R, B, H, Q]
+    w = torch.stack(sums) * torch.exp(m - m.amax(dim=0, keepdim=True))
+    o = torch.stack(outs).reshape(len(outs), b, nq, num_heads, hd)
+    w = w.permute(0, 1, 3, 2)[..., None]  # [R, B, Q, H, 1]
+    out = (o * w).sum(dim=0) / w.sum(dim=0).clamp_min(1e-20)
+    return out.reshape(b, nq, d)
 
 
 def _check(q, k, v, mask, num_heads):
@@ -144,7 +195,7 @@ def _kernel():
     if _lib is None:
         lib = cuda_build.load("masked_attention")
         lib.masked_cross_attention_f32.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
             + [ctypes.c_float, ctypes.c_void_p])
         lib.masked_cross_attention_f32.restype = ctypes.c_int
         _lib = lib
@@ -156,6 +207,11 @@ def _forward(q, k, v, mask, num_heads: int):
     one."""
     if not cuda_build.use_kernel(q, "masked_cross_attention"):
         return masked_cross_attention_plain(q, k, v, mask, num_heads)
+    return _launch(q, k, v, mask, num_heads)
+
+
+def _launch(q, k, v, mask, num_heads: int, partial: bool = False):
+    """One launch of the kernel: out, or with `partial` (out, max, sum)."""
     b, nq, d = q.shape
     s = k.shape[1]
     hd = d // num_heads
@@ -172,7 +228,13 @@ def _forward(q, k, v, mask, num_heads: int):
         raise ValueError("masked_cross_attention kernel wants 16-byte "
                          "aligned k and v")
     out = torch.empty_like(q)
+    stats = None
+    if partial:
+        stats = torch.empty((2, b, num_heads, nq), dtype=torch.float32,
+                            device=q.device)
     if b * nq * s == 0:
+        if partial:  # no keys: out 0, max -1e9, sum 0 (the plain form's)
+            return out.zero_(), stats[0].fill_(-1e9), stats[1].zero_()
         return out
     p = plan(b, nq, s, num_heads, hd)
     part_ml = torch.empty((2, b, p.nch, num_heads, nq), dtype=torch.float32,
@@ -187,13 +249,16 @@ def _forward(q, k, v, mask, num_heads: int):
     cuda_build.call(
         _kernel(), q.device, "masked_cross_attention", q.data_ptr(),
         k.data_ptr(), v.data_ptr(), m8.data_ptr(), part_ml[0].data_ptr(),
-        part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, nq, s,
+        part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        None if stats is None else stats[0].data_ptr(),
+        None if stats is None else stats[1].data_ptr(), b, nq, s,
         m8.shape[-1], num_heads, hd, p.ksl, p.queries, p.hg, p.threads,
         p.chunk, p.nch, 1.0 / math.sqrt(hd))
     masked_cross_attention.launches += 1
-    masked_cross_attention.launches_by_shape[s] = \
-        masked_cross_attention.launches_by_shape.get(s, 0) + 1
-    return out
+    by_shape = (masked_cross_attention.partial_by_shape if partial
+                else masked_cross_attention.launches_by_shape)
+    by_shape[s] = by_shape.get(s, 0) + 1
+    return (out, stats[0], stats[1]) if partial else out
 
 
 # from mask3d_tpu/ops/pallas_attention.py:160 _mca_bwd
@@ -234,5 +299,18 @@ def masked_cross_attention(q, k, v, mask, num_heads: int):
     return MaskedCrossAttention.apply(q, k, v, mask, num_heads)
 
 
+def masked_cross_attention_partial(q, k, v, mask, num_heads: int):
+    """The partial form over this rank's keys: q f32[B, Q, D]; k, v f32[B,
+    S, D]; mask [B, Q, S] -> (out f32[B, Q, D], max f32[B, H, Q], sum
+    f32[B, H, Q]); the kernel on a CUDA tensor, the plain form on a CPU
+    one. No gradient."""
+    _check(q, k, v, mask, num_heads)
+    if not cuda_build.use_kernel(q, "masked_cross_attention"):
+        return masked_cross_attention_partial_plain(q, k, v, mask, num_heads)
+    return _launch(q, k, v, mask, num_heads, partial=True)
+
+
 masked_cross_attention.launches = 0
 masked_cross_attention.launches_by_shape = {}  # key length S -> launches
+# the partial form's launches by its chunk's key length
+masked_cross_attention.partial_by_shape = {}

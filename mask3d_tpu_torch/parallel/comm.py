@@ -1,9 +1,10 @@
 """Collectives of the data- and sequence-parallel paths, and the autograd
 Functions built on them.
 
-Only `all_reduce`, `all_gather` and `broadcast` are used: NCCL refuses two
-ranks on one card and gloo may refuse `send`/`recv` of CUDA tensors, and
-these three run on both backends. `_staged` is the one place a tensor is
+Only `all_reduce`, `all_gather`, `broadcast` and `reduce` are used: NCCL
+refuses two ranks on one card and gloo may refuse `send`/`recv` of CUDA
+tensors, and these four run on both backends (a reduce-scatter is one
+`reduce` a destination rank). `_staged` is the one place a tensor is
 copied for a backend: a CUDA tensor goes through host memory for gloo only
 (gloo's CUDA support depends on how PyTorch was built), a host tensor onto
 the card for NCCL; the NCCL path never stages a CUDA tensor.
@@ -14,7 +15,10 @@ its rank; a tensor replicated inside the backbone (a level too small to
 shard) carries a partial gradient whose sum over the `sp` ranks is the true
 one, so the backbone's parameter gradients are summed over `sp`; the
 decoder runs whole on every `sp` rank with complete gradients, which are
-not summed. The Functions below move tensors between those forms.
+not summed. The Functions below move tensors between those forms. At
+inference the decoder's rows are split over `sp` instead
+(`parallel.mesh.RowChunks`): each rank holds one contiguous chunk of every
+level's rows, reduced from the slabs by `reduce_scatter_rows`.
 """
 
 from __future__ import annotations
@@ -92,6 +96,28 @@ def all_gather(t: torch.Tensor, group=None, name: str = "all_gather"
     return out
 
 
+def reduce_scatter_rows(x: torch.Tensor, bounds, group,
+                        name: str = "rows") -> torch.Tensor:
+    """This rank's rows [bounds[r], bounds[r + 1]) (axis 1) of the sum of
+    every rank's `x` over `group`: one `reduce` a destination rank. Counts
+    the chunks this rank sends to the others. No gradient."""
+    if not _initialized():
+        return x[:, bounds[0]:bounds[1]]
+    r = group_rank(group)
+    mine = None
+    for d in range(group_size(group)):
+        part = x[:, bounds[d]:bounds[d + 1]].contiguous()
+        if d != r:
+            _count(name, part)
+        work, copied = _staged(part, group)
+        if not copied:
+            work = work.clone()  # a reduce may overwrite a sender's buffer
+        tdist.reduce(work, dst=tdist.get_global_rank(group, d), group=group)
+        if d == r:
+            mine = work.to(x.device) if copied else work
+    return mine
+
+
 def broadcast(t: torch.Tensor, src: int = 0, group=None,
               name: str = "broadcast") -> torch.Tensor:
     """In-place broadcast of `t` from global rank `src`; returns `t`."""
@@ -103,6 +129,11 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None,
     if copied:
         t.copy_(work)
     return t
+
+
+def max_over(x: torch.Tensor, group, name: str = "max") -> torch.Tensor:
+    """The elementwise max of `x` over `group`, in place; no gradient."""
+    return all_reduce(x, op=tdist.ReduceOp.MAX, group=group, name=name)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -173,9 +204,14 @@ def _pad_x(x, extent):
     return torch.cat([x, pad], dim=1)
 
 
-def gather_x(x: torch.Tensor, bounds, group, name="slabs") -> torch.Tensor:
-    """The whole grid from each rank's x-slab (axis 1), the slab of rank r
-    spanning [bounds[r], bounds[r + 1]); no gradient."""
+def gather_x(x: torch.Tensor, bounds, group, name="slabs",
+             dim: int = 1) -> torch.Tensor:
+    """The whole grid from each rank's x-slab (axis `dim`, 1 by default),
+    the slab of rank r spanning [bounds[r], bounds[r + 1]); also a level's
+    rows from each rank's chunk. No gradient."""
+    if dim != 1:
+        return gather_x(x.movedim(dim, 1), bounds, group, name).movedim(
+            1, dim)
     ext = max(b1 - b0 for b0, b1 in zip(bounds[:-1], bounds[1:]))
     parts = all_gather(_pad_x(x, ext), group, name=name)
     return torch.cat([p[:, :b1 - b0] for p, b0, b1 in

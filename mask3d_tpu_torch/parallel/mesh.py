@@ -17,7 +17,11 @@ port runs one process a rank and writes the collectives out:
   holds an x-slab of every level that `sp_min_per_shard` lets shard
   (`slab_plan`); `models/backbone.py` runs the convs on the slabs with halo
   exchanges and the norms with summed statistics, and hands the decoder
-  whole rows, so the tiny query set and the decoder stay replicated.
+  whole rows in training, so the tiny query set and the decoder stay
+  replicated; at inference every level's rows are split into `sp`
+  contiguous chunks (`RowChunks`, the split of JAX's `maybe_constrain` on
+  axis 1), and the decoder runs on the rank's chunk with its softmax, its
+  min/max and its any-reductions combined over `sp`.
 
 JAX's `maybe_constrain` (a sharding constraint for the SPMD partitioner) has
 no torch meaning: the sharded context of `models/backbone.py` takes its
@@ -233,3 +237,43 @@ def slab_plan(grid_dims: Sequence[Sequence[int]], sp_axis: Optional[str]
         bounds = tuple(min(b * f, gx[j]) for b in base[:-1]) + (gx[j],)
         plan[j] = Slab(group, m.sp_rank, bounds)
     return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class RowChunks:
+    """This rank's contiguous chunk of every level's rows under sp at
+    inference: of a level of capacity N, rank r holds rows [r * c, (r + 1)
+    * c) with c = ceil(N / n_sp), the last chunk cut at N (the split of an
+    axis over a mesh axis in the JAX package's sharding)."""
+
+    group: object
+    rank: int
+    n: int
+
+    def bounds(self, cap: int) -> Tuple[int, ...]:
+        c = -(-cap // self.n)
+        return tuple(min(r * c, cap) for r in range(self.n)) + (cap,)
+
+    def span(self, cap: int) -> Tuple[int, int]:
+        b = self.bounds(cap)
+        return b[self.rank], b[self.rank + 1]
+
+    def take(self, x, cap: int, dim: int = 1):
+        """This rank's chunk of rows [.., cap, ..] along `dim`."""
+        lo, hi = self.span(cap)
+        return x.narrow(dim, lo, hi - lo)
+
+    def gather(self, x, cap: int, dim: int = 1, name: str = "row_chunks"):
+        """Every rank's chunk along `dim`, whole: the level's `cap` rows."""
+        return comm.gather_x(x, self.bounds(cap), self.group, name=name,
+                             dim=dim)
+
+
+def row_chunks(sp_axis: Optional[str]) -> Optional[RowChunks]:
+    """The active mesh's row chunks where `sp_axis` names an sp axis of
+    more than one rank, else None."""
+    group = sp_group(sp_axis)
+    if group is None:
+        return None
+    m = active_mesh()
+    return RowChunks(group, m.sp_rank, m.n_sp)

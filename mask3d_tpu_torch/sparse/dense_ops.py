@@ -89,18 +89,24 @@ def scatter_rows_slab(feats, level: SparseLevel, grid_dims, slab):
                     (slab.x1 - slab.x0, grid_dims[1], grid_dims[2]))
 
 
-def gather_rows_slab(dense, level: SparseLevel, grid_dims, slab):
+def gather_rows_slab(dense, level: SparseLevel, grid_dims, slab,
+                     chunks=None):
     """This rank's x-slab -> the level's whole [B, N, C] rows on every rank:
     the row-gather kernel takes the slab's rows (zeros elsewhere) and one
     all-reduce sums the ranks' rows (`comm.rows_from_slabs`: the rows feed
-    the replicated decoder, whose gradient each rank keeps for its
-    rows)."""
+    the replicated decoder, whose gradient each rank keeps for its rows).
+    With `chunks` (`parallel.mesh.RowChunks`, inference) a reduce-scatter
+    instead leaves each rank its chunk of the rows [B, hi - lo, C]; no
+    gradient."""
     b, c = dense.shape[0], dense.shape[-1]
     cells = dense.shape[1] * dense.shape[2] * dense.shape[3]
     key, inside = _slab_keys(level, grid_dims, slab)
     key = key.clamp(0, cells - 1).to(torch.int32)
     rows = row_gather(dense.reshape(b, cells, c), key.contiguous(),
                       inside.contiguous())
+    if chunks is not None:
+        return comm.reduce_scatter_rows(rows, chunks.bounds(level.capacity),
+                                        slab.group)
     return comm.rows_from_slabs(rows, slab.group)
 
 
@@ -330,7 +336,8 @@ def cell_coord_grid(grid_dims, batch: int, device="cpu", x0: int = 0):
 
 
 # from mask3d_tpu/sparse/dense_ops.py:534 pooled_row_pyramid
-def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None):
+def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None,
+                       chunks=None):
     """Mean-pooled feature pyramid computed on dense grids: at each coarser
     level an occupied cell's value is the occupancy-weighted mean of its
     occupied children. Yields, per coarser level, the rows of every input
@@ -338,8 +345,9 @@ def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None):
     (`parallel.mesh.slab_plan`) the grids are level 0's x-slabs: sharded
     levels pool on their slabs (the plan aligns them), the first whole
     level pools the gathered grid of the last sharded one, and every
-    level's rows come back whole. No gradient flows through the sharded
-    form."""
+    level's rows come back whole, or as this rank's chunk of them with
+    `chunks` (`parallel.mesh.RowChunks`). No gradient flows through the
+    sharded form."""
     plan = plan or [None] * len(levels)
 
     def cut(o, s):
@@ -357,9 +365,15 @@ def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None):
         n = sumpool2(occ_f).clamp_min(1.0)
         gs = [(sumpool2(g.float()) / n).to(g.dtype) for g in gs]
         occ_f = cut(occ[li], s).float()
-        out.append([gather_rows(g, levels[li], grid_dims[li]) if s is None
-                    else gather_rows_slab(g, levels[li], grid_dims[li], s)
-                    for g in gs])
+        lv = levels[li]
+        if s is not None:
+            rows = [gather_rows_slab(g, lv, grid_dims[li], s, chunks)
+                    for g in gs]
+        else:
+            rows = [gather_rows(g, lv, grid_dims[li]) for g in gs]
+            if chunks is not None:
+                rows = [chunks.take(r, lv.capacity) for r in rows]
+        out.append(rows)
     return out
 
 

@@ -27,8 +27,14 @@ launch shape `plan()` picks (host-side, tested on the CPU), and adds one to
 step is "conv" (mode none, no stats), "entry" (mode none with stats),
 "mid" (affine) or "junction" (join). On a CPU tensor it runs
 `int8_conv_plain`, the same arithmetic in plain PyTorch: the integer conv
-as a float64 `F.conv3d` of the integer values, which is exact
-(|acc| <= 127^2 * 27 * 384 < 2^28, far inside float64's 2^53).
+as float64 products of the integer values, tap by tap, which are exact
+(|acc| <= 127^2 * 27 * Cin < 2^31 for every plan, far inside float64's
+2^53), item by item and in groups of output channels so that its float64
+temporaries stay small at the bottleneck's 1024-wide level-0 grids.
+
+Cout above 384 runs in channel groups of at most GROUP_COUT outputs: a grid
+dimension of the kernel, each block computing its tile for one group with
+the tile a Cout-256 conv takes (plan()).
 """
 
 from __future__ import annotations
@@ -63,6 +69,15 @@ STAGE_BYTES = 16384  # the most weight bytes a ring stage holds (>= 1 chunk)
 # stages a split, at most MAX_SPLITS splits (tune_int8_conv.py)
 MIN_SPLIT_STAGES = 4
 MAX_SPLITS = 16
+# outputs above 384 run in groups of at most this many channels, a grid
+# dimension of the kernel: the warps then keep 4 or 8 fragments a tile
+# (a whole Cout of 1024 in one block would leave each warp row one)
+GROUP_COUT = 256
+# the fewest 16-cell fragments a tile may hold: one fragment would stream
+# every weight chunk for 16 cells
+MIN_FRAGS = 2
+# the plain version's output channels a float64 pass
+PLAIN_GROUP = 256
 
 
 class Int8ConvOut(NamedTuple):
@@ -96,20 +111,31 @@ def prologue_plain(x, occ, A, Bc, inv, res=None, Ar=None, Br=None):
     return torch.where(occ > 0.5, q, 0.0).to(torch.int8)
 
 
-def _conv_exact(q, wq):
-    """Integer conv of int8 q [B, X, Y, Z, Cin] with int8 wq [k^3, Cin,
-    Cout] (cube ravel), as float64 [B, X, Y, Z, Cout] integer values."""
+def _conv_requant(q, wq, sw, occ, dtype):
+    """(f32(integer conv of int8 q [B, X, Y, Z, Cin] with int8 wq [k^3,
+    Cin, Cout], cube ravel) * sw * occ) cast to `dtype`. The integer sums
+    are float64 products of the integer values, tap by tap, exact in any
+    order; one item and PLAIN_GROUP output channels a pass."""
     k = round(wq.shape[0] ** (1.0 / 3.0))
-    cin, cout = wq.shape[1], wq.shape[2]
-    w = wq.reshape(k, k, k, cin, cout).permute(4, 3, 0, 1, 2).double()
-    acc = F.conv3d(q.double().permute(0, 4, 1, 2, 3), w, padding=k // 2)
-    # exact in any summation order; round guards against an algorithm
-    # that is not (an FFT conv errs far below 0.5)
-    return torch.round(acc).permute(0, 2, 3, 4, 1)
-
-
-def _requant(acc, sw, occ, dtype):
-    return (acc.float() * sw * occ).to(dtype)
+    r = k // 2
+    b, gx, gy, gz, cin = q.shape
+    cout = wq.shape[2]
+    out = torch.empty((b, gx, gy, gz, cout), dtype=dtype, device=q.device)
+    w = wq.double()
+    taps = list(itertools.product(range(k), repeat=3))
+    for i in range(b):
+        qp = F.pad(q[i].double(), (0, 0, r, r, r, r, r, r))
+        o = occ[i].reshape(-1, 1)
+        for c0 in range(0, cout, PLAIN_GROUP):
+            c1 = min(cout, c0 + PLAIN_GROUP)
+            acc = torch.zeros((gx * gy * gz, c1 - c0), dtype=torch.float64,
+                              device=q.device)
+            for t, (dx, dy, dz) in enumerate(taps):
+                sh = qp[dx:dx + gx, dy:dy + gy, dz:dz + gz].reshape(-1, cin)
+                acc += sh @ w[t, :, c0:c1]
+            out[i, ..., c0:c1] = (acc.float() * sw[c0:c1] * o).to(
+                dtype).view(gx, gy, gz, c1 - c0)
+    return out
 
 
 def _stats(*outs):
@@ -132,10 +158,10 @@ def int8_conv_plain(x, occ, wq, sw, mode="none", *, A=None, Bc=None,
                            None, Ar, Br)
         if mode == "join":
             yq = q
-    out = _requant(_conv_exact(q, wq), sw, occ, out_dtype)
+    out = _conv_requant(q, wq, sw, occ, out_dtype)
     out2 = None
     if wdq is not None:
-        out2 = _requant(_conv_exact(q, wdq), swd, occ, torch.bfloat16)
+        out2 = _conv_requant(q, wdq, swd, occ, torch.bfloat16)
     st = None
     if stats:
         st = _stats(out) if out2 is None else _stats(out, out2)
@@ -228,7 +254,8 @@ class Plan:
     32-channel chunks a weight stage, `splits` blocks sharing a tile's
     (tap, chunk) stages, `nt` n-tiles of 8 channels a warp (12 or 16),
     `cin_p`/`cout_p` the padded widths, `smem` the block's shared memory,
-    `mf` fragments a warp."""
+    `mf` fragments a warp, `groups` channel groups of `coutg` outputs (a
+    grid dimension; `cout_p` is one group's padded width)."""
 
     tile_frags: Tuple[int, int, int]
     ys: int
@@ -241,6 +268,8 @@ class Plan:
     cout_p: int
     smem: int
     mf: int = 1
+    groups: int = 1
+    coutg: int = 0
 
     @property
     def tile(self) -> Tuple[int, int, int]:
@@ -261,9 +290,10 @@ class Plan:
 
     def args(self):
         """The kernel's plan array."""
-        return (ctypes.c_int * 10)(*self.tile_frags, self.ys, self.xs,
+        return (ctypes.c_int * 12)(*self.tile_frags, self.ys, self.xs,
                                     self.npos, self.kcs, self.splits,
-                                    self.nt, self.mf)
+                                    self.nt, self.mf, self.groups,
+                                    self.coutg)
 
 
 def smem_bytes(cin_p, cout_p, npos, kcs, cells, nfrag, prologue,
@@ -281,22 +311,32 @@ def smem_bytes(cin_p, cout_p, npos, kcs, cells, nfrag, prologue,
 def plan(b: int, dims: Tuple[int, int, int], cin: int, cout: int, k: int,
          mode: str = "none", mf: Optional[int] = None,
          out_f32: bool = False) -> Plan:
-    """The launch shape of one call on a [b, *dims, cin] grid: the output
-    channels a warp (16 n-tiles of 8, or 12 at Cout <= 96 and where 16 do
-    not split Cout over a divisor of the 8 warps, as at 384; every channel
-    in the block); the fragments a warp (`mf`, default as FRAGS_PER_WARP's
-    note says); the tile, among the splits of the block's fragments over
-    x, y, z, that computes and loads the fewest cells over the grid
-    (ragged tiles and halos counted) and fits the shared memory; weight
-    stages of at most STAGE_BYTES; and where the grid has fewer tiles than
-    the card has SMs, a split of each tile's stages over blocks (see
-    MIN_SPLIT_STAGES)."""
-    if cout <= 96:
+    """The launch shape of one call on a [b, *dims, cin] grid: above 384
+    outputs, channel groups of at most GROUP_COUT (a grid dimension), each
+    planned as a conv of that width; the output channels a warp (16
+    n-tiles of 8, or 12 at Cout <= 96 and where 16 do not split Cout over
+    a divisor of the 8 warps, as at 384; every channel of the group in the
+    block); the fragments a warp (`mf`, default as FRAGS_PER_WARP's note
+    says); the tile, among the splits of the block's fragments over x, y,
+    z, that computes and loads the fewest cells over the grid (ragged
+    tiles and halos counted) and fits the shared memory; weight stages of
+    at most STAGE_BYTES; and where the grid has fewer blocks than the card
+    has SMs, a split of each tile's stages over blocks (see
+    MIN_SPLIT_STAGES). Raises a ValueError naming the shape where no tile
+    of at least MIN_FRAGS fragments fits, or the integer sums could pass
+    int32."""
+    shape = f"{cin}->{cout} k={k} on {tuple(dims)}"
+    if 127 * 127 * k ** 3 * _round_up(cin, 32) >= 2 ** 31:
+        raise ValueError(f"int8_conv kernel: {shape} could overflow its "
+                         f"int32 sums")
+    groups = 1 if cout <= 384 else _cdiv(cout, GROUP_COUT)
+    coutg = _round_up(_cdiv(cout, groups), 2)
+    if coutg <= 96:
         cout_p, nt = 96, 12
     else:
-        cout_p, nt = _round_up(cout, 128), 16
+        cout_p, nt = _round_up(coutg, 128), 16
         if WARPS % (cout_p // (8 * nt)):
-            cout_p, nt = _round_up(cout, 96), 12
+            cout_p, nt = _round_up(coutg, 96), 12
     nr = cout_p // (8 * nt)
     if WARPS % nr:
         raise ValueError(f"int8_conv kernel: Cout {cout} is too wide")
@@ -304,10 +344,13 @@ def plan(b: int, dims: Tuple[int, int, int], cin: int, cout: int, k: int,
         # default's tile does not fit
         try:
             return plan(b, dims, cin, cout, k, mode,
-                        2 if cout > 96 and k == 3 else 1, out_f32)
+                        2 if coutg > 96 and k == 3 else 1, out_f32)
         except ValueError:
             mf = 1
     nfrag = WARPS // nr * mf
+    if nfrag < MIN_FRAGS:
+        raise ValueError(f"int8_conv kernel: {shape}: {nfrag} fragment "
+                         f"tiles are below MIN_FRAGS")
     cin_p = _round_up(cin, 32)
     nkc = cin_p // 32
     best = None
@@ -333,14 +376,16 @@ def plan(b: int, dims: Tuple[int, int, int], cin: int, cout: int, k: int,
             break
     if best is None:
         raise ValueError(f"int8_conv kernel: no tile of {nfrag} fragments "
-                         f"fits {cin}->{cout}")
+                         f"fits {shape}")
     _, g, ys, xs, npos, smem, ntiles, kcs = best
     stages = k ** 3 * _cdiv(nkc, kcs)
     splits = 1
-    if b * ntiles < SMS:
+    blocks = b * ntiles * groups
+    if blocks < SMS:
         splits = max(1, min(MAX_SPLITS, stages // MIN_SPLIT_STAGES,
-                            _cdiv(SMS, b * ntiles)))
-    return Plan(g, ys, xs, npos, kcs, splits, nt, cin_p, cout_p, smem, mf)
+                            _cdiv(SMS, blocks)))
+    return Plan(g, ys, xs, npos, kcs, splits, nt, cin_p, cout_p, smem, mf,
+                groups, coutg)
 
 
 def live_fragment_share(occ) -> float:
@@ -358,12 +403,18 @@ def live_fragment_share(occ) -> float:
     return float(f.any(dim=6).any(dim=4).any(dim=2).float().mean())
 
 
-def pack_weights(wq, cin_p: int, cout_p: int):
+def pack_weights(wq, cin_p: int, cout_p: int, coutg: int = 0):
     """int8 [K, Cin, Cout] -> the kernel's B fragments, int32 [K, CinP/32,
     CoutP/16, 32, 4], zero padded: word j of lane l = 4 * gid + tig holds,
     for n-tile 2 * n16 + j // 2 and output column 8 * that + gid, the input
     channels 32 * k32 + 16 * (j % 2) + 4 * tig + (0..3) in bytes 0..3
-    (mma.m16n8k32's b0 / b1)."""
+    (mma.m16n8k32's b0 / b1). With `coutg`, each group of `coutg` outputs
+    packed so, one after the other: [groups, K, CinP/32, CoutP/16, 32,
+    4]."""
+    if coutg and coutg < wq.shape[2]:
+        return torch.stack([pack_weights(wq[..., c0:c0 + coutg], cin_p,
+                                         cout_p)
+                            for c0 in range(0, wq.shape[2], coutg)])
     k, cin, cout = wq.shape
     wp = torch.zeros((k, cin_p, cout_p), dtype=torch.int8, device=wq.device)
     wp[:, :cin, :cout] = wq
@@ -431,8 +482,9 @@ def int8_conv(x, occ, wq, sw, mode="none", *, A=None, Bc=None, inv=None,
     def f32(t):
         return None if t is None else t.float().contiguous()
 
-    w = pack_weights(wq, p.cin_p, p.cout_p)
-    wd = None if wdq is None else pack_weights(wdq, p.cin_p, p.cout_p)
+    w = pack_weights(wq, p.cin_p, p.cout_p, p.coutg)
+    wd = None if wdq is None else pack_weights(wdq, p.cin_p, p.cout_p,
+                                               p.coutg)
     occ_c = occ.float().contiguous()
     grid = (b, gx, gy, gz)
     out = torch.empty(grid + (cout,), dtype=out_dtype, device=dev)
@@ -452,7 +504,8 @@ def int8_conv(x, occ, wq, sw, mode="none", *, A=None, Bc=None, inv=None,
                             dtype=torch.float32, device=dev)
     if p.splits > 1:  # int32 partial sums, added by every split
         cells = b * gx * gy * gz
-        part = torch.zeros((cells, p.cout_p), dtype=torch.int32, device=dev)
+        part = torch.zeros((cells, p.groups * p.cout_p), dtype=torch.int32,
+                           device=dev)
         if wdq is not None:
             part2 = torch.zeros_like(part)
 

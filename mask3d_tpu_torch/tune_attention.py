@@ -35,7 +35,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 def _new_fn(lib):
     fn = lib.masked_cross_attention_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -105,8 +105,9 @@ def main():
                 cuda_build.check(new(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), m8.data_ptr(),
                     pm[0].data_ptr(), pm[1].data_ptr(), pa.data_ptr(),
-                    out.data_ptr(), B, Q, s, s, H, hd, p.ksl, p.queries,
-                    p.hg, p.threads, p.chunk, p.nch, 1.0 / math.sqrt(hd),
+                    out.data_ptr(), None, None, B, Q, s, s, H, hd, p.ksl,
+                    p.queries, p.hg, p.threads, p.chunk, p.nch,
+                    1.0 / math.sqrt(hd),
                     torch.cuda.current_stream().cuda_stream), "kernel")
 
             print(f"  kernel [{pname}: ksl {p.ksl} hg {p.hg} queries "

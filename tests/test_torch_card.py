@@ -1,7 +1,10 @@
 """The test entry on the card (skipped without one): the eval step on the
 card against the CPU, and `cli test --device cuda` against `--device cpu`
-on a small data root. Imports nothing of the JAX package, which the card's
-machine cannot import."""
+on a small data root; the int8 conv past 384 outputs and the attention's
+partial form against their plain versions (the CPU side of both:
+tests/test_torch_int8_bottleneck.py, tests/test_torch_sp_model.py).
+Imports nothing of the JAX package, which the card's machine cannot
+import."""
 
 import math
 import os
@@ -103,3 +106,60 @@ def test_cli_test_on_the_card(tmp_path, monkeypatch):
     cpu, card = seen["cpu"], seen["cuda"]
     assert sorted(cpu) == sorted(card) and len(card) == 3 * 9 + 2 + 8
     assert all(math.isfinite(v) for v in card.values()), card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    ((112, 80, 40), 288, 256, 1), ((112, 80, 40), 256, 256, 3),
+    ((112, 80, 40), 256, 1024, 1), ((112, 80, 40), 288, 1024, 1),
+    ((112, 80, 40), 1024, 256, 1), ((56, 40, 20), 384, 1024, 1)])
+def test_int8_kernel_matches_plain_past_384_outputs(shape):
+    """The kernel against its plain version at the bottleneck's shapes on
+    the flagship's level-0/1 grids (B=2, 11% occupied): outputs bitwise,
+    the per-channel sums within 1e-5 of sum |term|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mask3d_tpu_torch.sparse import int8_conv as ic
+
+    dims, cin, cout, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(cin + cout)
+    occ = (torch.rand((2, *dims, 1), generator=gen, device="cuda")
+           < 0.11).float()
+    q = (torch.randint(-127, 128, (2, *dims, cin), generator=gen,
+                       device="cuda", dtype=torch.int32)
+         * occ.int()).to(torch.int8)
+    wq = torch.randint(-127, 128, (k ** 3, cin, cout), generator=gen,
+                       device="cuda", dtype=torch.int32).to(torch.int8)
+    sw = torch.rand(cout, generator=gen, device="cuda") * 1e-3 + 1e-4
+    got = ic.int8_conv(q, occ, wq, sw, stats=True)
+    ref = ic.int8_conv_plain(q, occ, wq, sw, stats=True)
+    assert torch.equal(got.out, ref.out)
+    r = ref.out.float()
+    scale = torch.stack([r.abs().sum(dim=(1, 2, 3)),
+                         (r * r).sum(dim=(1, 2, 3))], dim=1)
+    assert bool(((got.stats - ref.stats).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [3072, 24576])
+def test_attention_partial_kernel_and_combine(s):
+    """The kernel's partial form on two halves of the keys, combined,
+    against the plain one-shot attention (flagship widths)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mask3d_tpu_torch.ops import masked_attention as ma
+
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q = torch.randn(8, 25, 128, device="cuda", generator=gen)
+    k = torch.randn(8, s, 128, device="cuda", generator=gen)
+    v = torch.randn(8, s, 128, device="cuda", generator=gen)
+    mask = torch.rand(8, 25, s, device="cuda", generator=gen) < 0.5
+    mask[0, 3] = True
+    mask[1, 4, :s // 2] = True
+    ref = ma.masked_cross_attention_plain(q, k, v, mask, 8)
+    h = s // 2
+    parts = [ma.masked_cross_attention_partial(
+        q, k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+        mask[:, :, a:b].contiguous(), 8) for a, b in ((0, h), (h, s))]
+    got = ma.combine_partial_softmax(*zip(*parts), 8)
+    assert float((got - ref).abs().max()) <= 1e-4

@@ -180,9 +180,11 @@ def test_cli_forms_and_refusals(tmp_path, monkeypatch):
                   f"trainer.coordinator_address=localhost:{cli._free_port()}",
                   f"general.save_dir={tmp_path}"])
     assert not torch.distributed.is_initialized()
-    # sequence parallelism shards the dense backbone only
+    # sequence parallelism in training shards the dense backbone only (at
+    # inference the other impls shard the decoder's rows)
     from mask3d_tpu_torch.config import Config, apply_overrides
     from mask3d_tpu_torch.models.mask3d import build_model
+    model = build_model(apply_overrides(Config(), [
+        "model.sp_axis=sp", "model.backbone_impl=gather"]), device="cpu")
     with pytest.raises(NotImplementedError, match="sp_axis"):
-        build_model(apply_overrides(Config(), [
-            "model.sp_axis=sp", "model.backbone_impl=gather"]), device="cpu")
+        model.train()(None, None, None, None)

@@ -196,22 +196,72 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
 
 @pytest.mark.parametrize("override", [
     "model.compute_dtype=float16",
-    "model.backbone=Res16UNet50 model.int8_stride1=true",
-    "model.backbone=Res16UNet101 model.pallas_chain=true",
-    "model.backbone=Res16UNet50 model.sp_axis=sp",
+    "model.backbone_impl=gather_pallas model.int8_stride1=true",
+    "model.backbone_impl=gather model.unit_features=true",
+    "train: model.backbone_impl=gather model.sp_axis=sp",
     "model.backbone_impl=bricked model.int8_stride1=true",
     "model.backbone_impl=gather model.pallas_chain=true"])
 def test_build_model_refuses_unported_options(override):
     """Options the port has not ported raise instead of being ignored:
-    fp16, the int8 stack and sequence parallelism on the bottleneck
-    backbones, and the int8 stack off the dense path."""
+    fp16, the int8 stack off the dense path, unit features on the gather
+    impls, and (in a train forward after `train.loop.init_state`)
+    sequence parallelism on a non-dense impl in training."""
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch.config import Config, apply_overrides
+    from tests.torch_parity import SMALL_OVERRIDES
+
+    train = override.startswith("train: ")
+    cfg = apply_overrides(Config(), SMALL_OVERRIDES + override.replace(
+        "train: ", "").split())
+    if not train:
+        with pytest.raises(NotImplementedError):
+            mt.build_model(cfg, device="cpu")
+        return
+    from mask3d_tpu_torch.data.collate import VoxelizeCollate
+    from mask3d_tpu_torch.train.criterion import make_criterion
+    from mask3d_tpu_torch.train.loop import init_state, make_train_step
+
+    state = init_state(cfg, device="cpu")  # builds: sp runs at inference
+    host = VoxelizeCollate(point_bucket_multiple=512)(_small_scenes(1))
+    step = make_train_step(cfg, make_criterion(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="sp_axis in training"):
+        step(state, host.device)
+
+
+def _small_scenes(n):
+    from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
+
+    rng = np.random.default_rng(3)
+    return [make_synthetic_scene(rng, num_rooms_x=2, num_rooms_y=1,
+                                 room_size=10, height=6, jitter=0.0,
+                                 dropout=0.4) for _ in range(n)]
+
+
+@pytest.mark.parametrize("override", [
+    "model.backbone=Res16UNet50 model.int8_stride1=true",
+    "model.backbone=Res16UNet101 model.pallas_chain=true",
+    "model.backbone=Res16UNet50 model.sp_axis=sp"])
+def test_build_model_runs_options_it_refused(override):
+    """Options `build_model` refused before the int8 conv split its
+    outputs into channel groups and the slab context took every block:
+    each builds and runs a small CPU eval forward, finite and of the
+    batch's shapes (held to the JAX package in
+    tests/test_torch_int8_bottleneck.py and tests/test_torch_sp_model.py;
+    sp_axis without a mesh is a no-op, as in the JAX package)."""
     import mask3d_tpu_torch as mt
     from mask3d_tpu_torch.config import Config, apply_overrides
     from tests.torch_parity import SMALL_OVERRIDES
 
     cfg = apply_overrides(Config(), SMALL_OVERRIDES + override.split())
-    with pytest.raises(NotImplementedError):
-        mt.build_model(cfg, device="cpu")
+    model = mt.build_model(cfg, device="cpu")
+    host = mt.collate(_small_scenes(1), device="cpu",
+                      point_bucket_multiple=512)
+    with torch.no_grad():
+        out, _ = mt.infer(model, host.device, cfg, device="cpu")
+    n = host.device.coords.shape[1]
+    assert tuple(out.pred_masks.shape) == (1, n, cfg.model.num_queries)
+    assert torch.isfinite(out.pred_masks).all()
+    assert torch.isfinite(out.pred_class).all()
 
 
 def test_kernel_wrappers_take_plain_versions_on_cpu():

@@ -178,8 +178,25 @@ def test_sp_axis_without_mesh_is_a_noop():
     "model.backbone_impl=gather", "model.backbone_impl=bricked",
     "model.int8_stride1=true", "model.pallas_chain=true"])
 def test_sp_axis_refuses_other_impls_and_int8(override):
-    cfg = apply_overrides(Config(), w.SP_OVERRIDES + w.SP + [override])
-    with pytest.raises(NotImplementedError, match="sp_axis"):
+    """What `model.sp_axis` still refuses: a train forward on another impl
+    than `dense` (such a model builds: at inference only the decoder's rows
+    shard), and the int8 knobs off the dense path (on `dense` they run
+    under sp)."""
+    if "backbone_impl" in override:
+        from mask3d_tpu_torch.train.criterion import make_criterion
+        from mask3d_tpu_torch.train.loop import init_state, make_train_step
+
+        cfg = apply_overrides(Config(), w.SP_OVERRIDES + w.SP + [override])
+        state = init_state(cfg, device="cpu")
+        host = VoxelizeCollate(point_bucket_multiple=w.SP_BUCKET)(
+            w.sp_items(1))
+        step = make_train_step(cfg, make_criterion(cfg), device="cpu")
+        with pytest.raises(NotImplementedError, match="sp_axis"):
+            step(state, host.device)
+        return
+    cfg = apply_overrides(Config(), w.SP_OVERRIDES + w.SP + [
+        override, "model.backbone_impl=gather"])
+    with pytest.raises(NotImplementedError, match="int8 stack"):
         build_model(cfg, device="cpu")
 
 

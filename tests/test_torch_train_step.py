@@ -180,3 +180,35 @@ def test_train_step_matches_jax_grad(sampled, monkeypatch):
     errs = grad_errors(p_state, grads)
     worst = max(errs, key=errs.get)
     assert errs[worst] <= GRAD_TOL, (worst, errs[worst])
+
+
+# small_config's levels 4 ... 1 hold 128, 256, 512 and 1024 rows: hlevels 0
+# and 1 sample 32 and 64 of theirs, hlevel 2 takes its whole level, hlevel 3
+# samples 256 (Config()'s sample sizes mix so on batches of about 3,200 to
+# 25,600 points)
+MIXED_SAMPLE_SIZES = "model.sample_sizes=[32,64,512,256,512]"
+
+
+def test_train_step_mixes_sampled_and_full_levels(monkeypatch):
+    """A round whose levels are sampled, then whole, then sampled again:
+    the loss and losses as test_train_step_matches_jax_grad holds them and
+    every gradient leaf within GRAD_TOL, the same uniforms on both sides
+    (one draw per sampled level and round)."""
+    host_lsap(monkeypatch)
+    overrides = OVERRIDES + [MIXED_SAMPLE_SIZES]
+    cfg = j_apply(small_config(), overrides)
+    host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
+    uniforms = Uniforms(11)
+    state, loss, losses, grads = jax_step(cfg, host, uniforms)
+    assert len(uniforms.drawn) == cfg.model.num_decoders * 3
+    variables = flax_to_numpy({"params": state.params,
+                               "buffers": state.buffers})
+    p_state, p_losses = port_step(overrides, variables, uniforms)
+    assert uniforms.i == len(uniforms.drawn)
+    assert abs(float(p_losses["loss"]) - loss) <= LOSS_RTOL * abs(loss)
+    for k, v in losses.items():
+        ref = float(v)
+        assert abs(float(p_losses[k]) - ref) <= 1e-4 * max(1.0, abs(ref)), k
+    errs = grad_errors(p_state, grads)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GRAD_TOL, (worst, errs[worst])

@@ -114,34 +114,82 @@ def scenes_of(items: str, n: int = 2):
     `dp_items`."""
     if items == "dp":
         return dp_items()
-    return sp_items(n) if items == "sp" else train_items()
+    return sp_items(n) if items == "sp" else train_items()[:n]
+
+
+# test backbones of tests/test_torch_sp_model.py, registered in both
+# packages: name -> (base, class attributes). Res16UNet50's bottleneck
+# blocks with the gate, planes 96 at levels 1-2 (sharded at sp=2 on the
+# parity scenes), stage 7 of two blocks: int8 3^3 and 1x1 convs on slabs,
+# a 384-channel QGrid junction exchanging int8 halo planes, the gate's
+# mean over sp; levels 0 and 3-4 stay narrow (JAX's int8 conv on the CPU
+# is slow at width)
+TEST_BACKBONES = {
+    "SpBottleneckSE": ("Res16UNet50", dict(
+        PLANES=(32, 32, 32, 32, 32, 96, 96, 32),
+        LAYERS=(1, 1, 1, 1, 1, 1, 2, 1), SE=True)),
+    # one block a stage, 128 wide: the gated bottleneck in bf16
+    "SpBottleneckSENarrow": ("Res16UNet50", dict(
+        PLANES=(32,) * 8, LAYERS=(1,) * 8, SE=True)),
+}
+
+
+def register_backbones():
+    """TEST_BACKBONES into the port's `BACKBONES` (idempotent)."""
+    from mask3d_tpu_torch.models.backbone import BACKBONES
+
+    for name, (base, attrs) in TEST_BACKBONES.items():
+        if name not in BACKBONES:
+            BACKBONES[name] = type(name, (BACKBONES[base],), dict(attrs))
 
 
 def forward(rank, world, overrides, weights, n_dp, n_sp, identity=False,
-            items="sp"):
+            items="sp", n_items=2, train=False, record=False):
     """(pred_class, pred_masks, backbone maps) of the eval forward on
-    `scenes_of(items)`, rank (d, s) of an (n_dp, n_sp) mesh taking its dp
-    rows."""
+    `scenes_of(items, n_items)`, rank (d, s) of an (n_dp, n_sp) mesh taking
+    its dp rows; under sp the backbone's stride-1 rows (each rank's chunk)
+    are gathered whole. `train` runs the forward in train mode instead
+    (whole decoder rows on every sp rank, the memories sampled from a
+    seeded generator). With `record`, a fourth entry: the bytes of each
+    collective of the forward (`comm.BYTES`) and the rows each squeezed
+    memory and the mask-feature head took."""
     from mask3d_tpu_torch import build_model, collate, infer
-    from mask3d_tpu_torch.parallel import make_mesh_2d, shard_batch, \
+    from mask3d_tpu_torch.parallel import comm, make_mesh_2d, shard_batch, \
         use_mesh
+    from mask3d_tpu_torch.parallel.mesh import row_chunks
 
+    register_backbones()
     cfg = make_cfg(overrides)
     model = build_model(cfg, device="cpu")
+    model.train(train)
     load_weights(model, weights)
-    host = collate(scenes_of(items), device="cpu",
+    host = collate(scenes_of(items, n_items), device="cpu",
                    point_bucket_multiple=cfg.data.point_bucket_multiple)
-    maps = []
-    hook = model.backbone.register_forward_hook(
-        lambda m, i, o: maps.append(o[0].detach().clone()))
+    maps, rows = [], {}
+    hooks = [model.backbone.register_forward_hook(
+        lambda m, i, o: maps.append(o[0].detach().clone()))]
+    for name, mod in [("mask_features_head", model.mask_features_head)] + [
+            (f"squeeze_{k}", m) for k, m in model.squeeze.items()]:
+        hooks.append(mod.register_forward_hook(
+            lambda m, i, o, name=name: rows.setdefault(name, i[0].shape[1])
+            and None))
     mesh = make_mesh_2d(n_dp, n_sp)
+    comm.reset_bytes()
     with use_mesh(mesh), norm_stub(identity), \
             torch.backends.mkldnn.flags(enabled=False):
         out, _ = infer(model, shard_batch(host.device, mesh), cfg,
-                       device="cpu")
-    hook.remove()
-    return (out.pred_class.numpy(), out.pred_masks.numpy(),
-            maps[0].numpy())
+                       device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+        chunks = None if train else row_chunks(cfg.model.sp_axis)
+        n = out.pred_masks.shape[1]
+        if chunks is not None and maps[0].shape[1] < n:  # dense: a chunk
+            maps[0] = chunks.gather(maps[0], n)
+    for h in hooks:
+        h.remove()
+    res = (out.pred_class.numpy(), out.pred_masks.numpy(),
+           maps[0].float().numpy())
+    return res + (dict(bytes=dict(comm.BYTES), rows=rows),) if record \
+        else res
 
 
 def train_step(rank, world, overrides, weights, n_dp, n_sp, items="sp",
@@ -207,6 +255,22 @@ def sp_suite(rank, world, step_overrides):
         "step_norm": train_step(rank, world, step_overrides + SP, None, 1, 2,
                                 "parity", False),
     }
+
+
+def sp_model_suite(rank, world, cases):
+    """The sp=2 forwards of tests/test_torch_sp_model.py: `cases` maps a
+    name to (overrides, identity norm, items, n_items, train mode)."""
+    return {name: forward(rank, world, ov + SP, None, 1, 2, ident, items, n,
+                          train, record=True)
+            for name, (ov, ident, items, n, train) in cases.items()}
+
+
+def port_forwards(rank, world, cases):
+    """The one-process forwards of `cases` (as `sp_model_suite` takes
+    them, without sp), in a process of their own."""
+    return {name: forward(rank, world, ov, None, 1, 1, ident, items, n,
+                          train, record=True)
+            for name, (ov, ident, items, n, train) in cases.items()}
 
 
 def grid_suite(rank, world, step_overrides):
