@@ -139,8 +139,9 @@ beside this script. Phases:
    must fail it (bricked: the brick tap's backward negated;
    gather_pallas: the centre offset's dW sign-flipped); (c) the hall
    scan (phase 7's scene) on `bricked` and `gather_pallas` in bf16, one
-   step each (retried with `model.remat_backbone=true` where it does not
-   fit), its seconds and peak memory, and the backwards at the hall's
+   step each (retried
+   with `model.remat_backbone=true` where it does not fit), its seconds
+   and peak memory, and the backwards at the hall's
    level-0 shapes timed beside their bounds: the sparse conv's (bf16
    feats) and the brick tap's scatter-add; (d) `cli train` on `bricked`
    (8^3 bricks) at batch 2 as two micro-batches of one scene, one
@@ -228,10 +229,25 @@ beside this script. Phases:
    max|leaf|), and with sampled memories against (a)'s step, within
    PAR_STEP_TOL by `leaf_errors`; sp=2: the flagship eval forward (levels
    0-3 as x-slabs, level 4 whole) within JAX's bounds (PAR_SP_BOUNDS) of
-   the unsharded forward, and a train step within PAR_STEP_TOL of (a)'s;
-   each rank's seconds, peak GiB and bytes by collective. Planted faults
-   that must fail their gates: the CE normaliser left local, one side of
-   the halo exchange zeroed, the decoder's gradients summed over sp. (c)
+   the unsharded forward, and a train step within PAR_STEP_TOL of (a)'s,
+   the decoder's and the criterion's rows in a chunk a rank (12 attention
+   launches, every one the partial form); sp=2 train steps on
+   `gather_pallas` and `bricked` (the backbone whole on each rank; the
+   first PAR_IMPL_SCENES scenes, `bricked` as micro-batches of one scene)
+   each within PAR_STEP_TOL of its impl's one-process step; each rank's
+   seconds, peak GiB and bytes by collective, the rows' bytes
+   (PAR_ROW_BYTES) beside an all-reduce of the same rows whole. Planted
+   faults that must fail their gates: the CE normaliser left local, one
+   side of the halo exchange zeroed, the replicated (query-side)
+   gradients summed over sp, the criterion's mask sums left rank-local.
+   Before the ranks: two flagship `gather_pallas` forwards with
+   deterministic algorithms off, bitwise equal (the segment sums' fixed
+   order; `scatter_add_`'s atomics printed beside); the attention's
+   partial form as the sp step runs it on a sampled memory, at the full
+   sampled key length on each of two ranks (a random split of the slots,
+   the absent ones dropped, the triples combined), its gradients against
+   the plain form's within ATTN_TOL, its forward and its plain-PyTorch
+   backward timed beside their bounds. (c)
    `InstanceSegmentationTrainer.fit()` on those ranks (8 written flagship
    scenes at batch 4, 1 epoch, then a validation of 2 scenes): rank 1
    opens no file for writing, both ranks' validation metrics equal, and
@@ -289,8 +305,9 @@ beside this script. Phases:
    against the one-process forward at its own precision within JAX's
    sharded bounds (`par_excess`), 12 partial attention launches; the
    gate's mean over the rank's slab only (a planted fault) outside them;
-   the decoder's row bytes against the all-reduce of whole rows that a
-   train-mode forward of `Config()` still runs; a slab's int8 conv
+   the decoder's row bytes against an all-reduce of the same rows whole
+   (the inputs of a train-mode forward's reduce-scatters, which move the
+   eval forward's rows); a slab's int8 conv
    against the whole grid's, bitwise, and with its absmax left unreduced
    over sp (a planted fault) not.
 
@@ -463,6 +480,28 @@ PAR_STEP_TOL = 5e-2
 PAR_BITWISE_TOL = 1e-6
 PAR_SP_BOUNDS = {"pred_class": (5e-2, 5e-2), "pred_masks": (5e-2, 2e-1)}
 PAR_FIT_BATCH = 4
+# the sp=2 train steps off `dense` (the backbone whole on each rank): the
+# impl -> its overrides (`par_impl_overrides`), on the first
+# PAR_IMPL_SCENES of phase 3's scenes (batch 2, not 8: two ranks on one
+# card each run the whole backbone, and the phase must keep the script
+# under its time limit); `bricked` as micro-batches of one scene in
+# PAR_BRICKS bricks (they divide the two scenes' 112x72x40 grid), one slot
+# for every brick of the grid
+PAR_IMPL_SCENES = 2
+PAR_BRICKS = (8, 8, 8)
+PAR_IMPL_STEPS = {
+    "gather_pallas": ["model.backbone_impl=gather_pallas"],
+    "bricked": ["model.backbone_impl=bricked",
+                "model.brick_dims=[{},{},{}]".format(*PAR_BRICKS),
+                f"trainer.grad_accum_steps={PAR_IMPL_SCENES}"],
+}
+# the decoder's and the criterion's row collectives of an sp step
+# (`comm.BYTES` names): the forward reduce-scatter, its backward
+# all-gather, the attention's partial softmax states, the replicated
+# queries' and mask embeddings' gradients summed at their entry, the
+# criterion's sums over points, the min/max and un-blocking reductions
+PAR_ROW_BYTES = ("rows", "rows_grad", "attention_partials", "entry_grad",
+                 "criterion_costs", "criterion_losses", "minmax", "unblock")
 # the model_zoo phase: the bottleneck Res16UNet101 at full width (every
 # map 1024 wide) on phase 3's scenes, its three paths and what each counted
 # forward launches (the gather_pallas one: the k=5 stem and the 3^3 conv of
@@ -505,9 +544,9 @@ MATRIX_BACKBONES = {"Res16UNet50_shallow_se": ("Res16UNet50", dict(
     LAYERS=(1,) * 8, SE=True))}
 # (b) the sp=2 forwards: name -> (profile_forward.CONFIGS key, overrides,
 # scenes of phase 3): Config() where MATRIX_SP_BACKBONE names no backbone;
-# "dense" also runs once in train mode, whose decoder still all-reduces
-# whole rows (for their bytes). Each is held to the one-process forward at
-# its own precision within JAX's sharded bounds (`par_excess`)
+# "dense" also runs once in train mode (its rows' bytes, and what an
+# all-reduce of them whole would carry). Each is held to the one-process
+# forward at its own precision within JAX's sharded bounds (`par_excess`)
 MATRIX_SP = {
     "dense": ("fp32", [], 8),
     "gather_pallas": ("fp32", ["model.backbone_impl=gather_pallas"], 8),
@@ -2376,7 +2415,8 @@ def run_train_large(torch, F, np, mt, counters, by_key, card, host,
         cfg = cfg_mod_replace(bls.variant_cfg(impl, "per_offset", brick,
                                               cap), base[1:])
         run = one_step(torch, mt, counters, by_key, cfg, hall, card,
-                       f"train_large hall {impl} bf16", oom_retry=True)
+                       f"train_large hall {impl} bf16 "
+                       f"({int(hall.counts[0])} voxels)", oom_retry=True)
         res["hall"][impl] = {k_: run[k_] for k_ in (
             "loss", "s", "peak_gib", "remat", "launches", "overflow")}
         if not np.isfinite(run["loss"]) or run["overflow"]:
@@ -3369,7 +3409,9 @@ def kernel_counters():
                 "int8_conv": ic.int8_conv,
                 "lsap": lsap_mod.linear_sum_assignment}
     by_key = {"attention": (ma.masked_cross_attention.launches_by_shape,
-                            {})}
+                            {}),
+              "attention_partial": (
+                  ma.masked_cross_attention.partial_by_shape, {})}
     return counters, by_key
 
 
@@ -3428,6 +3470,8 @@ def timed_collectives(torch, comm):
     ms = []
 
     def flat_all_reduce(tensors, group, name):
+        if not name.endswith("_grads"):  # not a gradient all-reduce
+            return real(tensors, group, name)
         torch.cuda.synchronize()
         t = time.perf_counter()
         real(tensors, group, name)
@@ -3435,6 +3479,32 @@ def timed_collectives(torch, comm):
         ms.append((time.perf_counter() - t) * 1e3)
 
     return PatchAttr(comm, "flat_all_reduce", flat_all_reduce), ms
+
+
+def par_impl_overrides(impl, batch):
+    """PAR_IMPL_STEPS[impl], with `bricked`'s brick capacity: every brick
+    of the batch's level-0 grid."""
+    extra = list(PAR_IMPL_STEPS[impl])
+    if impl == "bricked":
+        slots = 1
+        for g, b in zip(batch.grid_dims[0], PAR_BRICKS):
+            slots *= int(g) // b
+        extra.append(f"model.brick_capacity={slots}")
+    return extra
+
+
+def whole_row_payload(comm):
+    """A patch of `comm.reduce_scatter_rows` that adds each call's input
+    bytes to the returned one-element list: what an all-reduce of the same
+    rows, whole on every rank, would carry."""
+    real = comm.reduce_scatter_rows
+    total = [0]
+
+    def reduce_scatter_rows(x, bounds, group, name="rows"):
+        total[0] += x.numel() * x.element_size()
+        return real(x, bounds, group, name)
+
+    return PatchAttr(comm, "reduce_scatter_rows", reduce_scatter_rows), total
 
 
 def par_rank_work(torch, np, rank, world, work_dir, data_root):
@@ -3456,7 +3526,7 @@ def par_rank_work(torch, np, rank, world, work_dir, data_root):
 
     counters, by_key = kernel_counters()
     refs = {}
-    for name in ("sampled", "whole"):
+    for name in ("sampled", "whole", *PAR_IMPL_STEPS):
         r = torch.load(os.path.join(work_dir, f"ref_{name}.pt"),
                        weights_only=False)
         refs[name] = (r["loss"], {k: g.cuda() for k, g in r["grads"].items()})
@@ -3471,9 +3541,11 @@ def par_rank_work(torch, np, rank, world, work_dir, data_root):
         ref_loss, ref_grads = refs[ref]
         comm.reset_bytes()
         patch, ms = timed_collectives(torch, comm)
-        with patch:
+        payload, whole = whole_row_payload(comm)
+        with patch, payload:
             losses, launches, by_s, state, peak, secs = train_steps(
                 torch, mt, counters, by_key, cfg_, batch)
+        partial_by_s = dict(by_key["attention_partial"][0])
         grads = {k: p.grad.detach().clone()
                  for k, p in state.model.named_parameters()}
         del state
@@ -3486,8 +3558,9 @@ def par_rank_work(torch, np, rank, world, work_dir, data_root):
             loss_rel=abs(loss - ref_loss) / abs(ref_loss),
             worst_leaf=name, worst_ratio=ratio, worst_norm_leaf=worst,
             worst_norm_ratio=errs[worst], launches=launches,
-            attention_by_s=by_s, seconds=secs[0], peak_gib=peak,
-            bytes=dict(comm.BYTES), all_reduce_ms=ms)
+            attention_by_s=by_s, attention_partial_by_s=partial_by_s,
+            seconds=secs[0], peak_gib=peak, bytes=dict(comm.BYTES),
+            whole_row_bytes=whole[0], all_reduce_ms=ms)
         del grads
         torch.cuda.empty_cache()
 
@@ -3544,13 +3617,33 @@ def par_rank_work(torch, np, rank, world, work_dir, data_root):
         forward("sp fault: one side of the halo zeroed")
     del model
     torch.cuda.empty_cache()
+    real_sum = comm.sum_partials
+
+    def local_sums(x, group, name="partials"):
+        return x if name == "criterion_losses" else real_sum(x, group, name)
+
     with use_mesh(mesh2):
         step(cfg_sp, full, "sp step", "sampled")
+        # every parameter's gradient summed over sp: the replicated ones
+        # (the queries' side, complete on every rank) count twice
         with PatchAttr(loop, "grad_groups", lambda m: (
                 [p for p in m.parameters() if p.requires_grad],) * 2):
-            step(cfg_sp, full, "sp fault: decoder gradients summed over sp",
-                 "sampled")
+            step(cfg_sp, full, "sp fault: replicated gradients summed over "
+                 "sp", "sampled")
+        with PatchAttr(comm, "sum_partials", local_sums):
+            step(cfg_sp, full, "sp fault: criterion mask sums left "
+                 "rank-local", "sampled")
     del full
+    torch.cuda.empty_cache()
+    # the sp steps off `dense`: the backbone whole on every rank
+    part = mt.collate(items[:PAR_IMPL_SCENES], device="cuda",
+                      point_bucket_multiple=BUCKET).device
+    with use_mesh(mesh2):
+        for impl in PAR_IMPL_STEPS:
+            step(par_cfg(cfg_mod, ["model.sp_axis=sp",
+                                   *par_impl_overrides(impl, part)]),
+                 part, f"sp step {impl}", impl)
+    del part
     torch.cuda.empty_cache()
 
     # (c) fit() on the two ranks: 1 epoch at batch 4, then a validation
@@ -3726,6 +3819,138 @@ def free_port():
         return s.getsockname()[1]
 
 
+def segment_sum_determinism(torch, mt, cfg_mod, batch, card):
+    """Two flagship `gather_pallas` forwards with deterministic algorithms
+    off (as `infer` runs outside `cli`), which must be bitwise equal: the
+    segment sums of the stride-2 convs and the pools add each segment in a
+    fixed order (`sparse/ops.py`). The same two forwards with those sums
+    as `scatter_add_` (atomics on the card) are printed beside."""
+    import contextlib
+
+    from mask3d_tpu_torch.sparse import ops
+
+    cfg = par_cfg(cfg_mod, ["model.backbone_impl=gather_pallas"])
+    model = mt.build_model(cfg, device="cuda", seed=0)
+
+    def atomic(x, pool, cap):
+        b, _, c = x.shape
+        out = x.new_zeros((b, cap + 1, c))
+        out.scatter_add_(1, pool.parent.long()[..., None].expand(-1, -1, c),
+                         x)
+        return out[:, :cap]
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    res = {}
+    try:
+        for name, patch in (
+                ("fixed order", contextlib.nullcontext()),
+                ("scatter_add_", PatchAttr(ops, "_segment_sum_batched",
+                                           atomic))):
+            with patch:
+                outs = [mt.infer(model, batch, cfg, device="cuda")[0]
+                        for _ in range(2)]
+            res[name] = dict(
+                bitwise=all(torch.equal(getattr(outs[0], k),
+                                        getattr(outs[1], k))
+                            for k in ("pred_class", "pred_masks")),
+                max_abs_diff=float((outs[0].pred_masks
+                                    - outs[1].pred_masks).abs().max()))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    del model
+    torch.cuda.empty_cache()
+    log(f"parallel: two gather_pallas forwards with deterministic "
+        f"algorithms off: {json.dumps(res)} (gate: the fixed-order sums "
+        f"bitwise; scatter_add_ printed) on {card}")
+    assert res["fixed order"]["bitwise"], res
+    return res
+
+
+def partial_attention_backward(torch, ma, card):
+    """The attention's partial form as the sp=2 train step runs it on a
+    sampled memory: each rank holds the whole sampled length S (every one
+    of TRAIN_ATTN_S), its slots of the other rank's rows blocked with v
+    zero and dropped (`drop_absent_keys`), and the two ranks' triples are
+    combined with the maxes detached. A random split of the slots between
+    the ranks, an item whose sampled rows all lie on rank 0 (none on rank
+    1) and a query blocked on every key. The (q, k, v) gradients of a
+    random cotangent through the kernel's forward against the same graph
+    on the plain partial form (max |err| / max(1, |ref|) <= ATTN_TOL), the
+    combined output against the one-shot plain attention over the sampled
+    keys (max |err| <= ATTN_TOL), the kernel's forward timed at a rank's
+    shapes beside the plain form's, and its backward (the plain form's
+    VJP, `masked_cross_attention_partial_backward`) beside its bound.
+    Returns the rows."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, nq, d, h = 8, 25, 128, 8
+    rows = []
+    for s in TRAIN_ATTN_S:
+        q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen)
+                   for n in (nq, s, s))
+        mask = torch.rand(b, nq, s, device="cuda", generator=gen) < 0.4
+        mask[0, 0] = True  # blocked on every key
+        mine = torch.rand(b, s, device="cuda", generator=gen) < 0.5
+        mine[1] = True  # item 1's rows all on rank 0: rank 1 has none
+        ranks = [(mask | ~own[:, None, :], own) for own in (mine, ~mine)]
+        g_out = torch.randn(b, nq, d, device="cuda", generator=gen)
+        g_sum = torch.randn(b, h, nq, device="cuda", generator=gen)
+
+        def combined(fn):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            parts = []
+            for mm, own in ranks:
+                o, m, lsum = fn(leaves[0], leaves[1],
+                                leaves[2] * own[..., None], mm, h)
+                o, lsum = ma.drop_absent_keys(o, m, lsum, (~own).sum(dim=1),
+                                              h)
+                parts.append((o, m.detach(), lsum))
+            outs, maxes, sums = zip(*parts)
+            out = ma.combine_partial_softmax(outs, maxes, sums, h)
+            return out.detach(), torch.autograd.grad(out, leaves, g_out)
+
+        out, got = combined(ma.masked_cross_attention_partial)
+        _, ref = combined(ma.masked_cross_attention_partial_plain)
+        one_shot = ma.masked_cross_attention_plain(q, k, v, mask, h)
+        err = max(float((a.double() - r.double()).abs().max())
+                  / max(1.0, float(r.double().abs().max()))
+                  for a, r in zip(got, ref))
+        out_err = float((out - one_shot).abs().max())
+        mm, own = ranks[0]
+        v0 = v * own[..., None]
+        fwd_ms = time_graph_ms(torch, lambda: ma.masked_cross_attention_partial(
+            q, k, v0, mm, h))
+        fwd_plain_ms = time_ms(torch, lambda: ma
+                               .masked_cross_attention_partial_plain(
+                                   q, k, v0, mm, h), iters=5)
+        ms, eager = time_backward_ms(
+            torch, lambda: ma.masked_cross_attention_partial_backward(
+                q, k, v0, mm, h, g_out, g_sum))
+        fwd_bound_ms, fwd_by = bound(
+            4 * (2 * b * nq * d + 2 * b * s * d + 2 * b * h * nq)
+            + b * nq * s, 4 * b * nq * s * d)
+        bound_ms, by = bound(4 * 2 * (2 * b * nq * d + 2 * b * s * d)
+                             + 4 * b * h * nq + b * nq * s,
+                             12 * b * nq * s * d)
+        rows.append(dict(S=s, S_rank=s, max_rel_err=err, out_err=out_err,
+                         fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                         fwd_bound_ms=fwd_bound_ms, fwd_bound_by=fwd_by,
+                         ms=ms, eager_ms=eager, bound_ms=bound_ms,
+                         bound_by=by))
+        log(f"parallel: the attention's partial form at the sampled length "
+            f"S={s} on each of two ranks (a random split of the slots), "
+            f"kernel forward vs the plain partial form through "
+            f"drop_absent_keys and the combine: (q, k, v) gradients "
+            f"max|err|/max(1,|ref|) {err:.3g}, combined output vs one-shot "
+            f"{out_err:.3g} (tol {ATTN_TOL}); forward {fwd_ms:.4f} ms a rank"
+            f" (plain {fwd_plain_ms:.4f}, bound {fwd_bound_ms:.4f} ms, "
+            f"{fwd_by}); backward {ms:.4f} ms (eager {eager:.4f}), bound "
+            f"{bound_ms:.4f} ms ({by}) on {card}")
+        assert err <= ATTN_TOL and out_err <= ATTN_TOL, rows[-1]
+        del q, k, v, v0, mask, ranks
+    return rows
+
+
 def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
     """Phase `parallel` (see the docstring's phase 15): (a) one flagship
     train step through the port's dp step on a one-rank NCCL group against
@@ -3740,6 +3965,7 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
     import torch.distributed as tdist
 
     from mask3d_tpu_torch.parallel import comm, make_mesh, use_mesh
+    from mask3d_tpu_torch.profile_forward import flagship_items
     from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
 
     res = {}
@@ -3830,6 +4056,32 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
                  pred_masks=out.pred_masks.cpu().numpy())
         del model, out
         torch.cuda.empty_cache()
+        # the one-process steps the sp steps off `dense` are held to
+        part = mt.collate(flagship_items()[:PAR_IMPL_SCENES], device="cuda",
+                          point_bucket_multiple=BUCKET).device
+        for impl in PAR_IMPL_STEPS:
+            losses, launches, _, state, peak, secs3 = train_steps(
+                torch, mt, counters, by_key,
+                par_cfg(cfg_mod, par_impl_overrides(impl, part)), part)
+            torch.save({"loss": losses[0]["loss"],
+                        "grads": {k: p.grad.cpu() for k, p in
+                                  state.model.named_parameters()}},
+                       os.path.join(work, f"ref_{impl}.pt"))
+            res[f"one_process_{impl}"] = dict(
+                loss=losses[0]["loss"], launches=launches, peak_gib=peak,
+                seconds=secs3[0])
+            log(f"parallel: the one-process {impl} step on "
+                f"{PAR_IMPL_SCENES} scenes: loss {losses[0]['loss']}, "
+                f"{secs3[0]:.3f} s, {peak:.2f} GiB, launches {launches} on "
+                f"{card}")
+            del state
+        del part
+        torch.cuda.empty_cache()
+        res["determinism"] = segment_sum_determinism(
+            torch, mt, cfg_mod, batch, card)
+        from mask3d_tpu_torch.ops import masked_attention as ma
+
+        res["partial_backward"] = partial_attention_backward(torch, ma, card)
         root = os.path.join(work, "data")
         write_entry_dataset(np, root, n_train=8, n_test=1, n_val=2)
 
@@ -3864,10 +4116,24 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
             st = got["sp step"]
             assert st["launches"]["masked_attention"] == 12 and \
                 st["launches"]["row_gather"] == 13, st["launches"]
-            assert st["loss_rel"] <= TRAIN_LOSS_TOL, st
-            assert st["worst_norm_ratio"] <= PAR_STEP_TOL, st
-            fault = got["sp fault: decoder gradients summed over sp"]
-            assert fault["worst_norm_ratio"] > PAR_STEP_TOL, fault
+            sp_steps = {"dense": st, **{
+                impl: got[f"sp step {impl}"] for impl in PAR_IMPL_STEPS}}
+            for impl, d in sp_steps.items():
+                # every cross-attention a micro-batch is the partial form
+                n_attn = 12 * (PAR_IMPL_SCENES if impl == "bricked" else 1)
+                assert d["launches"]["masked_attention"] == n_attn == sum(
+                    d["attention_partial_by_s"].values()), (impl, d)
+                assert d["loss_rel"] <= TRAIN_LOSS_TOL, (impl, d)
+                assert d["worst_norm_ratio"] <= PAR_STEP_TOL, (impl, d)
+                if impl == "dense":  # the slabs' rows reduce-scattered
+                    assert d["whole_row_bytes"] > d["bytes"]["rows"] > 0, d
+            assert sp_steps["gather_pallas"]["launches"]["sparse_conv"] > 0
+            assert sp_steps["bricked"]["launches"]["row_gather"] > 0
+            faults = {k: got[f"sp fault: {k}"] for k in (
+                "replicated gradients summed over sp",
+                "criterion mask sums left rank-local")}
+            for k, fault in faults.items():
+                assert fault["worst_norm_ratio"] > PAR_STEP_TOL, (k, fault)
             assert got["rebuilt_kernels"] == [], got["rebuilt_kernels"]
             gates[r] = dict(
                 dp_worst_norm_ratio=dp["worst_norm_ratio"],
@@ -3877,15 +4143,27 @@ def run_parallel(torch, np, mt, cfg_mod, counters, by_key, card, host):
                 sp_forward=sp["gates"],
                 sp_fault=got["sp fault: one side of the halo zeroed"][
                     "gates"],
-                sp_step_worst=st["worst_norm_ratio"],
-                sp_step_fault=got["sp fault: decoder gradients summed "
-                                  "over sp"]["worst_norm_ratio"])
+                sp_step_worst={k: d["worst_norm_ratio"]
+                               for k, d in sp_steps.items()},
+                sp_step_faults={k: f["worst_norm_ratio"]
+                                for k, f in faults.items()})
+            for impl, d in sp_steps.items():
+                rows = {k: d["bytes"].get(k, 0) for k in PAR_ROW_BYTES}
+                log(f"parallel rank {r} sp=2 step on {impl} ({d['reference']}"
+                    f" batch): row bytes by collective {json.dumps(rows)}, "
+                    f"{sum(rows.values())} in all, against "
+                    f"{d['whole_row_bytes']} for an all-reduce of the same "
+                    f"rows whole; peak {d['peak_gib']:.2f} GiB, "
+                    f"{d['seconds']:.3f} s a step, partial attention "
+                    f"launches by S {d['attention_partial_by_s']} on {card}")
         log(f"parallel (b) gates by rank: {json.dumps(gates)} (dp with "
             f"whole levels against 2 x 4 in one process: leaves <= "
             f"{PAR_LEAF_TOL} x max(1, max|leaf|); the sampled dp and sp "
             f"steps against the batch-8 step: leaf_errors <= "
-            f"{PAR_STEP_TOL}; sp forward excess over JAX's bounds <= 0; "
-            f"each fault past its gate) on {card}")
+            f"{PAR_STEP_TOL}, the sp steps off dense against their "
+            f"one-process {PAR_IMPL_SCENES}-scene steps likewise; sp forward "
+            f"excess over JAX's bounds <= 0; each fault past its gate) on "
+            f"{card}")
 
         # (c) fit(): rank 0 alone wrote, and the validation equals a
         # one-process one on the same weights and scenes
@@ -4594,8 +4872,9 @@ def matrix_rank_work(torch, np, rank, world, work_dir):
     eval forwards of MATRIX_SP against the one-process outputs the parent
     saved (JAX's sharded bounds, `par_excess`), counted, timed, with each
     forward's collective bytes; the planted gate fault; `Config()` on
-    `dense` once more in train mode, whose decoder all-reduces whole
-    rows, for their bytes; and a slab's int8 conv against the whole
+    `dense` once more in train mode, for its rows' bytes and what an
+    all-reduce of them whole would carry; and a slab's int8 conv against
+    the whole
     grid's (bitwise), and with the absmax not reduced over sp (a planted
     fault)."""
     import mask3d_tpu_torch as mt
@@ -4638,18 +4917,20 @@ def matrix_rank_work(torch, np, rank, world, work_dir):
 
     def train_mode_rows(model, dev, c):
         """The collective bytes of a train-mode forward (sampled memories
-        from a seeded generator): the decoder's rows whole on every
-        rank."""
+        from a seeded generator), whose decoder's rows are chunks as at
+        inference, and `whole_rows`: what an all-reduce of the rows that
+        its reduce-scatters split would carry."""
         comm.reset_bytes()
+        payload, whole = whole_row_payload(comm)
         model.train()
         try:
-            with use_mesh(mesh):
+            with use_mesh(mesh), payload:
                 mt.infer(model, dev, c, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(0))
         finally:
             model.eval()
-        return dict(bytes=dict(comm.BYTES))
+        return dict(bytes=dict(comm.BYTES), whole_rows=whole[0])
 
     for name, (path, extra, n_items) in MATRIX_SP.items():
         c = zoo_cfg(cfg_mod, CONFIGS[path] + extra + ["model.sp_axis=sp"],
@@ -4762,7 +5043,9 @@ def matrix_sp(torch, np, mt, cfg_mod, card, res):
             # the decoder over row chunks: every launch the partial form
             assert sum(v["partial_by_s"].values()) == 12, (r, name, v)
         sharded = sum(got["dense"]["bytes"].get(k, 0) for k in rows_keys)
-        whole = got["dense_train_mode"]["bytes"].get("rows", 0)
+        whole = got["dense_train_mode"]["whole_rows"]
+        assert got["dense_train_mode"]["bytes"]["rows"] == \
+            got["dense"]["bytes"]["rows"], got["dense_train_mode"]
         summary[r] = dict(rows_bytes_sharded=sharded,
                           rows_bytes_whole=whole, excess=excess,
                           peak_gib={n: v["peak_gib"] for n, v in got.items()
@@ -4775,7 +5058,9 @@ def matrix_sp(torch, np, mt, cfg_mod, card, res):
         f"worst of each forward over JAX's sharded bounds, passing at <= 0, "
         f"the planted faults' > 0; the decoder's row bytes of a Config() "
         f"forward on dense at sp=2, this rank's payload: row chunks against "
-        f"a train-mode forward's all-reduce of whole rows) on {card}")
+        f"an all-reduce of the same rows whole, the inputs of a train-mode "
+        f"forward's reduce-scatters, which move the eval forward's rows) "
+        f"on {card}")
     res["sp"] = ranks
     res["sp_summary"] = summary
 

@@ -34,9 +34,9 @@ every block type, the gate and the int8 knobs; the other impls run whole on
 every rank.
 
 Returns `(out_rows, feature_maps, out_grid)`: stride-1 rows [B, N, PLANES[7]],
-the five pyramid outputs as rows at strides [16, 8, 4, 2, 1] (whole on
-every rank under sp, or with `chunks` this rank's chunk of each level's
-rows on `dense`), and the final level-0 grid for the pooled pyramid (this
+the five pyramid outputs as rows at strides [16, 8, 4, 2, 1] (on the
+sharded `dense` backbone this rank's chunk of each level's rows, whole on
+the other impls), and the final level-0 grid for the pooled pyramid (this
 rank's x-slab under sp; None on the other impls).
 
 Blocks are basic (two 3^3 convs) or, on `Res16UNet50`/`101`, bottlenecks
@@ -63,7 +63,8 @@ import torch
 from torch import nn
 
 from mask3d_tpu_torch.parallel import comm
-from mask3d_tpu_torch.parallel.mesh import sp_group, slab_plan
+from mask3d_tpu_torch.parallel.mesh import row_chunks, sp_group, \
+    slab_plan
 from mask3d_tpu_torch.sparse import brick_ops, chain, dense_ops, ops
 from mask3d_tpu_torch.sparse import sparse_conv as sc
 from mask3d_tpu_torch.sparse.context import SparseBatch
@@ -278,11 +279,10 @@ class _SlabCtx(_DenseCtx):
     The int8 convs quantize with the whole grid's scale (the dynamic
     absmax max-reduced over `sp`, or the static bound) and read their halo
     planes quantized, a QGrid's as its int8 planes. `rows()` hands the
-    decoder whole rows on every rank, or with `chunks`
-    (`parallel.mesh.RowChunks`, inference) this rank's chunk of them.
-    Gradients follow `parallel/comm.py`'s convention: the backbone's
-    parameters get partial gradients, summed over `sp` by the train
-    step."""
+    decoder this rank's chunk of each level's rows (`chunks`,
+    `parallel.mesh.RowChunks`). Gradients follow `parallel/comm.py`'s
+    convention: the backbone's parameters get partial gradients, summed
+    over `sp` by the train step."""
 
     def __init__(self, sb: SparseBatch, grid_dims, plan, group,
                  compute_dtype=None, chunks=None, **int8):
@@ -356,12 +356,9 @@ class _SlabCtx(_DenseCtx):
     def rows(self, x, level_idx):
         s = self.plan[level_idx]
         level = self.sb.levels[level_idx]
-        if s is None and self.chunks is not None:
+        if s is None:  # a whole level: each rank takes its chunk
             return self.chunks.take(super().rows(x, level_idx),
                                     level.capacity)
-        if s is None:
-            # a whole level: the decoder's gradient counted once over sp
-            return comm.to_partial(super().rows(x, level_idx), self.group)
         return dense_ops.gather_rows_slab(x, level,
                                           self.grid_dims[level_idx], s,
                                           self.chunks)
@@ -518,9 +515,6 @@ class _Backbone(nn.Module):
                 "the int8 stack (int8_stride1, pallas_chain) runs on the "
                 "dense impl only (the JAX package's bricked impl runs no "
                 "int8 either)")
-        if impl in ("gather", "gather_pallas") and unit_features:
-            raise NotImplementedError(
-                "unit_features is ported on the dense and bricked impls")
         self.sp_axis = sp_axis
         self.in_channels = in_channels
         self.conv1_kernel_size = conv1_kernel_size
@@ -599,7 +593,8 @@ class _Backbone(nn.Module):
                          int8_residual=self.int8_residual)
         if plan is not None:
             ctx = _SlabCtx(sb, grid_dims, plan, sp_group(self.sp_axis),
-                           self.compute_dtype, chunks, **int8_opts)
+                           self.compute_dtype,
+                           chunks or row_chunks(self.sp_axis), **int8_opts)
             return ctx, (ctx.occ[0].to(feats.dtype) if unit
                          else ctx.scatter(feats, 0))
         if self.impl == "dense":
@@ -612,6 +607,8 @@ class _Backbone(nn.Module):
                             self.brick_dims, self.brick_capacity)
             return ctx, (ctx.occ_b.to(feats.dtype) if unit
                          else ctx.scatter(feats, 0))
+        # from mask3d_tpu/models/backbone.py:752-757: the gather impls read
+        # the features as given (`unit_features` promises they are ones)
         ctx = _GatherCtx(sb, use_kernel=self.impl == "gather_pallas",
                          compute_dtype=self.compute_dtype)
         return ctx, ctx.scatter(feats, 0)
@@ -813,9 +810,9 @@ class Res16UNetBase(_Backbone):
         says: the model's train mode (the JAX package builds its backbone
         with `int8_stride1 and is_eval`, mask3d.py:406). `grid_dims` None
         (a batch without static grid dims) runs on the gather impls only.
-        `chunks` (`parallel.mesh.RowChunks`, inference under sp): the
-        sharded `dense` backbone returns this rank's chunk of each level's
-        rows; the other impls return whole rows."""
+        `chunks` (`parallel.mesh.RowChunks`, the active mesh's by default):
+        the sharded `dense` backbone returns this rank's chunk of each
+        level's rows; the other impls return whole rows."""
         ctx, x = self._context(feats, sb, grid_dims, int8, chunks)
 
         # Encoder. The stem is conv -> norm -> relu (the JAX package's

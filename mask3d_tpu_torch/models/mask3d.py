@@ -19,18 +19,25 @@ Attention masks come from the pooled mask-feature pyramid: on the dense
 grids (pooling commutes with the linear mask head) on the dense backbone,
 by row-space average pooling over the PoolMaps on the gather backbones.
 
-With `model.sp_axis` at inference, each sp rank holds one contiguous chunk
-of every level's rows (`parallel.mesh.RowChunks`, as the JAX package's
-`maybe_constrain` splits its row arrays): the feature maps, the mask
-features and their pyramid, the coordinate pyramid, the attention masks
-and the mask logits. The sharded dense backbone reduce-scatters its rows
-to the chunks; the other impls run whole on every rank and each takes its
-chunk. The positional encodings' min/max and the un-blocking of fully
-blocked queries reduce over `sp`; each cross-attention runs the kernel's
-partial form over the rank's rows and combines the ranks' softmax states
-(`ops.masked_attention.combine_partial_softmax`); FPS reads the input
-coordinates, whole on every rank; the output masks are gathered whole. In
-training the decoder keeps whole rows on every rank (`parallel/comm.py`).
+With `model.sp_axis`, in train and eval mode, each sp rank holds one
+contiguous chunk of every level's rows (`parallel.mesh.RowChunks`, as the
+JAX package's `maybe_constrain` splits its row arrays): the feature maps,
+the mask features and their pyramid, the coordinate pyramid, the
+attention masks and the mask logits. The sharded dense backbone
+reduce-scatters its rows to the chunks; the other impls run whole on
+every rank and each takes its chunk. The positional encodings' min/max
+and the un-blocking of fully blocked queries reduce over `sp`; each
+cross-attention runs the kernel's partial form over the rank's rows and
+combines the ranks' softmax states
+(`ops.masked_attention.combine_partial_softmax`); a sampled memory is the
+one-process draw, each rank taking the sampled rows of its chunk; FPS
+reads the input coordinates, whole on every rank. At inference the output
+masks are gathered whole; in training they stay chunked and the criterion
+sums its mask terms over `sp` (`train/criterion.py`). Gradients follow
+`parallel/comm.py`'s convention: the queries and `mask_embed` enter the
+rank-partial work through its entry Function, so the decoder's gradients
+are complete on every rank, and the parameters that read the rows
+(`Mask3D.sp_partial_parameters`) hold each rank's share.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ from mask3d_tpu_torch.ops.fps import furthest_point_sample
 from mask3d_tpu_torch.ops import masked_attention as ma
 from mask3d_tpu_torch.ops.masked_attention import masked_cross_attention
 from mask3d_tpu_torch.parallel import comm
-from mask3d_tpu_torch.parallel.mesh import dp_coords, row_chunks, slab_plan
+from mask3d_tpu_torch.parallel.mesh import RowChunks, dp_coords, \
+    row_chunks, slab_plan
 from mask3d_tpu_torch.sparse import dense_ops
 from mask3d_tpu_torch.sparse.context import SparseBatch
 from mask3d_tpu_torch.sparse.ops import avg_pool
@@ -65,12 +73,16 @@ class Mask3DOutput:
     """Every mask-module output in emission order; the last is the final
     prediction. `sampled_coords` holds the FPS query positions (None
     unless `non_parametric_queries`), `backbone_feats` the backbone's
-    stride-1 rows."""
+    stride-1 rows. Under `model.sp_axis` the masks come out whole at
+    inference and as this rank's row chunk (`chunks`) in training."""
 
     aux_pred_class: torch.Tensor  # f32[L, B, Q, C+1]
     aux_pred_masks: torch.Tensor  # f32[L or 1, B, N1, Q]
     sampled_coords: Optional[torch.Tensor] = None  # f32[B, Q, 3]
     backbone_feats: Optional[torch.Tensor] = None  # [B, N1, C_bb]
+    # train mode under sp: the masks' N1 axis (and `backbone_feats`') is
+    # this rank's chunk of the rows; None: whole rows
+    chunks: Optional[RowChunks] = None
 
     @property
     def pred_class(self):
@@ -99,14 +111,15 @@ class MultiheadAttention(nn.Module):
         return self.k(k), self.v(v)
 
     def forward(self, q, k=None, v=None, mask=None, kv_proj=None,
-                group=None):
-        """`group`: the keys are this sp rank's chunk of the rows (see
-        `sharded_attention`)."""
+                group=None, absent=None):
+        """`group`: the keys are this sp rank's chunk of the rows, with
+        `absent` key slots that hold no key (see `sharded_attention`)."""
         h = self.num_heads
         wq = self.q(q)
         wk, wv = kv_proj if kv_proj is not None else self.project_kv(k, v)
         if mask is not None and group is not None:
-            return self.out(sharded_attention(wq, wk, wv, mask, h, group))
+            return self.out(sharded_attention(wq, wk, wv, mask, h, group,
+                                              absent))
         if mask is not None:
             return self.out(masked_cross_attention(wq, wk, wv, mask, h))
         b, nq, d = wq.shape
@@ -140,13 +153,14 @@ class CrossAttentionLayer(nn.Module):
         shared-decoder rounds, so the caller hoists them."""
         return self.attn.project_kv(memory + pos, memory)
 
-    def forward(self, tgt, memory_mask, query_pos, kv_proj, group=None):
+    def forward(self, tgt, memory_mask, query_pos, kv_proj, group=None,
+                absent=None):
         if self.pre_norm:
             t2 = self.attn(self.norm(tgt) + query_pos, mask=memory_mask,
-                           kv_proj=kv_proj, group=group)
+                           kv_proj=kv_proj, group=group, absent=absent)
             return tgt + self.drop(t2)
         t2 = self.attn(tgt + query_pos, mask=memory_mask, kv_proj=kv_proj,
-                       group=group)
+                       group=group, absent=absent)
         return self.norm(tgt + self.drop(t2))
 
 
@@ -190,20 +204,27 @@ class FFNLayer(nn.Module):
 
 # the masked cross-attention over row chunks (GSPMD's softmax over the
 # sharded key axis of mask3d_tpu/ops/pallas_attention.py:102's caller)
-def sharded_attention(q, k, v, mask, num_heads: int, group):
+def sharded_attention(q, k, v, mask, num_heads: int, group, absent=None):
     """The masked attention over every sp rank's chunk of the keys: the
-    kernel's partial form over this rank's (out, max, sum), one all-gather
-    of the ranks' triples ([B, Q, D + 2H] floats) and their combine, the
-    same on every rank. Inference only (no gradient)."""
+    replicated queries enter (`comm.enter_partial`) the kernel's partial
+    form over this rank's (out, max, sum), one all-gather of the ranks'
+    triples ([B, Q, D + 2H] floats) and their combine, the same on every
+    rank, with the maxes detached. `absent` i64[B]: key slots of this rank
+    that hold no key (a sampled memory's rows of other chunks), blocked
+    and with v zero (`ops.masked_attention.drop_absent_keys`)."""
+    q = comm.enter_partial(q, group)
     o, m, lsum = ma.masked_cross_attention_partial(q, k, v, mask, num_heads)
+    if absent is not None:
+        o, lsum = ma.drop_absent_keys(o, m, lsum, absent, num_heads)
     b, nq, d = o.shape
     hq = num_heads * nq
     packed = torch.cat([o.reshape(b, -1), m.reshape(b, -1),
                         lsum.reshape(b, -1)], dim=1)
-    parts = comm.all_gather(packed, group, name="attention_partials")
+    parts = comm.all_gather_partials(packed, group, "attention_partials")
     return ma.combine_partial_softmax(
         [t[:, :nq * d].reshape(b, nq, d) for t in parts],
-        [t[:, nq * d:nq * d + hq].reshape(b, num_heads, nq) for t in parts],
+        [t[:, nq * d:nq * d + hq].detach().reshape(b, num_heads, nq)
+         for t in parts],
         [t[:, nq * d + hq:].reshape(b, num_heads, nq) for t in parts],
         num_heads)
 
@@ -395,12 +416,6 @@ class Mask3D(nn.Module):
         package's markers (mask3d.py:414-735): "backbone_part1",
         "backbone_part2", "pos_enc", "queries", then "decoder_<d>" after
         each decoder round (`train.loop.measure_model_phases`)."""
-        impl = self.backbone.impl
-        if self.training and self.sp_axis is not None and impl != "dense":
-            raise NotImplementedError(
-                f"model.sp_axis in training with backbone_impl={impl!r}: "
-                f"the sharded train step runs the dense backbone only (the "
-                f"decoder over sharded rows is ported at inference)")
         mark = phase_mark or (lambda name: None)
         b = feats.shape[0]
         n_levels = sb.num_levels
@@ -414,8 +429,8 @@ class Mask3D(nn.Module):
 
         # int8 convs at eval only: quantization has no useful gradient
         int8 = not self.training
-        # this rank's chunk of every level's rows (inference under sp)
-        chunks = row_chunks(self.sp_axis) if not self.training else None
+        # this rank's chunk of every level's rows under sp
+        chunks = row_chunks(self.sp_axis)
         group = chunks.group if chunks is not None else None
 
         def take(x, li, dim=1):
@@ -427,7 +442,7 @@ class Mask3D(nn.Module):
             # recompute the backbone in the backward instead of keeping its
             # activations
             bb_out, feature_maps, bb_grid = checkpoint(
-                self.backbone, feats, sb, grid_dims, int8,
+                self.backbone, feats, sb, grid_dims, int8, chunks,
                 use_reentrant=False)
         else:
             # the sharded dense backbone returns this rank's row chunks
@@ -509,8 +524,11 @@ class Mask3D(nn.Module):
             mask_embed = self.mask_embed_out(
                 torch.relu(self.mask_embed_hidden(qn)))
             out_class = self.class_embed_head(qn)
-            out_masks = (torch.einsum("bnd,bqd->bnq", mask_feats, mask_embed)
-                         if ret_masks else None)
+            out_masks = None
+            if ret_masks:  # this rank's rows under sp: the embed enters
+                me = (mask_embed if group is None
+                      else comm.enter_partial(mask_embed, group))
+                out_masks = torch.einsum("bnd,bqd->bnq", mask_feats, me)
             if not ret_attn:
                 return out_class, out_masks, None
             pooled = torch.einsum("bnd,bqd->bnq",
@@ -531,6 +549,7 @@ class Mask3D(nn.Module):
                 cap = level.capacity
                 s = self._sampled(hlevel, cap)
                 rows = torch.arange(s, device=attn.device)[None]
+                mine = absent = None
                 if s == cap:
                     # The full padded level: its squeezed memory and K/V
                     # are the same in every round that shares the layers.
@@ -554,8 +573,17 @@ class Mask3D(nn.Module):
                                    device=attn.device)[
                         dp_rank * b:(dp_rank + 1) * b]
                     idx = sample_memory_idx(r, level.valid, s)
+                    if chunks is not None:
+                        # the same draw on every rank; each keeps the
+                        # sampled rows of its chunk, at local indices
+                        lo, hi = chunks.span(cap)
+                        mine = (idx >= lo) & (idx < hi)
+                        idx = torch.where(mine, idx - lo, 0)
+                        absent = (~mine).sum(dim=1)
 
                     def pick(x):
+                        if x.shape[1] == 0:  # an empty chunk
+                            return x.new_zeros((b, s, x.shape[-1]))
                         return torch.gather(
                             x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
@@ -564,9 +592,16 @@ class Mask3D(nn.Module):
                     kvp = cross.project_kv(src, pick(pe_pyr[lvl]))
                     attn = pick(attn)  # [B, S, Q]
                     n_rows = torch.clamp(level.count, max=s)
+                    if mine is not None:
+                        # another rank's rows: no key here (v zero), and
+                        # no say in which queries every row blocks
+                        kvp = (kvp[0], kvp[1] * mine[..., None])
+                        attn = attn | ~mine[..., None]
                 # Unblock queries whose mask blocks every row, then block
                 # the padding rows.
                 pad = rows >= n_rows[:, None]
+                if mine is not None:
+                    pad = pad | ~mine
                 all_blocked = attn.all(dim=1)  # [B, Q]
                 if group is not None:  # every rank's rows blocked
                     all_blocked = comm.max_over(
@@ -576,7 +611,8 @@ class Mask3D(nn.Module):
                 attn = attn | pad[..., None]
                 mem_mask = attn.transpose(1, 2).contiguous()  # [B, Q, S]
 
-                queries = cross(queries, mem_mask, query_pos, kvp, group)
+                queries = cross(queries, mem_mask, query_pos, kvp, group,
+                                absent)
                 queries = self.self_attn[key](queries, query_pos)
                 queries = self.ffn[key](queries)
                 predictions_class.append(out_class)
@@ -588,13 +624,31 @@ class Mask3D(nn.Module):
         predictions_class.append(out_class)
         predictions_masks.append(out_masks)
         masks = torch.stack(predictions_masks)
-        if chunks is not None:  # the output masks whole on every rank
+        if chunks is not None and not self.training:
+            # the output masks whole on every rank
             masks = chunks.gather(masks, sb.levels[0].capacity, dim=2,
                                   name="out_masks")
-        # under sp at inference `backbone_feats` is this rank's row chunk
+        # under sp `backbone_feats` is this rank's row chunk
         return Mask3DOutput(aux_pred_class=torch.stack(predictions_class),
                             aux_pred_masks=masks, sampled_coords=sampled,
-                            backbone_feats=bb_out)
+                            backbone_feats=bb_out,
+                            chunks=chunks if self.training else None)
+
+    def sp_partial_parameters(self):
+        """The parameters that read the rows of a level (the backbone, the
+        mask-feature head, the memories' squeeze and K/V projections and
+        their level embedding): under sp each rank's gradient of them is
+        its rows' share, summed over `sp` by the train step
+        (`train.loop.sync_gradients`). Every other parameter's gradient is
+        complete on every rank."""
+        mods = [self.backbone, self.mask_features_head,
+                *self.squeeze.values()]
+        for cross in self.cross.values():
+            mods += [cross.attn.k, cross.attn.v]
+        params = [p for m in mods for p in m.parameters()]
+        if hasattr(self, "level_embed"):
+            params.append(self.level_embed)
+        return params
 
     def _squeezed(self, key, li, feats):
         """A level's memory projected to the hidden width, plus its level
@@ -652,8 +706,8 @@ class Mask3D(nn.Module):
                 np_feats = torch.gather(
                     bb_out.float(), 1,
                     local[..., None].expand(-1, -1, bb_out.shape[-1]))
-                np_feats = comm.all_reduce(
-                    np_feats * mine[..., None], group=chunks.group,
+                np_feats = comm.sum_partials(
+                    np_feats * mine[..., None], chunks.group,
                     name="np_features")
             queries = self.np_proj_out(
                 torch.relu(self.np_proj_hidden(np_feats)))
@@ -692,9 +746,9 @@ def build_model(cfg, device="cuda", seed: int = 0) -> Mask3D:
     train step takes micro-batches of one scene (`data.batch_size` equal to
     `trainer.grad_accum_steps`). `model.sp_axis` shards the `dense`
     backbone's grids over that axis of the active mesh (`parallel/mesh.py`;
-    a no-op without one), with every backbone and int8 knob; at inference
-    it splits the decoder's rows over the axis on every impl, and a train
-    forward on another impl than `dense` raises with it. Every backbone of
+    a no-op without one), with every backbone and int8 knob, and splits
+    the decoder's rows over the axis on every impl, in training and at
+    inference. Every backbone of
     `models.backbone.BACKBONES`, every decoder option and every int8 knob
     on `dense` builds. Random queries are drawn from the forward's
     `generator=`."""

@@ -14,17 +14,21 @@ plain PyTorch.
 parallel rank's chunk of the keys: beside the normalized output it returns
 each (item, head, query)'s max logit and sum of exponentials, and
 `combine_partial_softmax` merges the ranks' triples into the softmax over
-every key (`models/mask3d.py` runs the decoder's rows sharded over `sp` at
-inference). Its launches count in `masked_cross_attention.launches` and in
-`masked_cross_attention.partial_by_shape[S]`; it has no gradient (the
-sharded decoder runs at inference only).
+every key (`models/mask3d.py` runs the decoder's rows sharded over `sp` in
+training and at inference). Its launches count in `masked_cross_attention.launches` and in
+`masked_cross_attention.partial_by_shape[S]`. It is differentiable in q,
+k and v (`MaskedCrossAttentionPartial`) through its normalized output and
+its sum; the max is a constant of the softmax (no gradient, and the VJP of
+the sum holds it fixed), and `combine_partial_softmax` takes the maxes
+detached: the combined softmax does not depend on them, so its gradient
+is exact.
 
-It is differentiable in q, k and v (`MaskedCrossAttention`): the forward
-is the kernel (or the plain version on the CPU), the backward the VJP of
-the plain one-shot form, recomputed from the saved inputs, as the JAX
-package's `custom_vjp` takes the VJP of its XLA form
-(`pallas_attention.py:155-170`). The backward is plain PyTorch on both
-devices.
+Both forms are differentiable in q, k and v (`MaskedCrossAttention`,
+`MaskedCrossAttentionPartial`): the forward is the kernel (or the plain
+version on the CPU), the backward the VJP of the plain form, recomputed
+from the saved inputs, as the JAX package's `custom_vjp` takes the VJP of
+its XLA form (`pallas_attention.py:155-170`). The backwards are plain
+PyTorch on both devices.
 """
 
 from __future__ import annotations
@@ -91,7 +95,7 @@ def masked_cross_attention_partial_plain(q, k, v, mask, num_heads: int):
         "bqhd,bkhd->bhqk", split(q).float(), split(k).float()
     ) / (hd ** 0.5)
     logits = logits.masked_fill(mask.bool()[:, None], -1e9)
-    m = logits.amax(dim=-1)
+    m = logits.detach().amax(dim=-1)
     p = torch.exp(logits - m[..., None])
     lsum = p.sum(dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, split(v).float())
@@ -102,7 +106,8 @@ def masked_cross_attention_partial_plain(q, k, v, mask, num_heads: int):
 def combine_partial_softmax(outs, maxes, sums, num_heads: int):
     """The softmax over every key from the ranks' partial triples (lists in
     rank order of out [B, Q, D], max and sum [B, H, Q]): each rank's
-    normalized output weighted by sum * exp(max - the ranks' max)."""
+    normalized output weighted by sum * exp(max - the ranks' max). Pass
+    the maxes detached: the partial forms' sums hold them fixed."""
     b, nq, d = outs[0].shape
     hd = d // num_heads
     m = torch.stack(maxes)  # [R, B, H, Q]
@@ -111,6 +116,23 @@ def combine_partial_softmax(outs, maxes, sums, num_heads: int):
     w = w.permute(0, 1, 3, 2)[..., None]  # [R, B, Q, H, 1]
     out = (o * w).sum(dim=0) / w.sum(dim=0).clamp_min(1e-20)
     return out.reshape(b, nq, d)
+
+
+def drop_absent_keys(out, m, lsum, absent, num_heads: int):
+    """(out, sum) of a partial triple without the `absent` [B] key slots
+    of each item that hold no key (blocked, v zero: a sampled memory's
+    rows that other ranks hold). Blocked slots drop out of a softmax by
+    the -1e9 fill, except where every slot is blocked (max -1e9: an item
+    without rows), whose uniform weights must span its keys alone: there
+    they leave the sum, and a chunk without keys gives the "no keys" state
+    (out 0, max -1e9, sum 0). Differentiable."""
+    b, nq, d = out.shape
+    gone = torch.where(m <= -1e9, absent[:, None, None].to(lsum.dtype), 0.0)
+    keep = lsum - gone
+    scale = torch.where(keep > 0, lsum / keep.clamp_min(1.0), 0.0)
+    out = (out.reshape(b, nq, num_heads, -1)
+           * scale.transpose(1, 2)[..., None]).reshape(b, nq, d)
+    return out, keep
 
 
 def _check(q, k, v, mask, num_heads):
@@ -299,15 +321,59 @@ def masked_cross_attention(q, k, v, mask, num_heads: int):
     return MaskedCrossAttention.apply(q, k, v, mask, num_heads)
 
 
+# the VJP of the partial form (the sharded decoder's train step)
+def masked_cross_attention_partial_backward(q, k, v, mask, num_heads: int,
+                                            g_out, g_sum,
+                                            needs=(True, True, True)):
+    """(dq, dk, dv) for the cotangents of the partial form's out and sum:
+    the VJP of `masked_cross_attention_partial_plain` at (q, k, v), its max
+    held fixed; None where `needs` is false."""
+    if k.shape[1] == 0:  # no keys: out and sum are constants
+        return tuple(torch.zeros_like(t) if n else None
+                     for t, n in zip((q, k, v), needs))
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip((q, k, v), needs)]
+        out, _, lsum = masked_cross_attention_partial_plain(
+            *leaves, mask, num_heads)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad((out, lsum), wanted,
+                                         (g_out, g_sum)))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class MaskedCrossAttentionPartial(torch.autograd.Function):
+    """The partial form's kernel (the plain form on the CPU) with the plain
+    form's VJP as its backward; the max has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_heads):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.num_heads = num_heads
+        if cuda_build.use_kernel(q, "masked_cross_attention"):
+            out, m, lsum = _launch(q, k, v, mask, num_heads, partial=True)
+        else:
+            out, m, lsum = masked_cross_attention_partial_plain(
+                q, k, v, mask, num_heads)
+        ctx.mark_non_differentiable(m)
+        return out, m, lsum
+
+    @staticmethod
+    def backward(ctx, g_out, g_max, g_sum):
+        q, k, v, mask = ctx.saved_tensors
+        grads = masked_cross_attention_partial_backward(
+            q, k, v, mask, ctx.num_heads, g_out, g_sum,
+            ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
 def masked_cross_attention_partial(q, k, v, mask, num_heads: int):
     """The partial form over this rank's keys: q f32[B, Q, D]; k, v f32[B,
     S, D]; mask [B, Q, S] -> (out f32[B, Q, D], max f32[B, H, Q], sum
     f32[B, H, Q]); the kernel on a CUDA tensor, the plain form on a CPU
-    one. No gradient."""
+    one; differentiable in q, k and v through out and sum."""
     _check(q, k, v, mask, num_heads)
-    if not cuda_build.use_kernel(q, "masked_cross_attention"):
-        return masked_cross_attention_partial_plain(q, k, v, mask, num_heads)
-    return _launch(q, k, v, mask, num_heads, partial=True)
+    return MaskedCrossAttentionPartial.apply(q, k, v, mask, num_heads)
 
 
 masked_cross_attention.launches = 0

@@ -9,16 +9,38 @@ copied for a backend: a CUDA tensor goes through host memory for gloo only
 (gloo's CUDA support depends on how PyTorch was built), a host tensor onto
 the card for NCCL; the NCCL path never stages a CUDA tensor.
 
-Autograd conventions of the sharded backbone (`models/backbone.py`): a
-tensor sharded over `sp` (an x-slab of a grid) carries its true gradient on
-its rank; a tensor replicated inside the backbone (a level too small to
-shard) carries a partial gradient whose sum over the `sp` ranks is the true
-one, so the backbone's parameter gradients are summed over `sp`; the
-decoder runs whole on every `sp` rank with complete gradients, which are
-not summed. The Functions below move tensors between those forms. At
-inference the decoder's rows are split over `sp` instead
-(`parallel.mesh.RowChunks`): each rank holds one contiguous chunk of every
-level's rows, reduced from the slabs by `reduce_scatter_rows`.
+Gradient convention under `sp`. Every rank computes the same loss. A
+tensor is *replicated* (the same on every rank: the queries, the class
+logits, the loss), *rank-partial* (this rank's share of a sum over the
+ranks, or this rank's chunk of the rows) or, inside the backbone, an
+x-slab. A replicated tensor's gradient is complete on every rank; a
+rank-partial tensor's is this rank's share. Megatron's pair of Functions
+moves between the two:
+- *entry* (`enter_partial`, replicated -> rank-partial work): identity
+  forward, the gradient summed over the ranks backward. The queries enter
+  the attention's partial form over this rank's keys and `mask_embed` the
+  product with this rank's mask-feature rows through it, so their
+  gradients (and all of the decoder's upstream) are complete;
+- *exit* (`sum_partials`, rank-partial -> replicated): the sum over the
+  ranks forward, the gradient as it is backward (every rank holds the same
+  gradient of the sum, and each passes it to its own share). The
+  criterion's mask sums and the FPS query features leave the row chunks
+  through it.
+`all_gather_partials` (the attention's softmax states) is an exit too: the
+combine runs replicated on every rank, so each rank takes its own slot of
+the replicated gradient back. `reduce_scatter_rows` hands the slabs' rows
+to the row chunks (its adjoint all-gathers the chunks' gradients). The
+parameters that read a level's rows (the backbone, the mask-feature head,
+the memories' projections) therefore hold this rank's share of their
+gradients, which the train step sums over `sp`; every other parameter's
+is complete on every rank and is not summed (`train/loop.py`).
+
+`sum_over` is another pair: a sum forward and a sum backward, for the
+sharded norm's statistics, whose consumers are slab-local (each rank's
+share of the total's gradient is summed back to every slab). Inside the
+backbone a tensor replicated over `sp` (a level too small to shard)
+carries a gradient whose sum over the ranks is the true one, as the
+parameters' do.
 """
 
 from __future__ import annotations
@@ -96,13 +118,10 @@ def all_gather(t: torch.Tensor, group=None, name: str = "all_gather"
     return out
 
 
-def reduce_scatter_rows(x: torch.Tensor, bounds, group,
-                        name: str = "rows") -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, bounds, group, name: str):
     """This rank's rows [bounds[r], bounds[r + 1]) (axis 1) of the sum of
     every rank's `x` over `group`: one `reduce` a destination rank. Counts
-    the chunks this rank sends to the others. No gradient."""
-    if not _initialized():
-        return x[:, bounds[0]:bounds[1]]
+    the chunks this rank sends to the others."""
     r = group_rank(group)
     mine = None
     for d in range(group_size(group)):
@@ -116,6 +135,32 @@ def reduce_scatter_rows(x: torch.Tensor, bounds, group,
         if d == r:
             mine = work.to(x.device) if copied else work
     return mine
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    """Forward: `_reduce_scatter`. Backward, its adjoint: every rank's
+    chunk gradient all-gathered, so that row i of each rank's `x` gets the
+    gradient of the chunk that holds row i."""
+
+    @staticmethod
+    def forward(ctx, x, bounds, group, name):
+        ctx.bounds, ctx.group, ctx.name = bounds, group, name
+        return _reduce_scatter(x, bounds, group, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_x(g.contiguous(), ctx.bounds, ctx.group,
+                        name=ctx.name + "_grad"), None, None, None
+
+
+def reduce_scatter_rows(x: torch.Tensor, bounds, group,
+                        name: str = "rows") -> torch.Tensor:
+    """This rank's chunk [bounds[r], bounds[r + 1]) of the rows (axis 1) of
+    the sum of every rank's `x` (each rank's slab rows, zeros elsewhere),
+    with its gradient (`_ReduceScatterRows`)."""
+    if not _initialized():
+        return x[:, bounds[0]:bounds[1]]
+    return _ReduceScatterRows.apply(x, tuple(bounds), group, name)
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None,
@@ -157,43 +202,65 @@ def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group) if group_size(group) > 1 else x
 
 
-class _RowsFromSlabs(torch.autograd.Function):
-    """Whole rows from each rank's rows (zero outside its slab): a sum
-    forward. The rows feed the decoder, which runs whole on every rank, so
-    the incoming gradient is the same on every rank and each rank keeps it
-    as it is: the row gather's backward takes its own rows. (An autograd
-    all-gather would sum the ranks' gradients, n_sp times the true one.)"""
+class _EnterPartial(torch.autograd.Function):
+    """Entry: a replicated tensor into rank-partial work (see the module
+    docstring). Identity forward; the ranks' gradients summed backward."""
 
     @staticmethod
     def forward(ctx, x, group):
-        return all_reduce(x.clone(), group=group, name="rows")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def rows_from_slabs(x: torch.Tensor, group) -> torch.Tensor:
-    return _RowsFromSlabs.apply(x, group) if group_size(group) > 1 else x
-
-
-class _ToPartial(torch.autograd.Function):
-    """A replicated backbone tensor handed to the decoder: identity forward;
-    the decoder's complete gradient goes to `sp` rank 0 only, so that the
-    sum over the ranks is the true gradient (the backbone convention)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.keep = group_rank(group) == 0
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return (g if ctx.keep else torch.zeros_like(g)), None
+        return all_reduce(g.contiguous().clone(), group=ctx.group,
+                          name="entry_grad"), None
 
 
-def to_partial(x: torch.Tensor, group) -> torch.Tensor:
-    return _ToPartial.apply(x, group) if group_size(group) > 1 else x
+def enter_partial(x: torch.Tensor, group) -> torch.Tensor:
+    return _EnterPartial.apply(x, group) if group_size(group) > 1 else x
+
+
+class _SumPartials(torch.autograd.Function):
+    """Exit: the ranks' partial sums into their replicated total (see the
+    module docstring). Sum forward; the gradient as it is backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, name):
+        return all_reduce(x.clone(), group=group, name=name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_partials(x: torch.Tensor, group, name: str = "partials"
+                 ) -> torch.Tensor:
+    return _SumPartials.apply(x, group, name) if group_size(group) > 1 \
+        else x
+
+
+class _GatherPartials(torch.autograd.Function):
+    """Every rank's `x` stacked [R, ...] for a replicated consumer: the
+    backward takes this rank's slot of the replicated gradient (a sum over
+    the ranks would count it R times)."""
+
+    @staticmethod
+    def forward(ctx, x, group, name):
+        ctx.rank = group_rank(group)
+        return torch.stack(all_gather(x, group, name=name))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None, None
+
+
+def all_gather_partials(x: torch.Tensor, group, name: str = "partials"
+                        ) -> torch.Tensor:
+    """[R, ...]: every rank's `x` in rank order (`_GatherPartials`)."""
+    if group_size(group) == 1:
+        return x[None]
+    return _GatherPartials.apply(x, group, name)
 
 
 def _pad_x(x, extent):

@@ -13,15 +13,15 @@ port runs one process a rank and writes the collectives out:
 - data parallelism: each dp rank takes its rows of the batch
   (`shard_batch`); the train step sums the gradients, the CE normaliser and
   the logged losses over `dp` (`train/loop.py`, `train/criterion.py`);
-- sequence parallelism (`model.sp_axis`, dense backbone): each sp rank
-  holds an x-slab of every level that `sp_min_per_shard` lets shard
-  (`slab_plan`); `models/backbone.py` runs the convs on the slabs with halo
-  exchanges and the norms with summed statistics, and hands the decoder
-  whole rows in training, so the tiny query set and the decoder stay
-  replicated; at inference every level's rows are split into `sp`
+- sequence parallelism (`model.sp_axis`): on the dense backbone each sp
+  rank holds an x-slab of every level that `sp_min_per_shard` lets shard
+  (`slab_plan`), and `models/backbone.py` runs the convs on the slabs with
+  halo exchanges and the norms with summed statistics; on every impl, in
+  training and at inference, every level's rows are split into `sp`
   contiguous chunks (`RowChunks`, the split of JAX's `maybe_constrain` on
-  axis 1), and the decoder runs on the rank's chunk with its softmax, its
-  min/max and its any-reductions combined over `sp`.
+  axis 1), and the decoder and the criterion run on the rank's chunk with
+  their softmax, min/max, any-reductions and sums over points combined
+  over `sp`, while the tiny query set stays replicated.
 
 JAX's `maybe_constrain` (a sharding constraint for the SPMD partitioner) has
 no torch meaning: the sharded context of `models/backbone.py` takes its
@@ -241,8 +241,8 @@ def slab_plan(grid_dims: Sequence[Sequence[int]], sp_axis: Optional[str]
 
 @dataclasses.dataclass(frozen=True)
 class RowChunks:
-    """This rank's contiguous chunk of every level's rows under sp at
-    inference: of a level of capacity N, rank r holds rows [r * c, (r + 1)
+    """This rank's contiguous chunk of every level's rows under sp: of a
+    level of capacity N, rank r holds rows [r * c, (r + 1)
     * c) with c = ceil(N / n_sp), the last chunk cut at N (the split of an
     axis over a mesh axis in the JAX package's sharding)."""
 

@@ -78,13 +78,33 @@ class PoolMap:
     """Fine level -> its stride-2 coarse level. `parent` is the coarse row of
     each fine row (the coarse capacity for padding and overflowed rows, which
     segment sums drop), `kidx` its child position `(x&1)*4 + (y&1)*2 +
-    (z&1)`, `nchild` the occupied children of each coarse row. The dense
-    path builds only `overflow` and leaves the rest None."""
+    (z&1)`, `nchild` the occupied children of each coarse row and
+    `child_rows` the fine row at each coarse row's child position
+    (`child_row_table`; the segment sums of `sparse/ops.py` read it). The
+    dense path builds only `overflow` and leaves the rest None."""
 
     parent: Optional[torch.Tensor]  # i32[B, N_fine]
     kidx: Optional[torch.Tensor]  # i32[B, N_fine] in [0, 8)
     nchild: Optional[torch.Tensor]  # i32[B, N_coarse]
     overflow: torch.Tensor  # bool[B] coarse capacity exceeded
+    child_rows: Optional[torch.Tensor] = None  # i64[B, N_coarse, 8]
+
+
+def child_row_table(parent, kidx, coarse_capacity: int):
+    """i64[B, coarse_capacity, 8]: the fine row at each coarse row's child
+    position, N_fine where there is none. A fine row's (parent, child
+    position) is its own voxel, so a slot takes at most one row: an integer
+    scatter-add writes them, exact in any order; the rows whose parent is
+    the coarse capacity (padding, overflow) land past the table."""
+    b, n_fine = parent.shape
+    dev = parent.device
+    slot = parent.long() * 8 + kidx.long()
+    tab = torch.zeros((b, (coarse_capacity + 1) * 8), dtype=torch.long,
+                      device=dev)
+    tab.scatter_add_(1, slot, torch.arange(1, n_fine + 1, device=dev)
+                     .expand(b, n_fine))
+    tab = tab[:, :coarse_capacity * 8].view(b, coarse_capacity, 8)
+    return torch.where(tab > 0, tab - 1, n_fine)
 
 
 # from mask3d_tpu/sparse/core.py:124 build_base_level
@@ -148,7 +168,8 @@ def downsample_level(level: SparseLevel, capacity: int):
     nchild = torch.zeros((b, capacity + 1), dtype=torch.int32, device=dev)
     nchild.scatter_add_(1, parent.long(), level.valid.to(torch.int32))
     pool = PoolMap(parent=parent, kidx=kidx, nchild=nchild[:, :capacity],
-                   overflow=count_c > capacity)
+                   overflow=count_c > capacity,
+                   child_rows=child_row_table(parent, kidx, capacity))
     return coarse, pool
 
 

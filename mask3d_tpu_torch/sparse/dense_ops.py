@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from mask3d_tpu_torch.parallel import comm
 from mask3d_tpu_torch.sparse.core import INT32_MAX, PoolMap, SparseLevel, \
-    pack_keys, unpack_keys
+    child_row_table, pack_keys, unpack_keys
 from mask3d_tpu_torch.sparse.row_gather import row_gather
 
 
@@ -89,25 +89,20 @@ def scatter_rows_slab(feats, level: SparseLevel, grid_dims, slab):
                     (slab.x1 - slab.x0, grid_dims[1], grid_dims[2]))
 
 
-def gather_rows_slab(dense, level: SparseLevel, grid_dims, slab,
-                     chunks=None):
-    """This rank's x-slab -> the level's whole [B, N, C] rows on every rank:
-    the row-gather kernel takes the slab's rows (zeros elsewhere) and one
-    all-reduce sums the ranks' rows (`comm.rows_from_slabs`: the rows feed
-    the replicated decoder, whose gradient each rank keeps for its rows).
-    With `chunks` (`parallel.mesh.RowChunks`, inference) a reduce-scatter
-    instead leaves each rank its chunk of the rows [B, hi - lo, C]; no
-    gradient."""
+def gather_rows_slab(dense, level: SparseLevel, grid_dims, slab, chunks):
+    """This rank's x-slab -> this rank's chunk of the level's rows [B, hi -
+    lo, C] (`chunks`, `parallel.mesh.RowChunks`): the row-gather kernel
+    takes the slab's rows (zeros elsewhere) and a reduce-scatter over the
+    slab's group leaves each rank its chunk of their sum, with its
+    gradient (`comm.reduce_scatter_rows`)."""
     b, c = dense.shape[0], dense.shape[-1]
     cells = dense.shape[1] * dense.shape[2] * dense.shape[3]
     key, inside = _slab_keys(level, grid_dims, slab)
     key = key.clamp(0, cells - 1).to(torch.int32)
     rows = row_gather(dense.reshape(b, cells, c), key.contiguous(),
                       inside.contiguous())
-    if chunks is not None:
-        return comm.reduce_scatter_rows(rows, chunks.bounds(level.capacity),
-                                        slab.group)
-    return comm.rows_from_slabs(rows, slab.group)
+    return comm.reduce_scatter_rows(rows, chunks.bounds(level.capacity),
+                                    slab.group)
 
 
 # from mask3d_tpu/sparse/dense_ops.py:79 gather_rows (always the kernel)
@@ -345,9 +340,9 @@ def pooled_row_pyramid(grids, occ, levels, grid_dims, plan=None,
     (`parallel.mesh.slab_plan`) the grids are level 0's x-slabs: sharded
     levels pool on their slabs (the plan aligns them), the first whole
     level pools the gathered grid of the last sharded one, and every
-    level's rows come back whole, or as this rank's chunk of them with
-    `chunks` (`parallel.mesh.RowChunks`). No gradient flows through the
-    sharded form."""
+    level's rows come back as this rank's chunk of them (`chunks`,
+    `parallel.mesh.RowChunks`, which a plan needs). No gradient flows
+    through the sharded form."""
     plan = plan or [None] * len(levels)
 
     def cut(o, s):
@@ -441,7 +436,7 @@ def downsample_level_dense(level: SparseLevel, grid_dims, capacity: int,
                         INT32_MAX).to(torch.int32)
     coarse = SparseLevel(key=key_c, coords=coords_c, valid=valid_c,
                          count=count, dims=dims_c, stride=level.stride * 2)
-    parent = kidx = nchild = None
+    parent = kidx = nchild = rows = None
     if with_parent:
         # child counts: sum-pool the fine occupancy, written at the coarse
         # rows; parents: the coarse row position at each fine row's cell
@@ -458,5 +453,7 @@ def downsample_level_dense(level: SparseLevel, grid_dims, capacity: int,
                              capacity).to(torch.int32)
         kidx = ((fc[..., 0] & 1) * 4 + (fc[..., 1] & 1) * 2
                 + (fc[..., 2] & 1)).to(torch.int32)
-    pool = PoolMap(parent=parent, kidx=kidx, nchild=nchild, overflow=overflow)
+        rows = child_row_table(parent, kidx, capacity)
+    pool = PoolMap(parent=parent, kidx=kidx, nchild=nchild, overflow=overflow,
+                   child_rows=rows)
     return coarse, pool, occ_c

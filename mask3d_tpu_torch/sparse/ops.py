@@ -7,10 +7,15 @@ convs do.
 
 Every feature tensor is `[B, N, C]` in the `[B, N]` row layout of
 `sparse/core.py`; conv weights are `[K, Cin, Cout]` in `cube_offsets` order
-(`[8, Cin, Cout]` by child position for the stride-2 convs). Segment sums
-scatter-add into a `[B, cap + 1, C]` buffer whose last row is the drop slot
-of padding and overflowed rows. On CUDA, `scatter_add_` adds with atomics,
-so those sums vary in the last bits from run to run.
+(`[8, Cin, Cout]` by child position for the stride-2 convs). A segment sum
+(a coarse row's children, `_segment_sum_batched`) gathers each of the
+eight child positions from the PoolMap's table of the children's rows
+(`core.child_row_table`, built once with the map) and adds them
+in child-position order: the order in which the fine rows lie, so the sums
+are those of a scatter-add in row order, and the same from run to run on
+every device whatever `torch.use_deterministic_algorithms` says
+(`scatter_add_` adds with atomics on CUDA there). Padding and overflowed
+rows, whose parent is the coarse capacity, are dropped.
 """
 
 from __future__ import annotations
@@ -52,13 +57,19 @@ def sparse_conv(feats, weight, nbr_idx, nbr_ok, compute_dtype=None):
 
 
 # from mask3d_tpu/sparse/ops.py:58 _segment_sum_batched
-def _segment_sum_batched(x, parent, coarse_capacity: int):
-    """Per-item segment sum: x [B, N, C], parent [B, N] (== coarse_capacity
-    for dropped rows) -> [B, coarse_capacity, C]."""
-    b, _, c = x.shape
-    out = x.new_zeros((b, coarse_capacity + 1, c))
-    out.scatter_add_(1, parent.long()[..., None].expand(-1, -1, c), x)
-    return out[:, :coarse_capacity]
+def _segment_sum_batched(x, pool: PoolMap, coarse_capacity: int):
+    """Per-item segment sum: x [B, N, C] -> [B, coarse_capacity, C], each
+    coarse row the sum of its children's rows in child-position order (see
+    the module docstring); rows whose parent is coarse_capacity drop. The
+    table of the children's rows is the PoolMap's, built with it."""
+    b, n, c = x.shape
+    rows = pool.child_rows
+    xz = torch.cat([x, x.new_zeros((b, 1, c))], dim=1)  # row n: none
+    out = None
+    for k in range(8):
+        g = torch.gather(xz, 1, rows[..., k, None].expand(-1, -1, c))
+        out = g if out is None else out + g
+    return out
 
 
 def _by_child(x, weight, kidx):
@@ -79,7 +90,7 @@ def sparse_conv_down(feats, weight, pool: PoolMap, coarse_capacity: int,
     feats[b, j] @ weight[kidx(j)]. weight [8, Cin, Cout]."""
     feats, weight = _cast(feats, weight, compute_dtype)
     per_row = _by_child(feats, weight, pool.kidx)
-    return _segment_sum_batched(per_row, pool.parent,
+    return _segment_sum_batched(per_row, pool,
                                 coarse_capacity).to(feats.dtype)
 
 
@@ -98,7 +109,7 @@ def sparse_conv_tr(feats_coarse, weight, pool: PoolMap, fine_valid,
 def avg_pool(x, pool: PoolMap, coarse_capacity: int):
     """Stride-2 mean over the present children: [B, N_fine, C] ->
     [B, N_coarse, C]."""
-    s = _segment_sum_batched(x, pool.parent, coarse_capacity)
+    s = _segment_sum_batched(x, pool, coarse_capacity)
     denom = pool.nchild.clamp(min=1).to(s.dtype)[..., None]
     return (s / denom).to(x.dtype)
 

@@ -9,8 +9,11 @@ It is differentiable in src (`RowGather`): the backward is the JAX
 package's (`pallas_gather.py:216-222`), an f32 scatter-add of the output
 cotangent at idx where ok, in plain PyTorch on both devices. The scatter is
 `index_put_(accumulate=True)`, whose CUDA implementation sums in a fixed
-order: every padding row clamps onto one source row, and a run must repeat
-bitwise.
+order, so a run repeats bitwise. It adds the entries of one index one after
+another, so the entries where not ok (zeros) are spread over every row, one
+a row in turn, rather than clamped onto one: a run of equal indices as long
+as the padding (hundreds of thousands of entries at a building's level 0)
+would serialize the scatter.
 """
 
 from __future__ import annotations
@@ -93,17 +96,18 @@ def _forward(src, idx, ok):
 
 def scatter_add_rows(g, idx, ok, n_rows: int, out=None):
     """f32 [B, n_rows, C]: the rows g[b, t] added at idx[b, t] where
-    ok[b, t] (the masking comes first: idx is clamped where not ok), with
-    a deterministic scatter, into `out` where given (in place), else into
-    zeros."""
-    b, _, c = g.shape
+    ok[b, t] (the masking comes first: a zero is added at row t mod n_rows
+    where not ok), with a deterministic scatter, into `out` where given (in
+    place), else into zeros."""
+    b, m, c = g.shape
     if out is None:
         out = torch.zeros((b, n_rows, c), dtype=torch.float32,
                           device=g.device)
     contrib = torch.where(ok[..., None], g.float(), 0.0)
+    spread = torch.arange(m, device=g.device) % n_rows
+    rows = torch.where(ok, idx.long().clamp(0, n_rows - 1), spread)
     b_idx = torch.arange(b, device=g.device)[:, None].expand_as(idx)
-    out.index_put_((b_idx, idx.long().clamp(0, n_rows - 1)), contrib,
-                   accumulate=True)
+    out.index_put_((b_idx, rows), contrib, accumulate=True)
     return out
 
 

@@ -14,7 +14,15 @@ the forward of the JAX package's `SetCriterion`
   batch is its slice of the global one: the mask and dice losses are sums
   over items and need nothing, and the CE divides by the GLOBAL weight sum
   (`ce_denominators`), so the ranks' losses and gradients sum to the
-  global batch's.
+  global batch's;
+- under sequence parallelism the train-mode model's masks are this sp
+  rank's chunk of the points (`Mask3DOutput.chunks`): the targets' masks
+  and the point validity are sliced to it, and every sum over points is
+  summed over `sp` before it is used: the matching costs' (no gradient:
+  every rank solves the same problems and gets the same assignment), and
+  the losses' in one `comm.sum_partials` (the sum forward, the gradient as
+  it is backward), so each rank's loss is the one-process loss and its
+  gradient of its mask logits is theirs.
 
 The costs of all L levels are computed on the device, and one call of
 `ops/lsap.py` solves every (level x item) problem: with
@@ -28,6 +36,7 @@ losses are plain tensor code, so autograd can differentiate them.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -43,13 +52,11 @@ from mask3d_tpu_torch.parallel.mesh import dp_coords
 _INVALID_COST = 1e4  # column-constant cost for padded instances (fp32-safe)
 
 
-# from mask3d_tpu/train/criterion.py:37 batch_sigmoid_ce_cost
-def batch_sigmoid_ce_cost(logits, tgt, point_valid):
-    """Pairwise mean-BCE cost [B, Q, I].
-
-    logits: [B, N, Q]; tgt: bool[B, I, N]; point_valid: bool[B, N]. The mean
-    is over the item's true point count.
-    """
+# from mask3d_tpu/train/criterion.py:37 batch_sigmoid_ce_cost, as its sums
+# over points and the mean formed from them
+def _bce_cost_sums(logits, tgt, point_valid):
+    """Pairwise BCE summed over points [B, Q, I] and the point count [B].
+    logits: [B, N, Q]; tgt: bool[B, I, N]; point_valid: bool[B, N]."""
     x = logits.float()
     pv = point_valid.float()[..., None]  # [B, N, 1]
     # BCE(x, 1) = softplus(-x); BCE(x, 0) = softplus(x)
@@ -58,19 +65,44 @@ def batch_sigmoid_ce_cost(logits, tgt, point_valid):
     t = tgt.float()
     ce = torch.einsum("bnq,bin->bqi", pos, t) + torch.einsum(
         "bnq,bin->bqi", neg * pv, (1.0 - t) * point_valid.float()[:, None])
-    n = pv.sum(dim=(1, 2)).clamp(min=1.0)
-    return ce / n[:, None, None]
+    return ce, pv.sum(dim=(1, 2))
 
 
-# from mask3d_tpu/train/criterion.py:57 batch_dice_cost
-def batch_dice_cost(logits, tgt, point_valid):
-    """Pairwise dice cost [B, Q, I]."""
+def _bce_cost(ce, n):
+    """The pairwise mean-BCE cost over the item's true point count."""
+    return ce / n.clamp(min=1.0)[:, None, None]
+
+
+# from mask3d_tpu/train/criterion.py:57 batch_dice_cost, likewise
+def _dice_cost_sums(logits, tgt, point_valid):
+    """(sum of p * t [B, Q, I], of p [B, Q], of t [B, I]) over points."""
     pv = point_valid.float()
     p = torch.sigmoid(logits.float()) * pv[..., None]
     t = tgt.float() * pv[:, None]
-    num = 2.0 * torch.einsum("bnq,bin->bqi", p, t)
-    den = p.sum(dim=1)[:, :, None] + t.sum(dim=-1)[:, None, :]
+    return torch.einsum("bnq,bin->bqi", p, t), p.sum(dim=1), t.sum(dim=-1)
+
+
+def _dice_cost(pt, psum, tsum):
+    """The pairwise dice cost [B, Q, I]."""
+    num = 2.0 * pt
+    den = psum[:, :, None] + tsum[:, None, :]
     return 1.0 - (num + 1.0) / (den + 1.0)
+
+
+def _invert(col4row, matched, n_inst: int):
+    """(the query serving each target instance [B, I], whether one does):
+    columns are assigned at most once; unmatched queries write to the
+    dropped extra column."""
+    b, q = col4row.shape
+    dev = col4row.device
+    rows = torch.arange(q, device=dev)[None].expand(b, q)
+    write_col = torch.where(matched, col4row,
+                            torch.full_like(col4row, n_inst))
+    inv = torch.zeros(b, n_inst + 1, dtype=torch.long, device=dev
+                      ).scatter(1, write_col, rows)[:, :n_inst]
+    has = torch.zeros(b, n_inst + 1, dtype=torch.bool, device=dev
+                      ).scatter(1, write_col, True)[:, :n_inst]
+    return inv, has
 
 
 # from mask3d_tpu/train/criterion.py:67 SetCriterion
@@ -104,10 +136,11 @@ class SetCriterion:
 
     # ---- matching ----
 
-    def match_costs(self, pred_class, pred_masks, targets: Targets,
-                    point_valid):
+    def match_costs(self, pred_class, targets: Targets, sums):
         """One level's matching cost [B, Q, I]. pred_class [B, Q, C+1];
-        pred_masks [B, N, Q]."""
+        `sums`: the level's sums over points of its mask costs
+        (`mask_cost_sums`), over every rank that holds points."""
+        ce, n, pt, psum, tsum = sums
         prob = torch.softmax(pred_class.float(), dim=-1)
         b, q = prob.shape[:2]
         safe_labels = targets.labels.long().clamp(0, self.num_classes)
@@ -115,14 +148,22 @@ class SetCriterion:
         cost_class = -torch.gather(
             prob, -1, safe_labels[:, None, :].expand(b, q, -1))
         cost = (
-            self.cost_mask * batch_sigmoid_ce_cost(pred_masks, targets.masks,
-                                                   point_valid)
+            self.cost_mask * _bce_cost(ce, n)
             + self.cost_class * cost_class
-            + self.cost_dice * batch_dice_cost(pred_masks, targets.masks,
-                                               point_valid)
+            + self.cost_dice * _dice_cost(pt, psum, tsum)
         )
         return torch.where(targets.valid[:, None, :], cost,
                            torch.full_like(cost, _INVALID_COST))
+
+    @staticmethod
+    def mask_cost_sums(pred_masks, targets: Targets, point_valid):
+        """A level's sums over points of the mask costs, without gradient:
+        [BCE sums [B, Q, I], point count [B], sum of p * t [B, Q, I], of p
+        [B, Q], of t [B, I]]."""
+        with torch.no_grad():
+            return [*_bce_cost_sums(pred_masks, targets.masks, point_valid),
+                    *_dice_cost_sums(pred_masks, targets.masks,
+                                     point_valid)]
 
     # from mask3d_tpu/train/criterion.py:99 match
     def match(self, costs, targets: Targets):
@@ -170,41 +211,36 @@ class SetCriterion:
         nll = -torch.gather(logp, -1, tgt_cls[..., None])[..., 0]
         return (nll * w).sum() / den.clamp(min=1e-8)
 
-    # from mask3d_tpu/train/criterion.py:154 loss_masks
-    def loss_masks(self, pred_masks, targets: Targets, col4row, matched,
-                   point_valid):
-        """Per-item matched BCE + dice."""
-        # Invert the assignment: the query serving each target instance
-        # (columns are assigned at most once; unmatched queries write to
-        # the dropped extra column).
-        b, q = col4row.shape
-        n_inst = targets.labels.shape[-1]
-        dev = col4row.device
-        rows = torch.arange(q, device=dev)[None].expand(b, q)
-        write_col = torch.where(matched, col4row,
-                                torch.full_like(col4row, n_inst))
-        inv = torch.zeros(b, n_inst + 1, dtype=torch.long, device=dev
-                          ).scatter(1, write_col, rows)[:, :n_inst]
-        has = torch.zeros(b, n_inst + 1, dtype=torch.bool, device=dev
-                          ).scatter(1, write_col, True)[:, :n_inst]
-
+    # from mask3d_tpu/train/criterion.py:154 loss_masks, as its sums over
+    # points and the losses formed from them
+    @staticmethod
+    def mask_loss_sums(pred_masks, targets: Targets, col4row, matched,
+                       point_valid):
+        """A level's sums over points of the matched pairs' losses: [B, I,
+        4] (BCE, p * t, p, t) and the point count [B, 1]."""
+        inv, _ = _invert(col4row, matched, targets.labels.shape[-1])
         # each matched query's mask logits: [B, I, N]
         pm = pred_masks.float().transpose(1, 2)  # [B, Q, N]
         pred_m = torch.gather(pm, 1, inv[..., None].expand(-1, -1,
                                                            pm.shape[-1]))
         tgt_m = targets.masks.float()
-
-        pair_ok = (has & targets.valid).float()  # [B, I]
         pv = point_valid.float()[:, None, :]  # [B, 1, N]
-        npts = pv.sum(dim=-1).clamp(min=1.0)  # [B, 1]
-
         bce = F.softplus(pred_m) - pred_m * tgt_m  # elementwise BCE
-        bce = (bce * pv).sum(dim=-1) / npts  # [B, I] mean over points
-
         p = torch.sigmoid(pred_m) * pv
         t = tgt_m * pv
-        num = 2.0 * (p * t).sum(dim=-1)
-        den = p.sum(dim=-1) + t.sum(dim=-1)
+        sums = torch.stack([(bce * pv).sum(dim=-1), (p * t).sum(dim=-1),
+                            p.sum(dim=-1), t.sum(dim=-1)], dim=-1)
+        return sums, pv.sum(dim=-1)
+
+    @staticmethod
+    def mask_losses(sums, npts, targets: Targets, col4row, matched):
+        """(loss_mask, loss_dice) of a level from `mask_loss_sums`: per-item
+        matched BCE + dice."""
+        _, has = _invert(col4row, matched, targets.labels.shape[-1])
+        pair_ok = (has & targets.valid).float()  # [B, I]
+        bce = sums[..., 0] / npts.clamp(min=1.0)  # [B, I] mean over points
+        num = 2.0 * sums[..., 1]
+        den = sums[..., 2] + sums[..., 3]
         dice = 1.0 - (num + 1.0) / (den + 1.0)  # [B, I]
 
         # the normalizer is the item's ground-truth instance count
@@ -224,26 +260,49 @@ class SetCriterion:
         gradient accumulation over K micro-batches passes 1/K, since the
         mask and dice losses are sums over items and CE is a batch mean.
         Only the matching costs are detached; the losses keep their
-        graph."""
+        graph. With `output.chunks` (train mode under sp) the masks are this
+        rank's chunk of the points: see the module docstring."""
         n_levels = output.aux_pred_class.shape[0]
         if output.aux_pred_masks.shape[0] != n_levels:
             raise ValueError(
                 f"{n_levels} class outputs but "
                 f"{output.aux_pred_masks.shape[0]} mask outputs: run the "
                 "model with aux_masks=True")
+        chunks = output.chunks
+        if chunks is not None:  # this rank's chunk of the points
+            n = point_valid.shape[1]
+            point_valid = chunks.take(point_valid, n)
+            targets = dataclasses.replace(
+                targets, masks=chunks.take(targets.masks, n, dim=2))
+        cost_sums = [self.mask_cost_sums(pm, targets, point_valid)
+                     for pm in output.aux_pred_masks]
+        if chunks is not None:
+            comm.flat_all_reduce([t for s in cost_sums for t in s],
+                                 chunks.group, "criterion_costs")
         costs = torch.stack([
-            self.match_costs(pc, pm, targets, point_valid)
-            for pc, pm in zip(output.aux_pred_class, output.aux_pred_masks)])
+            self.match_costs(pc, targets, s)
+            for pc, s in zip(output.aux_pred_class, cost_sums)])
         col4row, matched = self.match(costs, targets)
         tgt_cls, w = self.ce_weights(targets, col4row, matched)
         den = self.ce_denominators(w)
+        parts = [self.mask_loss_sums(pm, targets, c4r, m, point_valid)
+                 for pm, c4r, m in zip(output.aux_pred_masks, col4row,
+                                       matched)]
+        sums = torch.stack([p[0] for p in parts])  # [L, B, I, 4]
+        npts = parts[0][1]  # [B, 1], the same at every level
+        if chunks is not None:
+            flat = comm.sum_partials(
+                torch.cat([sums.reshape(-1), npts.reshape(-1)]),
+                chunks.group, "criterion_losses")
+            sums = flat[:sums.numel()].view_as(sums)
+            npts = flat[sums.numel():].view_as(npts)
         per_level = torch.stack([
             torch.stack([
                 self.loss_labels(pc, tc, wl, dl),
-                *self.loss_masks(pm, targets, c4r, m, point_valid)])
-            for pc, pm, c4r, m, tc, wl, dl in zip(
-                output.aux_pred_class, output.aux_pred_masks, col4row,
-                matched, tgt_cls, w, den)])  # [L, 3]
+                *self.mask_losses(sl, npts, targets, c4r, m)])
+            for pc, sl, c4r, m, tc, wl, dl in zip(
+                output.aux_pred_class, sums, col4row, matched, tgt_cls, w,
+                den)])  # [L, 3]
 
         losses: Dict[str, torch.Tensor] = {
             "loss_ce": per_level[-1, 0],

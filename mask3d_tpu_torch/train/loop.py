@@ -161,21 +161,26 @@ def split_batch(batch: DeviceBatch, k: int):
 
 
 def grad_groups(model: Mask3D):
-    """(parameters whose gradients are partial over `sp`, every trained
-    parameter): the backbone sees one x-slab a sp rank; the decoder, the
-    heads and the query MLP compute the same loss whole on every sp rank,
-    so their gradients are complete and are not summed over `sp`."""
+    """(parameters whose gradients are a rank's share under `sp`, every
+    trained parameter): those that read a level's rows
+    (`Mask3D.sp_partial_parameters`: the backbone, on its x-slabs or whole
+    with this rank's chunk of its rows taken, the mask-feature head and the
+    memories' projections) see this rank's rows only. The rest of the
+    decoder, the heads and the query MLPs get complete gradients on every
+    rank (`parallel/comm.py`'s entry Function sums the rank-partial work's
+    gradients of the queries and `mask_embed`) and are not summed."""
     params = [p for p in model.parameters() if p.requires_grad]
-    bb = {id(p) for p in model.backbone.parameters()}
-    return [p for p in params if id(p) in bb], params
+    rows = {id(p) for p in model.sp_partial_parameters()}
+    return [p for p in params if id(p) in rows], params
 
 
 def sync_gradients(model: Mask3D, sp_axis=None):
     """Sum the gradients over the active mesh (no-op without one): the
-    backbone's over `sp` when `sp_axis` shards it, then every parameter's
-    over `dp`, each as one flat all-reduce in parameter order (summed, not
-    averaged: the mask and dice losses are sums over items and the CE
-    divides by the global weight sum)."""
+    row-reading parameters' over `sp` when `sp_axis` shards the rows
+    (`grad_groups`), then every parameter's over `dp`, each as one flat
+    all-reduce in parameter order (summed, not averaged: the mask and dice
+    losses are sums over items and the CE divides by the global weight
+    sum)."""
     mesh = active_mesh()
     if mesh is None:
         return
@@ -252,8 +257,13 @@ def make_train_step(cfg, criterion: SetCriterion, device="cuda"):
         losses["loss"].backward()  # sums into .grad over micro-batches
         losses = {k: v.detach() for k, v in losses.items()}
         losses["batch_overflow"] = sb.any_overflow().to(torch.int32)
-        preds = ((out.pred_class.detach(), out.pred_masks.detach())
-                 if return_preds else None)
+        preds = None
+        if return_preds:
+            masks = out.pred_masks.detach()
+            if out.chunks is not None:  # this sp rank's rows: made whole
+                masks = out.chunks.gather(masks, sb.levels[0].capacity,
+                                          name="train_preds")
+            preds = (out.pred_class.detach(), masks)
         return losses, preds
 
     def train_step(state: TrainState, batch: DeviceBatch

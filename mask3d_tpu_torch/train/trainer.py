@@ -12,7 +12,16 @@ rank draws the same epoch order and collates its slice of each global
 batch, padded to the shapes the ranks share; the train step sums the
 gradients and losses over the ranks; validation and test gather the
 post-processed items to rank 0 in global order, which runs the evaluator;
-only rank 0 writes the config, checkpoints and metrics. `backbone_impl=bricked`
+only rank 0 writes the config, checkpoints and metrics.
+
+Sequence parallelism: a trainer built under an active (dp, sp) mesh
+(`use_mesh(make_mesh_2d(n_dp, n_sp))`, the counterpart of fitting the JAX
+package under `jax.sharding.set_mesh(make_mesh_2d(...))`) trains and
+evaluates on that mesh, with `model.sp_axis` sharding each level's rows
+over `sp`: `trainer.num_data_parallel` counts the global ranks (n_dp x
+n_sp), the sp ranks of a dp index collate the same slice of each batch, and
+the train step gathers the train-split predictions whole
+(`train/loop.py`). `backbone_impl=bricked`
 trains on micro-batches of one scene (`data.batch_size` equal to
 `trainer.grad_accum_steps`), evaluates at `data.test_batch_size=1` and
 raises on an eval batch whose bricks or levels overflowed. A run directory
@@ -42,8 +51,8 @@ from mask3d_tpu_torch.device import resolve_device
 from mask3d_tpu_torch.evalm import Mask3DEvaluator
 from mask3d_tpu_torch.infer import make_eval_step
 from mask3d_tpu_torch.parallel import dist
-from mask3d_tpu_torch.parallel.mesh import make_mesh, replicate, \
-    state_tensors, use_mesh
+from mask3d_tpu_torch.parallel.mesh import active_mesh, make_mesh, \
+    replicate, state_tensors, use_mesh
 from mask3d_tpu_torch.postprocess import postprocess_item
 from mask3d_tpu_torch.train import checkpoint as ckpt
 from mask3d_tpu_torch.train.criterion import make_criterion
@@ -106,8 +115,11 @@ class InstanceSegmentationTrainer:
         self.is_main = dist.is_main_process()
         self.device = (dist.local_device(device) if world > 1
                        else resolve_device(device))
-        # a 1-D dp mesh over the ranks (None in one process)
-        self.mesh = make_mesh(world) if world > 1 else None
+        # the caller's active (dp, sp) mesh, else a 1-D dp mesh over the
+        # ranks (None in one process)
+        self.mesh = active_mesh()
+        if self.mesh is None and world > 1:
+            self.mesh = make_mesh(world)
         if cfg.trainer.debug_nans:
             # the JAX package's jax_debug_nans: raise where the backward
             # makes a NaN
@@ -199,56 +211,62 @@ class InstanceSegmentationTrainer:
         """The split's batches: with `shuffle`, an order drawn from the
         config-seeded generator (the JAX package's order under the same
         seed), `general.reps_per_epoch` times. Under data parallelism every
-        rank draws the same order and collates its contiguous slice of each
-        global batch (`dist.local_batch_indices`); a batch that does not
-        split evenly over the ranks raises. (The JAX package's multi-host
+        rank draws the same order and collates its dp index's contiguous
+        slice of each global batch (`dist.local_batch_indices`; the sp
+        ranks of a dp index the same slice); a batch that does not split
+        evenly over the dp ranks raises. (The JAX package's multi-host
         path collates a ragged batch whole on every host, so each of its
         items counts once a host: ROADMAP Queue 3.)"""
         ds = self.datasets[split]
         order = np.arange(len(ds))
         if shuffle:
             self._rng.shuffle(order)
-        pc = dist.process_count()
+        n_dp = 1 if self.mesh is None else self.mesh.n_dp
         for _rep in range(self.cfg.general.reps_per_epoch if shuffle else 1):
             for s in range(0, len(order), batch_size):
                 idxs = order[s:s + batch_size]
-                if pc > 1:
-                    if len(idxs) % pc:
+                if n_dp > 1:
+                    if len(idxs) % n_dp:
                         raise ValueError(
                             f"a {split} batch of {len(idxs)} scenes does not"
-                            f" split over the world size {pc}: make "
+                            f" split over the {n_dp} dp ranks: make "
                             f"data.batch_size ({batch_size} here for "
                             f"{split}) and the split's size multiples of "
-                            f"{pc}")
-                    idxs = dist.local_batch_indices(idxs)
+                            f"{n_dp}")
+                    idxs = dist.local_batch_indices(
+                        idxs, self.mesh.dp_rank, n_dp)
                 yield self.collate([ds[int(i)] for i in idxs])
 
     def _to_device(self, host: HostBatch):
         """The batch's one host-to-device copy, on the caller's thread;
         under data parallelism padded first to the shapes the ranks share
         (`dist.put_global`)."""
-        if self.mesh is not None:
+        if self.mesh is not None and self.mesh.dp_group is not None:
             return dist.put_global(host, self.device, self.mesh.dp_group)[1]
         return host.device.to(self.device)
 
     def _evaluate(self, preds, targets, prefix):
         """The evaluator's metrics of one batch (its `<prefix>_classes`
-        dropped). Under data parallelism each rank holds its items: rank 0
-        gathers them in global item order, evaluates, and every rank gets
-        its metrics, which equal the one-process run's."""
-        if self.mesh is None:
+        dropped). Under data parallelism each rank holds its dp index's
+        items: dp index 0 of its dp group gathers them in global item
+        order, evaluates, and every rank gets its metrics, which equal the
+        one-process run's. The sp ranks of a dp index hold the same whole
+        predictions and evaluate them alike."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp_group is None:
             m = self.evaluator.evaluate(preds, targets, prefix)
         else:
-            group = self.mesh.dp_group
-            parts = [None] * dist.process_count() if self.is_main else None
-            torch.distributed.gather_object((preds, targets), parts, dst=0,
-                                            group=group)
+            group, lead = mesh.dp_group, mesh.dp_rank == 0
+            head = mesh.sp_rank  # the global rank of dp index 0
+            parts = [None] * mesh.n_dp if lead else None
+            torch.distributed.gather_object((preds, targets), parts,
+                                            dst=head, group=group)
             m = [None]
-            if self.is_main:
+            if lead:
                 m[0] = self.evaluator.evaluate(
                     [p for part in parts for p in part[0]],
                     [t for part in parts for t in part[1]], prefix)
-            torch.distributed.broadcast_object_list(m, src=0, group=group)
+            torch.distributed.broadcast_object_list(m, src=head, group=group)
             m = m[0]
         m.pop(f"{prefix}_classes", None)
         return m

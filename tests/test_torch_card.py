@@ -2,7 +2,9 @@
 card against the CPU, and `cli test --device cuda` against `--device cpu`
 on a small data root; the int8 conv past 384 outputs and the attention's
 partial form against their plain versions (the CPU side of both:
-tests/test_torch_int8_bottleneck.py, tests/test_torch_sp_model.py).
+tests/test_torch_int8_bottleneck.py, tests/test_torch_sp_model.py); the
+gather paths' segment sums bitwise from call to call without
+deterministic mode.
 Imports nothing of the JAX package, which the card's machine cannot
 import."""
 
@@ -163,3 +165,43 @@ def test_attention_partial_kernel_and_combine(s):
         mask[:, :, a:b].contiguous(), 8) for a, b in ((0, h), (h, s))]
     got = ma.combine_partial_softmax(*zip(*parts), 8)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_segment_sums_bitwise_without_deterministic_mode():
+    """The gather paths' segment sums (`sparse.ops._segment_sum_batched`,
+    the stride-2 convs and the average pools) add each coarse row's
+    children in a fixed order on the card: two calls on a collated batch's
+    pooling map are bitwise equal with
+    `torch.use_deterministic_algorithms(False)`, and within 1e-5 of a
+    float64 sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch.infer import level_capacities
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+    from mask3d_tpu_torch.sparse.ops import _segment_sum_batched
+
+    cfg = mt.apply_overrides(mt.Config(), SMALL)
+    dev = mt.collate(_scenes(2), device="cuda",
+                     point_bucket_multiple=512).device
+    sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                            level_capacities(cfg, dev.capacity),
+                            dev.grid_dims, build_pool_parents=True)
+    pool, cap = sb.pools[0], sb.levels[1].capacity
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(tuple(pool.parent.shape) + (96,), device="cuda",
+                    generator=g)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        first = _segment_sum_batched(x, pool, cap)
+        again = _segment_sum_batched(x, pool, cap)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(first, again)
+    b, _, c = x.shape
+    ref = torch.zeros((b, cap + 1, c), dtype=torch.float64)
+    ref.scatter_add_(1, pool.parent.long().cpu()[..., None].expand(-1, -1, c),
+                     x.double().cpu())
+    assert float((first.double().cpu() - ref[:, :cap]).abs().max()) <= 1e-5

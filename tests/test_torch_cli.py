@@ -180,11 +180,24 @@ def test_cli_forms_and_refusals(tmp_path, monkeypatch):
                   f"trainer.coordinator_address=localhost:{cli._free_port()}",
                   f"general.save_dir={tmp_path}"])
     assert not torch.distributed.is_initialized()
-    # sequence parallelism in training shards the dense backbone only (at
-    # inference the other impls shard the decoder's rows)
+    # sequence parallelism trains on every impl (the other impls than
+    # dense run the backbone whole and shard the decoder's rows); without
+    # a mesh it is a no-op: a train forward on gather runs
+    import mask3d_tpu_torch as mt
     from mask3d_tpu_torch.config import Config, apply_overrides
-    from mask3d_tpu_torch.models.mask3d import build_model
-    model = build_model(apply_overrides(Config(), [
-        "model.sp_axis=sp", "model.backbone_impl=gather"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="sp_axis"):
-        model.train()(None, None, None, None)
+    from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+    from tests.torch_parity import scene_items
+
+    cfg = apply_overrides(Config(), SMALL_OVERRIDES + [
+        "model.sp_axis=sp", "model.backbone_impl=gather"])
+    model = mt.build_model(cfg, device="cpu").train()
+    dev = mt.collate(scene_items(n=1), device="cpu",
+                     point_bucket_multiple=512).device
+    sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                            level_capacities(cfg, dev.capacity),
+                            dev.grid_dims, **_sb_kwargs(cfg))
+    out = model(sb, dev.feats, dev.coords.float(), dev.grid_dims,
+                generator=torch.Generator().manual_seed(0))
+    assert out.chunks is None
+    assert bool(torch.isfinite(out.aux_pred_masks).all())

@@ -197,15 +197,15 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
 @pytest.mark.parametrize("override", [
     "model.compute_dtype=float16",
     "model.backbone_impl=gather_pallas model.int8_stride1=true",
-    "model.backbone_impl=gather model.unit_features=true",
-    "train: model.backbone_impl=gather model.sp_axis=sp",
+    "model.backbone_impl=gather_pallas model.pallas_chain=true",
+    "train: model.dropout=0.1",
     "model.backbone_impl=bricked model.int8_stride1=true",
     "model.backbone_impl=gather model.pallas_chain=true"])
 def test_build_model_refuses_unported_options(override):
-    """Options the port has not ported raise instead of being ignored:
-    fp16, the int8 stack off the dense path, unit features on the gather
-    impls, and (in a train forward after `train.loop.init_state`)
-    sequence parallelism on a non-dense impl in training."""
+    """Options the port has not ported, or the JAX package cannot run,
+    raise instead of being ignored: fp16, the int8 stack off the dense path,
+    and (in a train forward after `train.loop.init_state`) dropout, which
+    the JAX package's train step gives no rng."""
     import mask3d_tpu_torch as mt
     from mask3d_tpu_torch.config import Config, apply_overrides
     from tests.torch_parity import SMALL_OVERRIDES
@@ -221,10 +221,10 @@ def test_build_model_refuses_unported_options(override):
     from mask3d_tpu_torch.train.criterion import make_criterion
     from mask3d_tpu_torch.train.loop import init_state, make_train_step
 
-    state = init_state(cfg, device="cpu")  # builds: sp runs at inference
+    state = init_state(cfg, device="cpu")  # builds: it runs at inference
     host = VoxelizeCollate(point_bucket_multiple=512)(_small_scenes(1))
     step = make_train_step(cfg, make_criterion(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="sp_axis in training"):
+    with pytest.raises(NotImplementedError, match="in training"):
         step(state, host.device)
 
 

@@ -178,21 +178,29 @@ def test_sp_axis_without_mesh_is_a_noop():
     "model.backbone_impl=gather", "model.backbone_impl=bricked",
     "model.int8_stride1=true", "model.pallas_chain=true"])
 def test_sp_axis_refuses_other_impls_and_int8(override):
-    """What `model.sp_axis` still refuses: a train forward on another impl
-    than `dense` (such a model builds: at inference only the decoder's rows
-    shard), and the int8 knobs off the dense path (on `dense` they run
-    under sp)."""
+    """What `model.sp_axis` refuses: the int8 knobs off the dense path (on
+    `dense` they run under sp). A train step on `gather` and `bricked`
+    runs with it (under a mesh each sp rank takes its chunk of the
+    backbone's rows, tests/test_torch_sp_train_impls.py); without a mesh
+    sp is a no-op, and the step's losses equal those without `sp_axis`
+    bit for bit."""
     if "backbone_impl" in override:
         from mask3d_tpu_torch.train.criterion import make_criterion
         from mask3d_tpu_torch.train.loop import init_state, make_train_step
 
-        cfg = apply_overrides(Config(), w.SP_OVERRIDES + w.SP + [override])
-        state = init_state(cfg, device="cpu")
         host = VoxelizeCollate(point_bucket_multiple=w.SP_BUCKET)(
             w.sp_items(1))
-        step = make_train_step(cfg, make_criterion(cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="sp_axis"):
-            step(state, host.device)
+        losses = []
+        for sp in (w.SP, []):
+            cfg = apply_overrides(Config(), w.SP_OVERRIDES + sp + [
+                override, "model.brick_dims=[8,8,8]",
+                "model.brick_capacity=64"])
+            state = init_state(cfg, device="cpu")
+            step = make_train_step(cfg, make_criterion(cfg), device="cpu")
+            losses.append(step(state, host.device)[0])
+        assert losses[0].keys() == losses[1].keys()
+        for k, v in losses[0].items():
+            assert torch.equal(v, losses[1][k]), k
         return
     cfg = apply_overrides(Config(), w.SP_OVERRIDES + w.SP + [
         override, "model.backbone_impl=gather"])
@@ -225,7 +233,8 @@ def test_two_rank_fit_writes_once_and_validates_as_one_process(
     one_cfg = apply_overrides(Config(), over[:-1] + [
         f"general.save_dir={tmp_path / 'one'}"])
     one = InstanceSegmentationTrainer(one_cfg, device="cpu")
-    (val0, sd0, run_dir, wrote0), (val1, sd1, _, wrote1) = ranks.results()
+    (val0, sd0, run_dir, wrote0, _), (val1, sd1, _, wrote1, _) = \
+        ranks.results()
     assert wrote1 == [] and wrote0, (wrote0, wrote1)
     assert {os.path.basename(p) for p in wrote0} >= {
         "config.yaml", "metrics.csv", "last-epoch.ckpt.tmp"}

@@ -3,7 +3,8 @@ spawned gloo ranks, against the port's unsharded model and JAX's.
 
 Two sp ranks each hold an x-slab of every level that `sp_min_per_shard`
 shards (levels 0-1 of JAX's scenes' 24-cell grid, 0-2 of the parity
-scenes' 40) and exchange halo planes; the decoder runs whole on both. Held
+scenes' 40) and exchange halo planes; the decoder and the criterion run on
+each rank's chunk of every level's rows. Held
 against the one-process port on the same seeded weights:
 - the eval forward with the InstanceNorm stubbed to `x * occ` (the
   counterpart of `test_dp_sp_backbone_exact_with_identity_norm`, JAX's
@@ -126,8 +127,8 @@ def test_sp_forward_matches_jax_unsharded(runs, out):
 @pytest.mark.parametrize("norm", ["identity", "norm"])
 def test_sp_train_step_leaves_match_unsharded(runs, norm):
     """Both sp ranks hold every gradient leaf of the unsharded step: the
-    backbone's partial gradients summed over sp, the decoder's complete
-    and not summed."""
+    row-reading parameters' partial gradients summed over sp, the rest of
+    the decoder's complete and not summed."""
     ref = runs["ref"][f"step_{norm}"]
     for rank, r in enumerate(runs["sp"]):
         got = r[f"step_{norm}"]

@@ -1,5 +1,5 @@
 """`model.sp_axis` on every backbone and knob, and the decoder's rows
-sharded over `sp` at inference, on spawned gloo ranks (two sp ranks, one
+sharded over `sp`, on spawned gloo ranks (two sp ranks, one
 torch thread each), against the one-process port and the JAX package.
 
 `SpBottleneckSE` (tests/torch_dist_worker.py: Res16UNet50's bottleneck
@@ -32,7 +32,8 @@ XLA, tests/test_torch_bottleneck.py:jax_bf16_conv) within JAX's bounds.
 The sharded-row decoder (Res16UNet14A, the norm stubbed) against the
 one-process port: within IDENTITY_TOL; each rank's squeezed memories hold
 only its chunk of each level's rows, and the rows' collectives move less
-than the all-reduce of whole rows that a train-mode forward still runs.
+than an all-reduce of the whole rows would (the reduce-scatters' inputs),
+in eval and in train mode.
 `combine_partial_softmax` against the one-shot plain attention within
 COMBINE_TOL, chunks fully masked for a query and all-padding chunks
 included (the kernel's partial form on the card: tests/test_torch_card.py,
@@ -85,7 +86,7 @@ CASES = {
     "int8_static_identity": (INT8_STATIC, True, "parity", 2, False),
     "int8_static": (INT8_STATIC, False, "parity", 2, False),
     "rows": (w.SP_OVERRIDES, True, "parity", 2, False),
-    # train mode: the decoder's rows whole on every rank (their all-reduce)
+    # train mode: the decoder's rows in chunks too (sampled memories)
     "train_rows": (w.SP_OVERRIDES, False, "parity", 2, True),
     "gather": (w.SP_OVERRIDES + ["model.backbone_impl=gather"], False,
                "parity", 2, False),
@@ -235,17 +236,23 @@ DECODER_ROWS = ("rows", "attention_partials", "minmax", "unblock",
 def test_sharded_rows_move_fewer_bytes_than_the_all_reduce(runs):
     """The decoder's row collectives (`comm.BYTES`, this rank's payload:
     the chunks its reduce-scatter sends, its softmax partials, min/max and
-    any reductions, its chunk of the output masks) against the
-    all-reduce of whole rows, which a train-mode forward of the same model
-    still runs; on `gather` the backbone runs whole, so no rows move from
-    slabs."""
+    any reductions, its chunk of the output masks) against an all-reduce
+    of the whole rows, whose payload is the reduce-scatters' inputs, in
+    the eval forward and in the train-mode one, whose reduce-scatters move
+    the same rows; on `gather` the
+    backbone runs whole, so no rows move from slabs."""
     for r in runs["sp"]:
-        whole = r["train_rows"][3]["bytes"]
-        sharded = r["rows"][3]["bytes"]
-        assert "attention_partials" not in whole and whole["rows"] > 0
-        assert sharded["attention_partials"] > 0
-        moved = sum(sharded.get(k, 0) for k in DECODER_ROWS)
-        assert moved < whole["rows"], (moved, whole["rows"])
+        for case in ("rows", "train_rows"):
+            rec = r[case][3]
+            sharded = rec["bytes"]
+            assert sharded["attention_partials"] > 0
+            assert rec["whole_rows"] > sharded["rows"] > 0
+            moved = sum(sharded.get(k, 0) for k in DECODER_ROWS)
+            assert moved < rec["whole_rows"], (case, moved,
+                                               rec["whole_rows"])
+        assert r["train_rows"][3]["bytes"]["rows"] == \
+            r["rows"][3]["bytes"]["rows"]
+        assert r["train_rows"][3]["whole_rows"] == r["rows"][3]["whole_rows"]
         gather = r["gather"][3]["bytes"]
         assert "rows" not in gather and gather["attention_partials"] > 0
 

@@ -149,10 +149,12 @@ def forward(rank, world, overrides, weights, n_dp, n_sp, identity=False,
     `scenes_of(items, n_items)`, rank (d, s) of an (n_dp, n_sp) mesh taking
     its dp rows; under sp the backbone's stride-1 rows (each rank's chunk)
     are gathered whole. `train` runs the forward in train mode instead
-    (whole decoder rows on every sp rank, the memories sampled from a
-    seeded generator). With `record`, a fourth entry: the bytes of each
-    collective of the forward (`comm.BYTES`) and the rows each squeezed
-    memory and the mask-feature head took."""
+    (the memories sampled from a seeded generator; its masks, each rank's
+    chunk of the rows, are gathered whole). With `record`, a fourth entry:
+    the bytes of each collective of the forward (`comm.BYTES`), the rows
+    each squeezed memory and the mask-feature head took, and `whole_rows`,
+    the bytes an all-reduce of the rows that the reduce-scatters split
+    would carry (their inputs' sizes)."""
     from mask3d_tpu_torch import build_model, collate, infer
     from mask3d_tpu_torch.parallel import comm, make_mesh_2d, shard_batch, \
         use_mesh
@@ -175,29 +177,45 @@ def forward(rank, world, overrides, weights, n_dp, n_sp, identity=False,
             and None))
     mesh = make_mesh_2d(n_dp, n_sp)
     comm.reset_bytes()
-    with use_mesh(mesh), norm_stub(identity), \
-            torch.backends.mkldnn.flags(enabled=False):
-        out, _ = infer(model, shard_batch(host.device, mesh), cfg,
-                       device="cpu",
-                       generator=torch.Generator().manual_seed(0))
-        chunks = None if train else row_chunks(cfg.model.sp_axis)
-        n = out.pred_masks.shape[1]
-        if chunks is not None and maps[0].shape[1] < n:  # dense: a chunk
-            maps[0] = chunks.gather(maps[0], n)
+    whole_rows = [0]
+    real_rs = comm.reduce_scatter_rows
+
+    def reduce_scatter_rows(x, bounds, group, name="rows"):
+        whole_rows[0] += x.numel() * x.element_size()
+        return real_rs(x, bounds, group, name)
+
+    comm.reduce_scatter_rows = reduce_scatter_rows
+    try:
+        with use_mesh(mesh), norm_stub(identity), \
+                torch.backends.mkldnn.flags(enabled=False):
+            batch = shard_batch(host.device, mesh)
+            out, _ = infer(model, batch, cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+            chunks = row_chunks(cfg.model.sp_axis)
+            n = batch.capacity
+            masks = out.pred_masks
+            if out.chunks is not None:  # train mode: this rank's rows
+                masks = out.chunks.gather(masks, n)
+            if chunks is not None and maps[0].shape[1] < n:  # dense: a chunk
+                maps[0] = chunks.gather(maps[0], n)
+    finally:
+        comm.reduce_scatter_rows = real_rs
     for h in hooks:
         h.remove()
-    res = (out.pred_class.numpy(), out.pred_masks.numpy(),
-           maps[0].float().numpy())
-    return res + (dict(bytes=dict(comm.BYTES), rows=rows),) if record \
-        else res
+    res = (out.pred_class.numpy(), masks.numpy(), maps[0].float().numpy())
+    return res + (dict(bytes=dict(comm.BYTES), rows=rows,
+                       whole_rows=whole_rows[0]),) if record else res
 
 
 def train_step(rank, world, overrides, weights, n_dp, n_sp, items="sp",
-               identity=False, local_ce=False, n_items=None):
+               identity=False, local_ce=False, n_items=None, uniforms=None):
     """(losses, {name: grad}, {name: parameter after the update}, the
     batch's shape, this rank's CE weight sums by level) of one train step,
     rank (d, s) of an (n_dp, n_sp) mesh on its dp rows of the batch.
-    `local_ce` plants a fault: the CE normaliser left local."""
+    `local_ce` plants a fault: the CE normaliser left local. `uniforms`: a
+    numpy seed; the sampled memories' `torch.rand` draws then come from
+    `np.random.default_rng(uniforms)` in call order (the draws that
+    tests/test_torch_train_step.py:Uniforms hands JAX)."""
     from mask3d_tpu_torch import collate
     from mask3d_tpu_torch.parallel import dist, make_mesh_2d, use_mesh
     from mask3d_tpu_torch.train.criterion import make_criterion
@@ -227,7 +245,15 @@ def train_step(rank, world, overrides, weights, n_dp, n_sp, items="sp",
 
         criterion.ce_denominators = den
         step = make_train_step(cfg, criterion, device="cpu")
-        losses, _ = step(state, batch)
+        real_rand = torch.rand
+        if uniforms is not None:
+            rng = np.random.default_rng(uniforms)
+            torch.rand = lambda size, *a, device=None, **k: torch.from_numpy(
+                rng.random(size).astype(np.float32)).to(device)
+        try:
+            losses, _ = step(state, batch)
+        finally:
+            torch.rand = real_rand
     # a parameter the step leaves without a gradient reads as zeros
     grads = {k: (np.zeros(p.shape, np.float32) if p.grad is None
                  else p.grad.clone().numpy())
@@ -271,6 +297,52 @@ def port_forwards(rank, world, cases):
     return {name: forward(rank, world, ov, None, 1, 1, ident, items, n,
                           train, record=True)
             for name, (ov, ident, items, n, train) in cases.items()}
+
+
+def sp_train_suite(rank, world, cases, adjoint=False):
+    """The sp=2 train steps of tests/test_torch_sp_train*.py: `cases` maps
+    a name to (overrides, scenes, items, uniforms seed); with `adjoint`,
+    `reduce_scatter_adjoint` under "adjoint"."""
+    out = {name: train_step(rank, world, ov + SP, None, 1, 2, items,
+                            n_items=n, uniforms=seed)
+           for name, (ov, items, n, seed) in cases.items()}
+    if adjoint:
+        out["adjoint"] = reduce_scatter_adjoint(rank, world)
+    return out
+
+
+def port_steps(rank, world, cases):
+    """The one-process steps of `cases` (as `sp_train_suite` takes them,
+    without sp), in a process of their own."""
+    return {name: train_step(rank, world, ov, None, 1, 1, items, n_items=n,
+                             uniforms=seed)
+            for name, (ov, items, n, seed) in cases.items()}
+
+
+def reduce_scatter_adjoint(rank, world, b=2, n=11, c=3):
+    """`comm.reduce_scatter_rows` and its gradient on this rank: x_r and
+    the chunk cotangent g_r drawn from seeds r; returns (<y_r, g_r>,
+    <x_r, dx_r>, max |dx_r - every rank's g_s concatenated|): the sums of
+    the first two over the ranks agree when the backward is the forward's
+    transpose, and the third is 0 when it is the all-gather of the
+    chunks' gradients."""
+    from mask3d_tpu_torch.parallel import comm, make_mesh_2d
+    from mask3d_tpu_torch.parallel.mesh import RowChunks
+
+    mesh = make_mesh_2d(1, world)
+    chunks = RowChunks(mesh.sp_group, rank, world)
+    bounds = chunks.bounds(n)
+
+    def draw(seed, shape):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(
+            seed), dtype=torch.float64)
+
+    x = draw(100 + rank, (b, n, c)).requires_grad_(True)
+    gs = [draw(s, (b, bounds[s + 1] - bounds[s], c)) for s in range(world)]
+    y = comm.reduce_scatter_rows(x, bounds, mesh.sp_group)
+    y.backward(gs[rank])
+    return (float((y * gs[rank]).sum()), float((x * x.grad).sum()),
+            float((x.grad - torch.cat(gs, dim=1)).abs().max()))
 
 
 def grid_suite(rank, world, step_overrides):
@@ -396,13 +468,16 @@ def slab_ops(rank, world, grid=(24, 8, 6), c=5, seed=0):
     return out
 
 
-def fit(rank, world, overrides):
-    """`InstanceSegmentationTrainer.fit()` on this rank, then one more
+def fit(rank, world, overrides, n_sp=1):
+    """`InstanceSegmentationTrainer.fit()` on this rank, the trainer built
+    under a (world / n_sp, n_sp) mesh where n_sp > 1, then one more
     validation on the trained weights: (the validation's metrics, the
     trained state dict, the run directory, the files this rank opened for
-    writing under `general.save_dir`)."""
+    writing under `general.save_dir`, {"train": each epoch's train means,
+    "bytes": the bytes of each collective})."""
     import sys
 
+    from mask3d_tpu_torch.parallel import comm, make_mesh_2d
     from mask3d_tpu_torch.parallel.mesh import use_mesh
     from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
 
@@ -420,10 +495,28 @@ def fit(rank, world, overrides):
     sys.addaudithook(audit)
     # CSV metrics only: importing TensorBoard here loads TensorFlow (~16 s)
     sys.modules["torch.utils.tensorboard"] = None
-    trainer = InstanceSegmentationTrainer(cfg, device="cpu")
+    comm.reset_bytes()
+    with use_mesh(make_mesh_2d(world // n_sp, n_sp) if n_sp > 1 else None):
+        trainer = InstanceSegmentationTrainer(cfg, device="cpu")
+    train = record_train_means(trainer)
     trainer.fit()
     with use_mesh(trainer.mesh):
         val = trainer.eval_epoch("validation")
     return (val, {k: v.detach().clone()
                   for k, v in trainer.model.state_dict().items()},
-            trainer.run_dir, sorted(set(written)))
+            trainer.run_dir, sorted(set(written)),
+            {"train": train, "bytes": dict(comm.BYTES)})
+
+
+def record_train_means(trainer):
+    """The list that each `trainer.train_epoch()` of `fit()` appends its
+    returned epoch means to."""
+    out = []
+    run = trainer.train_epoch
+
+    def train_epoch():
+        out.append(run())
+        return out[-1]
+
+    trainer.train_epoch = train_epoch
+    return out
