@@ -148,8 +148,10 @@ beside this script. Phases:
    validation at test_batch_size 1, then a second epoch resumed from its
    `last-epoch.ckpt`; (e) `cli test` with
    `trainer.measure_model_phases=true`: every `model_forward_*` segment,
-   their sum within PHASE_SUM_TOL of a fenced forward of the same batch;
-   and the attention at the micro-batches' key lengths (B=1).
+   the median of their sum over PHASE_ROUNDS rounds within PHASE_SUM_TOL
+   of the median of fenced forwards of the same batch run in turn with
+   them, and each segment above twice the tolerance, left out of the sum,
+   failing it; and the attention at the micro-batches' key lengths (B=1).
 
 11. `roomformer`, the RoomFormer baseline (`mask3d_tpu_torch/baseline/`,
    plain PyTorch: no kernel of its own): (a) the JAX tests' tiny
@@ -310,6 +312,34 @@ beside this script. Phases:
    eval forward's rows); a slab's int8 conv
    against the whole grid's, bitwise, and with its absmax left unreduced
    over sp (a planted fault) not.
+18. `rehearsal`, the trained-model tools: (a) `train_rehearsal.main` at
+   full width (`Config()`, the JAX tool's overrides, its 48 / 8 / 8 scenes
+   of the mixture, batch 16 as 8 micro-batches of 2 with the backbone
+   recomputed in the backward) for REHEARSAL_EPOCHS epoch with a
+   validation at its end (`trainer.check_val_every_n_epoch=1`, the one
+   override): seconds a step (fenced), steps/s, peak GiB (its own: the
+   card's peak less what earlier phases still hold), the attention,
+   row-gather and LSAP launches around the fit; its three gates read and
+   printed (the loss and mAP@50 gates need hundreds of epochs: printed, not
+   gated), the bitwise restore gated, and a restore with one leaf moved by
+   one ulp (a planted fault) must fail it. (b) A written dataset of
+   DATASCALE_SIZES scenes -> `train_datascale.main` for one epoch (one
+   step of 16 micro-batches of one scene) -> `recert_int8.main` on its
+   `last-epoch.ckpt`: fp32, bf16 and `int8` through `cli test`, finite
+   metrics, the int8 convs counted in the int8 variant, the RECERT lines
+   printed (an untrained model's mAPs are ~0: its pass certifies
+   nothing).
+
+`python3 chip_smoke.py --trained <checkpoint>` runs, in place of the
+phases above, the gates of phases 4 and 5 at full width on trained
+weights (a port checkpoint of `Config()`, as the rehearsal writes):
+`gather` and `gather_pallas` against dense, `bf16` against fp32 and `int8`
+against `bf16`, on phase 3's 8 scenes, printed beside their limits (one
+table, PATH_GATES, holds both). Beside them, two witnesses: each level of
+the gather paths' sparse batch against the dense one's, bitwise, and the
+dense forward with noise of NOISE_SIGMAS planted in the backbone's
+outputs; for each run, the cross-attention masks' flips, query positions
+and first-round keys against the dense forward's, call by call.
 
 Every line also goes to `mask3d_tpu_torch/_build/chip_smoke.log` (the
 first line names it; a traceback that escapes `main()` is written there).
@@ -363,6 +393,9 @@ GATHER_BY_DTYPE = {"bfloat16": 9, "float32": 4}
 # sound reading and the planted faults' (PERF.md)
 BF16_STACK_MEAN = 0.1
 INT8_PATH_MEAN = 0.25
+# `--trained`'s witness: noise planted in the dense backbone's outputs, the
+# size of fp32 `gather`'s mean and max map differences on trained weights
+NOISE_SIGMAS = (2e-6, 4e-5)
 STAGE_OF_MAP = (4, 5, 6, 7, 8)  # the stage whose output each map taps
 # the test entry: 16 test scenes (two batches of 8) and one scene of each
 # other split; the keys the JAX package's `test()` returns
@@ -431,6 +464,13 @@ TRAIN_BF16_REL = 1.6
 TRAIN_LARGE_SCENES = 4
 TRAIN_LARGE_BRICK_CAPACITY = 2048
 PHASE_SUM_TOL = 0.1
+PHASE_ROUNDS = 7  # the timer and a fenced forward, in turn
+# the rehearsal phase: epochs of the rehearsal at full width (3 steps of
+# batch 16 an epoch, a validation of 8 scenes at its end); the written
+# data-scale dataset (train, validation, test scenes, seed): 16 train
+# scenes make one step of 16 micro-batches of one scene
+REHEARSAL_EPOCHS = 1
+DATASCALE_SIZES = (16, 2, 2, 0)
 # the roomformer phase: (a) the JAX tests' tiny configuration
 # (tests/test_roomformer.py:157-166), card against CPU (f32 sums in another
 # order): outputs within RF_FWD_TOL, the train step's loss within
@@ -863,19 +903,40 @@ def worst_ratio(stats, key, tol):
                for st in stats.values())
 
 
+# phases 4-5's gates (and `--trained`'s): each path, the run it is held
+# against, and its tolerance on the mean |diff| (None: `gather`'s rule)
+PATH_GATES = {"gather": ("fp32", None),
+              "gather_pallas": ("fp32", BF16_PATH_MEAN),
+              "bf16": ("fp32", BF16_STACK_MEAN),
+              "int8": ("bf16", INT8_PATH_MEAN)}
+
+
 def gate_ratio(path, stats):
-    """A path's gate against the dense forward; passes at <= 1. `gather`:
-    max |diff| of the backbone maps and the 99.9% quantile of the outputs
-    (summation order can flip a threshold of the decoder's attention masks
-    and move a few output values) within FP32_PATH_TOL * max(1, std);
-    `gather_pallas`: mean |diff| of both within BF16_PATH_MEAN * max(1,
-    std)."""
-    if path == "gather":
+    """A path's gate against the run PATH_GATES names; passes at <= 1.
+    `gather`: max |diff| of the backbone maps and the 99.9% quantile of the
+    outputs (summation order can flip a threshold of the decoder's
+    attention masks and move a few output values) within FP32_PATH_TOL *
+    max(1, std); the others: mean |diff| of both within their tolerance *
+    max(1, std)."""
+    tol = PATH_GATES[path][1]
+    if tol is None:
         return max(
             st["q999" if what.startswith("pred") else "max"]
             / (FP32_PATH_TOL * max(1.0, st["ref_std"]))
             for what, st in stats.items())
-    return worst_ratio(stats, "mean", BF16_PATH_MEAN)
+    return worst_ratio(stats, "mean", tol)
+
+
+def output_stats(np, ref, got, valid):
+    """diff_stats of got's outputs and backbone maps against ref's (each a
+    dict of "preds", (pred_class, pred_masks), and "maps"); pred_masks on
+    the valid points only."""
+    stats = {"pred_class": diff_stats(np, ref["preds"][0], got["preds"][0]),
+             "pred_masks": diff_stats(np, ref["preds"][1][valid],
+                                      got["preds"][1][valid])}
+    for i, (r, g) in enumerate(zip(ref["maps"], got["maps"])):
+        stats[f"map{i} (stride {16 >> i})"] = diff_stats(np, r, g)
+    return stats
 
 
 def backbone_maps(torch, mdl, cfg, dev, sparse):
@@ -2499,8 +2560,10 @@ def run_train_large_entry(torch, np, mt, counters, card, failed):
     of one scene, TRAIN_LARGE_SCENES train scenes, one validation at
     `test_batch_size=1`, then a second epoch resumed from its
     `last-epoch.ckpt`; (e) `cli test` (fp32 dense) with
-    `trainer.measure_model_phases=true`: every `model_forward_*` segment,
-    their sum against a fenced forward of the same batch."""
+    `trainer.measure_model_phases=true`: every `model_forward_*` segment;
+    the median of their sum over PHASE_ROUNDS rounds against the median of
+    fenced forwards of the same batch run in turn with them, and each
+    segment above twice the tolerance, left out of the sum, must fail."""
     import tempfile
 
     from mask3d_tpu_torch import cli
@@ -2518,21 +2581,26 @@ def run_train_large_entry(torch, np, mt, counters, card, failed):
         return real_fit(self)
 
     real_measure = trainer_mod.measure_model_phases
-    fenced_s = []
+    seg_runs, fenced_s = [], []
 
-    def fenced_after(cfg, model, batch, reps=3, device="cuda"):
-        """The phase timer, then one warm-up and three fenced forwards of
-        the same batch (the eval step's, `aux_masks`)."""
+    def interleaved(cfg, model, batch, reps=3, device="cuda"):
+        """The phase timer and fenced forwards of the same batch in turn:
+        PHASE_ROUNDS rounds of one timed forward of each (the timer's own
+        warm-up forward first in each round; the fenced forward is the
+        eval step's, `aux_masks`), so that both read the card in the same
+        states (on the H100, readings minutes apart differed by 20%)."""
         from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
         from mask3d_tpu_torch.sparse.context import build_sparse_batch
 
-        segs = real_measure(cfg, model, batch, reps, device)
         dev = batch.to(device)
-        with torch.inference_mode():
-            sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
-                                    level_capacities(cfg, dev.capacity),
-                                    dev.grid_dims, **_sb_kwargs(cfg))
-            for _ in range(4):
+        segs = None
+        for _ in range(PHASE_ROUNDS):
+            segs = real_measure(cfg, model, batch, 1, device)
+            seg_runs.append(segs)
+            with torch.inference_mode():
+                sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                                        level_capacities(cfg, dev.capacity),
+                                        dev.grid_dims, **_sb_kwargs(cfg))
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 model.eval()(sb, dev.feats, dev.coords.float(),
@@ -2584,11 +2652,9 @@ def run_train_large_entry(torch, np, mt, counters, card, failed):
             if not ok:
                 failed.append(("cli train bricked / resume", out))
 
-            # (e) measure_model_phases through cli test (fp32 dense); the
-            # fenced forwards of the same batch run right after it, so
-            # that both read the card in one state (on the H100, readings
-            # minutes apart differed by 20%)
-            trainer_mod.measure_model_phases = fenced_after
+            # (e) measure_model_phases through cli test (fp32 dense),
+            # interleaved with fenced forwards of the same batch
+            trainer_mod.measure_model_phases = interleaved
             meter.reset()
             rc = cli.main(["test", "--device", "cuda",
                            f"data.data_root={root}", "data.test_batch_size=2",
@@ -2599,26 +2665,54 @@ def run_train_large_entry(torch, np, mt, counters, card, failed):
             cls.fit = real_fit
             trainer_mod.measure_model_phases = real_measure
         stats = meter.get_statistics()
-        phases = {k: v["mean"] for k, v in stats.items()
-                  if k.startswith("model_forward_")
-                  and k != "model_forward_complete"}
-        fenced = statistics.mean(fenced_s[1:])
-        total = sum(phases.values())
+        phases = {k: statistics.median(r[k] for r in seg_runs)
+                  for k in (seg_runs[0] if seg_runs else {})}
+        ok, total, fenced = phase_sum_gate(seg_runs, fenced_s)
         out["phases"] = dict(segments=phases, sum_s=total, fenced_s=fenced,
+                             rounds=len(seg_runs),
+                             sums_s=[sum(r.values()) for r in seg_runs],
+                             fenced_runs_s=list(fenced_s),
                              sparse_context_build_s=stats.get(
                                  "sparse_context_build", {}).get("mean"))
         for name, sec in phases.items():
-            log(f"  {name}: {sec * 1e3:.3f} ms")
-        log(f"measure_model_phases (cli test, fp32 dense, batch 2): "
-            f"model_forward_* sum {total * 1e3:.3f} ms vs a fenced forward "
-            f"{fenced * 1e3:.3f} ms (tol {PHASE_SUM_TOL:.0%}); "
+            log(f"  {name}: {sec * 1e3:.3f} ms (median of {len(seg_runs)})")
+        log(f"measure_model_phases (cli test, fp32 dense, batch 2), "
+            f"{len(seg_runs)} rounds of the timer and a fenced forward in "
+            f"turn: median model_forward_* sum {total * 1e3:.3f} ms vs median "
+            f"fenced forward {fenced * 1e3:.3f} ms (tol {PHASE_SUM_TOL:.0%}); "
+            f"sums {[round(x * 1e3, 3) for x in out['phases']['sums_s']]} ms,"
+            f" fenced {[round(x * 1e3, 3) for x in fenced_s]} ms; "
             f"sparse_context_build "
             f"{out['phases']['sparse_context_build_s'] * 1e3:.3f} ms")
+        # planted fault: a segment left out of the sum must fail the gate,
+        # for each segment longer than twice the tolerance
+        caught = {}
+        for name, sec in phases.items():
+            if sec > 2 * PHASE_SUM_TOL * fenced:
+                caught[name] = not phase_sum_gate(seg_runs, fenced_s,
+                                                  drop=name)[0]
+        out["phases"]["fault_segment_left_out_fails"] = caught
+        log(f"planted fault 'a segment left out of the sum' (each segment "
+            f"above {2 * PHASE_SUM_TOL:.0%} of the forward): fails the gate "
+            f"{caught}")
         if not (rc == 0 and len(phases) == 4 + 3 + 1
-                and all(v >= 0 for v in phases.values())
-                and abs(total - fenced) <= PHASE_SUM_TOL * fenced):
+                and len(seg_runs) == PHASE_ROUNDS
+                and all(v >= 0 for v in phases.values()) and ok
+                and caught and all(caught.values())):
             failed.append(("measure_model_phases", rc, out["phases"]))
     return out
+
+
+def phase_sum_gate(seg_runs, fenced_s, drop=None):
+    """(ok, median sum, median fenced forward): the median over rounds of
+    the `model_forward_*` segments' sum (without segment `drop`) within
+    PHASE_SUM_TOL of the median fenced forward of the same rounds."""
+    if not seg_runs or not fenced_s:
+        return False, float("nan"), float("nan")
+    total = statistics.median(
+        sum(v for k, v in r.items() if k != drop) for r in seg_runs)
+    fenced = statistics.median(fenced_s)
+    return abs(total - fenced) <= PHASE_SUM_TOL * fenced, total, fenced
 
 
 def rf_targets(torch, np, rng, b, pt, qp):
@@ -5093,6 +5187,263 @@ def run_config_matrix(torch, np, mt, cfg_mod, counters, by_key, card, host,
     return res
 
 
+def run_rehearsal(torch, np, counters, card):
+    """Phase 18 (the module docstring): the rehearsal at full width, then
+    the data-scale launcher and the recertification on a small written
+    dataset."""
+    import tempfile
+
+    from mask3d_tpu_torch import recert_int8, train_datascale
+    from mask3d_tpu_torch import train_rehearsal as reh
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "mask3d_tpu_torch", "_build")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        # (a) the rehearsal, counted around the whole fit
+        for fn in counters.values():
+            fn.launches = 0
+        # what earlier phases still hold: the rehearsal's own peak is the
+        # card's peak less this
+        held = torch.cuda.memory_allocated() / 2**30
+        t = time.perf_counter()
+        try:
+            res = reh.main(REHEARSAL_EPOCHS, fresh=True,
+                           save_dir=os.path.join(tmp, "rehearsal"),
+                           extra=["trainer.check_val_every_n_epoch=1"],
+                           device="cuda")
+        except reh.RehearsalFailed as e:
+            res = e.results
+        wall = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        gates = res["gates"]
+        planted = reh.restore_check(res["trainer"], res["cfg"],
+                                    res["datasets"], "cuda", plant=True)
+        out["rehearsal"] = dict(
+            epochs=REHEARSAL_EPOCHS, steps=res["steps"],
+            step_s=res["step_s"],
+            step_s_median=statistics.median(res["step_s"]),
+            steps_per_s=res["steps_per_s"],
+            peak_gib_own=res["peak_gib"] - held,
+            peak_gib_with_earlier_phases=res["peak_gib"],
+            wall_s=wall, launches=launches, mixture=res["mixture"],
+            train_loss=res["train_loss"],
+            val_mean_ap_50=res["val_mean_ap_50"], gates=gates,
+            planted_one_ulp_first_mismatch=planted)
+        log(f"rehearsal (Config(), 48/8/8 scenes, batch 16 as 8 x 2, "
+            f"{REHEARSAL_EPOCHS} epoch + validation): "
+            f"{json.dumps(out['rehearsal'])} on {card}")
+        del res
+        ok = (gates["restore"]["ok"] and planted is not None
+              and all(launches[k] > 0 for k in ("masked_attention",
+                                                "row_gather", "lsap")))
+
+        # (b) a written dataset -> the data-scale launcher for one epoch
+        # -> the recertification on its checkpoint
+        root = os.path.join(tmp, "data")
+        saved = os.path.join(tmp, "saved")
+        t = time.perf_counter()
+        rc = train_datascale.main(
+            1, root=root, run_id="smoke", device="cuda",
+            extra=[f"general.save_dir={saved}"], sizes=DATASCALE_SIZES)
+        train_s = time.perf_counter() - t
+        ckpt_path = os.path.join(saved, train_datascale.EXPERIMENT_NAME,
+                                 "smoke", "last-epoch.ckpt")
+        for fn in counters.values():
+            fn.launches = 0
+        counted = {}
+        real = recert_int8.run_variant
+
+        def counted_variant(name, *a, **k):
+            before = {n: fn.launches for n, fn in counters.items()}
+            m = real(name, *a, **k)
+            counted[name] = {n: fn.launches - before[n]
+                             for n, fn in counters.items()}
+            return m
+
+        recert_int8.run_variant = counted_variant
+        t = time.perf_counter()
+        try:
+            rec = recert_int8.main(ckpt_path, root, device="cuda",
+                                   extra=[f"general.save_dir={saved}"])
+        finally:
+            recert_int8.run_variant = real
+        recert_s = time.perf_counter() - t
+        maps = {n: recert_int8.map_values(m) for n, m in rec["runs"].items()}
+        out["datascale"] = dict(rc=rc, seconds=train_s,
+                                sizes=list(DATASCALE_SIZES),
+                                grid=list(rec["grid"]))
+        out["recert"] = dict(seconds=recert_s, maps=maps, lines=rec["lines"],
+                             ok=rec["ok"], launches=counted)
+        log(f"train_datascale 1 epoch on {DATASCALE_SIZES[:3]} written "
+            f"scenes: rc {rc}, {train_s:.1f} s; recert_int8 on its "
+            f"last-epoch.ckpt ({recert_s:.1f} s, launches by variant "
+            f"{counted}):")
+        for line in rec["lines"]:
+            log(f"  {line}")
+        ok = ok and rc == 0 and len(maps) == 3 and all(
+            len(m) == 3 and all(np.isfinite(v) for v in m.values())
+            for m in maps.values()) and counted["int8"]["int8_conv"] > 0 \
+            and counted["fp32"]["int8_conv"] == 0
+    out["launches"] = out["rehearsal"]["launches"] | {
+        "int8_conv": out["recert"]["launches"]["int8"]["int8_conv"]}
+    if not ok:
+        raise AssertionError(f"rehearsal phase: {json.dumps(out)}")
+    return out
+
+
+def plant_backbone_noise(torch, mdl, sigma, seed=0):
+    """Add N(0, sigma) to every nonzero value the backbone returns (its
+    output rows, its five maps and its level-0 grid; padding rows and empty
+    cells stay zero), the same draw at every call."""
+    real = mdl.backbone.forward
+
+    def noisy(*a, **k):
+        out, maps, grid = real(*a, **k)
+        gen = torch.Generator(device=out.device).manual_seed(seed)
+
+        def add(x):
+            if x is None:
+                return None
+            e = torch.randn(x.shape, generator=gen, device=x.device)
+            return x + (sigma * e * (x != 0)).to(x.dtype)
+
+        return add(out), [add(m) for m in maps], add(grid)
+
+    mdl.backbone.forward = noisy
+
+
+def record_decoder_inputs(mdl):
+    """Forward pre-hooks on the decoder's cross-attention layers: per call,
+    in order, its memory mask (True blocks a row), its query positions
+    and, in the first round, its keys (memory + positional encoding,
+    projected). Returns (calls, hook handles)."""
+    calls, first = [], len(mdl.hlevels)
+
+    def hook(_mod, args):
+        _, mask, pos, kvp = args[:4]
+        calls.append(dict(mask=mask.clone(), pos=pos.float().clone(),
+                          k=kvp[0].float().clone() if len(calls) < first
+                          else None))
+
+    return calls, [m.register_forward_pre_hook(hook)
+                   for m in mdl.cross.values()]
+
+
+def decoder_input_diffs(ref, got):
+    """Per cross-attention call of `record_decoder_inputs`: how many of the
+    memory mask's entries differ (and how many block in `ref`), the queries
+    whose mask blocks every key in `ref` and in `got` (the all-blocked
+    rule counts the padding rows, whose pooled mask features the dense
+    path reads off its grids and the gather paths hold at 0), the query
+    positions' max |diff| and, in the first round, the keys'."""
+    rows = []
+    for a, b in zip(ref, got):
+        row = dict(flips=int((a["mask"] != b["mask"]).sum()),
+                   blocked=int(a["mask"].sum()), entries=a["mask"].numel(),
+                   keyless_ref=int(a["mask"].all(-1).sum()),
+                   keyless=int(b["mask"].all(-1).sum()),
+                   pos_max=float((a["pos"] - b["pos"]).abs().max()))
+        if a["k"] is not None:
+            row["k_max"] = float((a["k"] - b["k"]).abs().max())
+        rows.append(row)
+    return rows
+
+
+def run_trained_gates(ckpt_path):
+    """`--trained <checkpoint>`: phases 4 and 5's gates (PATH_GATES) at full
+    width (`Config()`) on the checkpoint's weights, printed beside their
+    limits, and two witnesses of what the decoder does with the paths'
+    differences: each level's keys, coordinates and valid rows on the dense
+    and the gather paths' sparse batches, and the dense forward with noise
+    of the size of fp32 `gather`'s map differences planted in the
+    backbone's outputs; each run's cross-attention masks, query positions
+    and first-round keys against the dense forward's. Returns the exit
+    code (0 where every gate held)."""
+    import numpy as np
+    import torch
+
+    import mask3d_tpu_torch as mt
+    from mask3d_tpu_torch import config as cfg_mod
+    from mask3d_tpu_torch import cuda_build
+    from mask3d_tpu_torch.infer import _sb_kwargs, level_capacities
+    from mask3d_tpu_torch.models import backbone as bb_mod
+    from mask3d_tpu_torch.profile_forward import CONFIGS, flagship_items
+    from mask3d_tpu_torch.sparse.context import build_sparse_batch
+    from mask3d_tpu_torch.train import checkpoint as ckpt
+    from mask3d_tpu_torch.train.loop import configure_torch
+
+    configure_torch(True)
+    log(f"card: {card_line()}; trained-weight gates on {ckpt_path}")
+    log(f"built {', '.join(cuda_build.KERNELS)} in {cuda_build.build():.2f} s")
+    sparse = (build_sparse_batch, level_capacities, _sb_kwargs)
+    dev = mt.collate(flagship_items(), device="cuda",
+                     point_bucket_multiple=BUCKET).device
+    counts = dev.counts.cpu().numpy()
+    valid = np.arange(dev.capacity)[None] < counts[:, None]
+
+    def cfg_of(extra):
+        return cfg_mod.apply_overrides(
+            cfg_mod.Config(), [f"data.point_bucket_multiple={BUCKET}"]
+            + list(extra))
+
+    def levels(c):
+        sb = build_sparse_batch(dev.coords, dev.counts, dev.dims,
+                                level_capacities(c, dev.capacity),
+                                dev.grid_dims, **_sb_kwargs(c))
+        return [(lv.key, lv.coords, lv.valid, lv.count) for lv in sb.levels]
+
+    dense_levels = levels(cfg_of([]))
+    for impl in ("gather", "gather_pallas"):
+        same = [all(torch.equal(a, b) for a, b in zip(x, y)) for x, y in
+                zip(dense_levels, levels(cfg_of(
+                    [f"model.backbone_impl={impl}"])))]
+        log(f"{impl} sparse batch vs dense, each level's keys, coordinates, "
+            f"valid rows and counts bitwise equal: {same}")
+
+    def run(extra, sigma=0.0):
+        c = cfg_of(extra)
+        mdl = mt.build_model(c, device="cuda", seed=0)
+        ckpt.load_checkpoint(ckpt_path, mdl)
+        mdl.eval()
+        if sigma:
+            plant_backbone_noise(torch, mdl, sigma)
+        calls, hooks = record_decoder_inputs(mdl)
+        out, _ = mt.infer(mdl, dev, c, device="cuda")
+        for h in hooks:
+            h.remove()
+        return dict(preds=(out.pred_class.cpu().numpy(),
+                           out.pred_masks.cpu().numpy()),
+                    maps=backbone_run(torch, bb_mod, mdl, c, dev,
+                                      sparse)["maps"], calls=calls)
+
+    runs = {"fp32": run([]), "gather": run(["model.backbone_impl=gather"]),
+            "gather_pallas": run(["model.backbone_impl=gather_pallas"]),
+            "bf16": run(CONFIGS["bf16"]), "int8": run(CONFIGS["int8"])}
+    ratios = {}
+    for path, (base, _) in PATH_GATES.items():
+        st = output_stats(np, runs[base], runs[path], valid)
+        for what, v in st.items():
+            log(f"trained {path} vs {base} {what}: {json.dumps(v)}")
+        ratios[path] = gate_ratio(path, st)
+    log(f"trained-weight gate ratios (pass at <= 1): {json.dumps(ratios)} "
+        f"on {card_line()}")
+    for sigma in NOISE_SIGMAS:
+        runs[f"fp32 + N(0, {sigma:g})"] = run([], sigma)
+    for path, r in runs.items():
+        if path == "fp32":
+            continue
+        st = output_stats(np, runs["fp32"], r, valid)
+        worst_map = max(v["max"] for w, v in st.items()
+                        if w.startswith("map"))
+        calls = decoder_input_diffs(runs["fp32"]["calls"], r["calls"])
+        log(f"trained {path} vs fp32: worst map max |diff| {worst_map:.3g}, "
+            f"pred_masks mean |diff| {st['pred_masks']['mean']:.4g}, "
+            f"pred_class mean |diff| {st['pred_class']['mean']:.4g}; "
+            f"decoder inputs by cross-attention call: {json.dumps(calls)}")
+    return 0 if all(r <= 1.0 for r in ratios.values()) else 1
+
+
 def main():
     # deterministic cuBLAS for the train phase (`loop.configure_torch`),
     # set before the first CUDA call
@@ -5327,23 +5678,18 @@ def main():
 
     gather_models = {}
     dense_ref = {}
+    counts0 = host.device.counts.cpu().numpy()
+    valid0 = np.arange(host.device.capacity)[None] < counts0[:, None]
 
     def path_stats(mdl, c, pc, pm):
         """diff_stats of a path's outputs and backbone maps against the
         dense forward on the same weights."""
         if not dense_ref:
-            counts = host.device.counts.cpu().numpy()
-            dense_ref["valid"] = (np.arange(preds[1].shape[1])[None]
-                                  < counts[:, None])
-            dense_ref["maps"] = backbone_maps(torch, model, cfg, host.device,
-                                              sparse)
-        valid = dense_ref["valid"]
-        stats = {"pred_class": diff_stats(np, preds[0], pc),
-                 "pred_masks": diff_stats(np, preds[1][valid], pm[valid])}
-        maps = backbone_maps(torch, mdl, c, host.device, sparse)
-        for i, (r, g) in enumerate(zip(dense_ref["maps"], maps)):
-            stats[f"map{i} (stride {16 >> i})"] = diff_stats(np, r, g)
-        return stats
+            dense_ref.update(preds=preds, maps=backbone_maps(
+                torch, model, cfg, host.device, sparse))
+        return output_stats(np, dense_ref, dict(
+            preds=(pc, pm),
+            maps=backbone_maps(torch, mdl, c, host.device, sparse)), valid0)
 
     def gather_paths():
         """`gather` and `gather_pallas` at full width on the dense model's
@@ -5452,23 +5798,11 @@ def main():
     # --- the JAX bench's inference stack: bf16, int8, int8 + chain ---
     int8_models = {}
     int8_runs = {}  # path -> backbone_run(...) + the forward's outputs
-    counts0 = host.device.counts.cpu().numpy()
-    valid0 = np.arange(host.device.capacity)[None] < counts0[:, None]
 
     def cfg_of(path):
         return cfg_mod.apply_overrides(
             cfg_mod.Config(), [f"data.point_bucket_multiple={BUCKET}"]
             + CONFIGS[path])
-
-    def pair_stats(ref, got):
-        """diff_stats of got's outputs and backbone maps against ref's."""
-        stats = {"pred_class": diff_stats(np, ref["preds"][0],
-                                          got["preds"][0]),
-                 "pred_masks": diff_stats(np, ref["preds"][1][valid0],
-                                          got["preds"][1][valid0])}
-        for i, (r, g) in enumerate(zip(ref["maps"], got["maps"])):
-            stats[f"map{i} (stride {16 >> i})"] = diff_stats(np, r, g)
-        return stats
 
     def stage8_gate(want, got):
         """int8_chain against int8 on the stage-8 grid: the JAX package's
@@ -5503,13 +5837,13 @@ def main():
                 stages_in=(8,) if path == "int8_chain" else ()), preds=p)
         int8_runs["fp32"] = ref
         gates = {}
-        for path, base, tol in (("bf16", ref, BF16_STACK_MEAN),
-                                ("int8", int8_runs["bf16"], INT8_PATH_MEAN)):
-            stats = pair_stats(base, int8_runs[path])
+        for path in ("bf16", "int8"):
+            base, tol = PATH_GATES[path]
+            stats = output_stats(np, int8_runs[base], int8_runs[path],
+                                 valid0)
             for what, st in stats.items():
-                log(f"{path} vs {'fp32 dense' if path == 'bf16' else 'bf16'}"
-                    f" {what}: {json.dumps(st)}")
-            gates[path] = worst_ratio(stats, "mean", tol)
+                log(f"{path} vs {base} {what}: {json.dumps(st)}")
+            gates[path] = gate_ratio(path, stats)
             log(f"{path} gate: worst mean |diff| / max(1, std) "
                 f"{gates[path] * tol:.4g} against {tol} (ratio "
                 f"{gates[path]:.4g}, passes at <= 1)")
@@ -5604,12 +5938,11 @@ def main():
             f"unfused {json.dumps(g)} (must fail)")
         assert not g["ok"], g
         faults = (("sx doubled in the int8 activation quantize", "int8",
-                   int8_ops, "quantize", doubled_sx, "bf16",
-                   INT8_PATH_MEAN),
+                   int8_ops, "quantize", doubled_sx),
                   ("the dense norms skip the mean", "bf16", dense_ops,
-                   "dense_instance_norm", norm_without_mean, "fp32",
-                   BF16_STACK_MEAN))
-        for name, path, owner, attr, fake, base, tol in faults:
+                   "dense_instance_norm", norm_without_mean))
+        for name, path, owner, attr, fake in faults:
+            base, tol = PATH_GATES[path]
             mdl, c = int8_models[path]
             real = getattr(owner, attr)
             setattr(owner, attr, fake)
@@ -5621,8 +5954,8 @@ def main():
                 setattr(owner, attr, real)
             run["preds"] = (out.pred_class.cpu().numpy(),
                             out.pred_masks.cpu().numpy())
-            stats = pair_stats(int8_runs[base], run)
-            ratio = worst_ratio(stats, "mean", tol)
+            stats = output_stats(np, int8_runs[base], run, valid0)
+            ratio = gate_ratio(path, stats)
             log(f"planted fault '{name}' on {path}: worst mean |diff| / "
                 f"max(1, std) {ratio * tol:.4g} (gate ratio {ratio:.4g}, "
                 f"must be > 1); "
@@ -5817,6 +6150,10 @@ def main():
         torch, np, mt, cfg_mod, counters, by_key, card, host, ic, ma))
     if matrix is None:
         failures.append("config_matrix did not run or failed a check")
+    rehearsal = phase("rehearsal", lambda: run_rehearsal(
+        torch, np, counters, card))
+    if rehearsal is None:
+        failures.append("rehearsal did not run or failed a check")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
@@ -5959,6 +6296,31 @@ def main():
                      matrix["attention_partial"],
                      matrix["attention_partial"][-1],
                      sum(matrix["sp"][0]["dense"]["partial_by_s"].values())),
+        # the same kernels in phase rehearsal: the train steps' attention
+        # at the sampled key lengths, the row gather at the flagship taps
+        # (launches: the whole fit, validation included), the int8 conv at
+        # the int8 stack's shapes (launches: the recert's int8 variant)
+        kernel_entry("masked_attention:rehearsal",
+                     "mask3d_tpu_torch/csrc/masked_attention.cu",
+                     "mask3d_tpu/ops/pallas_attention.py:102",
+                     train["attention_forward"],
+                     train["attention_forward"][-1],
+                     rehearsal["launches"]["masked_attention"]),
+        kernel_entry("row_gather:rehearsal",
+                     "mask3d_tpu_torch/csrc/row_gather.cu",
+                     "mask3d_tpu/sparse/pallas_gather.py:198", gather_rows,
+                     next((r for r in gather_rows if r["C"] == 96), None),
+                     rehearsal["launches"]["row_gather"]),
+        kernel_entry("int8_conv:rehearsal",
+                     "mask3d_tpu_torch/csrc/int8_conv.cu",
+                     "mask3d_tpu/sparse/pallas_chain.py:512",
+                     [r for r in int8_rows if r["step"] == "conv"],
+                     heaviest([r for r in int8_rows if r["step"] == "conv"]),
+                     rehearsal["launches"]["int8_conv"]),
+        kernel_entry("lsap:rehearsal", "mask3d_tpu_torch/csrc/lsap.cu",
+                     "mask3d_tpu/ops/lsap.py:30", lsap_rows, lsap_rows[0],
+                     rehearsal["launches"]["lsap"],
+                     scipy_ms=lsap_rows[0]["scipy_ms"]),
         # no Pallas counterpart: JAX's device LSAP is lax.while_loop code;
         # its launches are the counted dense train step's (one a criterion)
         kernel_entry("lsap", "mask3d_tpu_torch/csrc/lsap.cu",
@@ -5994,7 +6356,8 @@ def main():
             "small_options_fault", "cli", "seconds")},
         "config_matrix": {k: matrix[k] for k in (
             "full_width", "int8_chain_bitwise_int8", "small_int8",
-            "sp_summary", "seconds")}}))
+            "sp_summary", "seconds")},
+        "rehearsal": rehearsal}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6003,7 +6366,11 @@ def main():
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--trained"]:
+            open_log()
+            rc = run_trained_gates(sys.argv[2])
+        else:
+            rc = main()
     except BaseException:
         # whatever escapes main() reaches the log file before the exit
         log(f"chip_smoke: uncaught exception\n{traceback.format_exc()}",

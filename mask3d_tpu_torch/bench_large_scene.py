@@ -38,7 +38,7 @@ VARIANTS = (("bricked", "per_offset"), ("gather_pallas", "per_offset"),
             ("gather", "per_offset"))
 
 
-# from tools/bench_large_scene.py:27 make_hall_scene
+# from tools/bench_large_scene.py:29 make_hall_scene
 def make_hall_scene(rng, length=1920, width=160, height=64, n_boxes=260):
     """Open-hall surface scan: floor, ceiling, two y-side walls (parallel
     to x) and clustered clutter (box tops and sides), 0.3-cell noise; the
@@ -100,7 +100,7 @@ def _host(x):
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
-# from tools/bench_large_scene.py:136 main (the brick geometry, :136-156)
+# from tools/bench_large_scene.py:138-156 brick (the brick geometry of main)
 def brick_geometry(batch, brick=None):
     """(brick dims, occupied bricks, slots, capacity) of item 0 of a
     collated batch: `brick`, or the first of BRICK_SHAPES that divides its

@@ -105,7 +105,7 @@ def main(argv=None):
             raise ValueError(
                 f"trainer.distributed=true: trainer.num_data_parallel={n} "
                 f"must equal the world size {dist.process_count()}")
-        _run(command, cfg, device)
+        run(command, cfg, device)
     finally:
         if created:
             import torch.distributed
@@ -114,7 +114,9 @@ def main(argv=None):
     return 0
 
 
-def _run(command, cfg, device):
+def run(command, cfg, device):
+    """Fit, or test and print the metrics; returns `test`'s metrics (None
+    for `train`)."""
     from mask3d_tpu_torch.parallel import dist
     from mask3d_tpu_torch.train.loop import configure_torch
     from mask3d_tpu_torch.train.trainer import InstanceSegmentationTrainer
@@ -126,11 +128,12 @@ def _run(command, cfg, device):
     trainer = InstanceSegmentationTrainer(cfg, device=device)
     if command == "train":
         trainer.fit()
-        return
+        return None
     metrics = trainer.test()
     if dist.is_main_process():
         for k, v in sorted(metrics.items()):
             print(f"{k}: {v:.4f}")
+    return metrics
 
 
 def _free_port() -> int:
@@ -174,7 +177,7 @@ def _local_rank(rank, command, cfg, device, n, port):
 
     dist.maybe_initialize(cfg, device)
     try:
-        _run(command, cfg, device)
+        run(command, cfg, device)
     finally:
         import torch.distributed
 

@@ -19,8 +19,11 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "mask3d_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mask3d_tpu",
              "cv2", "PIL")
-# `# from mask3d_tpu/<file>:<line>[-<end>] <name>`
-CITE = re.compile(r"#\s*from (mask3d_tpu/[\w/]+\.py):(\d+)(?:-\d+)?"
+# `# from <source>:<line>[-<end>] <name>`, the source a file of the JAX
+# package, of tools/ (Python or shell), of the experiment launch scripts or
+# of the JAX tests, or bench.py
+CITE = re.compile(r"#\s*from ((?:(?:mask3d_tpu|tools|experiment_launch_scripts"
+                  r"|tests)/[\w/]+\.(?:py|sh))|bench\.py):(\d+)(?:-\d+)?"
                   r"\s+\(?(\w+)")
 
 
@@ -151,6 +154,30 @@ def test_data_preparation_cites_its_sources(module, names):
     assert not missing, missing
 
 
+@pytest.mark.parametrize("module,source,names", [
+    ("make_synthetic_dataset.py", "tools/make_synthetic_dataset.py",
+     "CONFIGS make_item write_scene main"),
+    ("make_synthetic_dataset.py", "tools/train_datascale.sh", "GRID"),
+    ("train_rehearsal.py", "tools/train_rehearsal.py",
+     "SyntheticRoomsDataset main apply_overrides voxelize_item loss mAP "
+     "bit"),
+    ("recert_int8.py", "tools/recert_int8.sh", "COMMON run_variant ref"),
+    ("train_datascale.py", "tools/train_datascale.sh",
+     "experiment1_voxel_size_150_train scene_00000"),
+    ("calib_int8_logits.py", "tools/calib_int8_logits.py",
+     "main rng variants"),
+])
+def test_trained_model_tools_cite_their_sources(module, source, names):
+    """Each of the JAX package's trained-model tools has its counterpart,
+    a top-level module of the port that cites it (the citations' lines
+    are checked above)."""
+    cited = {n for where, src, _, n in _citations()
+             if where.startswith(f"mask3d_tpu_torch/{module}:")
+             and src == source}
+    missing = set(names.split()) - cited
+    assert not missing, missing
+
+
 def test_small_overrides_match_e2e_small_config():
     """The shared override list reproduces tests/test_e2e.py's
     small_config in both packages."""
@@ -165,8 +192,10 @@ def test_small_overrides_match_e2e_small_config():
 
 
 @pytest.mark.parametrize("entry", ["build_model", "collate", "infer",
-                                   "device_batch", "init_state"])
-def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
+                                   "device_batch", "init_state",
+                                   "train_rehearsal", "calib_int8_logits"])
+def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch,
+                                               tmp_path):
     """A CUDA request where CUDA is absent raises; nothing falls back to
     the CPU."""
     import mask3d_tpu_torch as mt
@@ -189,6 +218,12 @@ def test_entry_points_refuse_cuda_without_cuda(entry, monkeypatch):
         elif entry == "init_state":
             from mask3d_tpu_torch.train.loop import init_state
             init_state(cfg)
+        elif entry == "train_rehearsal":
+            from mask3d_tpu_torch import train_rehearsal
+            train_rehearsal.main(1, save_dir=str(tmp_path))
+        elif entry == "calib_int8_logits":
+            from mask3d_tpu_torch import calib_int8_logits
+            calib_int8_logits.main(1)
         else:
             host = mt.collate(items, device="cpu", point_bucket_multiple=512)
             host.device.to("cuda")

@@ -35,6 +35,7 @@ from mask3d_tpu_torch import bridge, build_model, collate, infer
 from mask3d_tpu_torch.config import Config, apply_overrides
 from mask3d_tpu_torch.models.backbone import BACKBONES as T_BACKBONES
 from mask3d_tpu_torch.sparse.context import build_sparse_batch as t_build
+from tests.test_torch_train_step import compile_all
 from tests.torch_parity import SMALL_OVERRIDES, flax_to_numpy, scene_items
 from tests.torch_parity import (  # noqa: F401 (autouse fixture)
     one_torch_thread_a_module)
@@ -181,14 +182,18 @@ def bf16_maps():
                  build_pool_parents=True)
     feats = torch.tensor(np.asarray(dev.feats))
     out = {"valid": [sb.levels[4 - i].valid.numpy() for i in range(5)]}
-    for impl, dt in (("gather", None), ("gather", "bf16"),
-                     ("gather_pallas", "bf16")):
+    cases = (("gather", None), ("gather", "bf16"), ("gather_pallas", "bf16"))
+    args = (params, dev.coords, dev.counts, dev.dims, dev.feats)
+    lowered = {}
+    for impl, dt in cases:  # traced in turn, compiled at once, run in turn
         jb = J_BACKBONES[name](
             in_channels=1, conv1_kernel_size=3, impl=impl,
             compute_dtype=jnp.bfloat16 if dt else None)
-        _, maps = jax.jit(lambda p, c, n, d, f: jb.apply(
-            {"params": p}, f, sb_of(c, n, d)))(
-            params, dev.coords, dev.counts, dev.dims, dev.feats)
+        lowered[(impl, dt)] = jax.jit(lambda p, c, n, d, f, jb=jb: jb.apply(
+            {"params": p}, f, sb_of(c, n, d))).lower(*args)
+    compiled = compile_all(lowered)
+    for impl, dt in cases:
+        _, maps = compiled[(impl, dt)](*args)
         out[("jax", impl, dt)] = [np.asarray(m.astype(jnp.float32),
                                              np.float64) for m in maps]
         if dt is None:
@@ -376,13 +381,14 @@ def test_bricked_entry_refusals(tmp_path):
     model = build_model(cfg, device="cpu", seed=0)
     _, overflow = infer(model, host.device, cfg, device="cpu")
     assert bool(overflow)
-    cfg.model.brick_capacity = 4096
+    # a capacity above the scene's 15 occupied bricks, 17 slots left empty
+    # (every slot is computed: 4096 of them took 46 s of the CPU at
+    # inference and take minutes in train mode)
+    cfg.model.brick_capacity = 32
     model = build_model(cfg, device="cpu", seed=0)
     out, overflow = infer(model, host.device, cfg, device="cpu")
     assert not bool(overflow) and bool(torch.isfinite(out.pred_masks).all())
-    # in train mode at a capacity near the scene's 15 occupied bricks:
-    # every slot is computed, and 4096 of them take minutes on the CPU
-    cfg.model.brick_capacity = 32
+    # in train mode at the same capacity
     _assert_train_forward_runs(build_model(cfg, device="cpu", seed=0), cfg,
                                host.device)
     cfg.general.save_dir = str(tmp_path)

@@ -4,6 +4,7 @@ gradients, and three optimizer steps of small_config against JAX's
 `make_train_step`, on the inputs and settings of test_torch_train_step."""
 
 import numpy as np
+import pytest
 import torch
 
 from mask3d_tpu.config import apply_overrides as j_apply
@@ -17,8 +18,9 @@ from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 from mask3d_tpu_torch.train.criterion import make_criterion
 from mask3d_tpu_torch.train.loop import init_state, make_train_step
 from tests.test_e2e import parity_config, small_config
-from tests.test_torch_train_step import LOSS_RTOL, OVERRIDES, grad_errors, \
-    host_lsap, jax_step, port_step, train_scenes
+from tests.test_torch_train_step import LOSS_RTOL, OVERRIDES, compile_all, \
+    grad_errors, host_lsap, jax_step_lowered, port_step, run_compiled, \
+    train_scenes
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
 from tests.torch_parity import (  # noqa: F401 (autouse fixture)
     one_torch_thread_a_module)
@@ -34,13 +36,38 @@ STEPS_RTOL = 1e-4
 STEPS_OVERRIDES = ["optimizer.lr=0.0001", "scheduler.gamma=0.9"]
 
 
-def test_parity_config_step_matches_jax_grad(monkeypatch):
-    host_lsap(monkeypatch)
-    overrides = OVERRIDES + ["model.max_sample_size=true",
-                             "model.backbone=Res16UNet18A"]
-    cfg = j_apply(parity_config(), overrides)
+@pytest.fixture(scope="module")
+def jax_refs():
+    """JAX's references of the two tests, traced in turn and compiled at
+    once (`compile_all`): parity_config's value_and_grad (whole levels as
+    memories) and three steps of small_config's jitted
+    `make_train_step`."""
     host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
-    state, loss, losses, grads = jax_step(cfg, host)
+    with pytest.MonkeyPatch.context() as mp:
+        host_lsap(mp)
+        parity_ov = OVERRIDES + ["model.max_sample_size=true",
+                                 "model.backbone=Res16UNet18A"]
+        p_state, p_low = jax_step_lowered(
+            j_apply(parity_config(), parity_ov), host)
+        steps_ov = OVERRIDES + STEPS_OVERRIDES + ["model.max_sample_size=true"]
+        s_cfg = j_apply(small_config(), steps_ov)
+        state, model, criterion, tx = j_init(s_cfg, host.device)
+        # before the steps, which donate the state's buffers
+        s_vars = flax_to_numpy({"params": state.params,
+                                "buffers": state.buffers})
+        s_low = j_make_train_step(s_cfg, model, criterion, tx).lower(
+            state, host.device)
+        compiled = compile_all({"parity": p_low, "steps": s_low})
+        parity = run_compiled(p_state, compiled["parity"])
+        losses = []
+        for _ in range(3):
+            state, out, _ = compiled["steps"](state, host.device)
+            losses.append(float(out["loss"]))
+    return dict(parity=(parity_ov, parity), steps=(steps_ov, s_vars, losses))
+
+
+def test_parity_config_step_matches_jax_grad(jax_refs):
+    overrides, (state, loss, losses, grads) = jax_refs["parity"]
     variables = flax_to_numpy({"params": state.params,
                                "buffers": state.buffers})
     p_state, p_losses = port_step(overrides, variables)
@@ -52,23 +79,11 @@ def test_parity_config_step_matches_jax_grad(monkeypatch):
     assert decoder <= 1e-4, decoder
 
 
-def test_three_steps_match_make_train_step(monkeypatch):
+def test_three_steps_match_make_train_step(jax_refs):
     """The losses of three AdamW steps (small_config at the flagship's lr
     1e-4 with gamma 0.9, whole levels as memories) against the JAX
     package's jitted `make_train_step` on the same batch."""
-    host_lsap(monkeypatch)
-    overrides = OVERRIDES + STEPS_OVERRIDES + ["model.max_sample_size=true"]
-    cfg = j_apply(small_config(), overrides)
-    host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
-    state, model, criterion, tx = j_init(cfg, host.device)
-    variables = flax_to_numpy({"params": state.params,
-                               "buffers": state.buffers})
-    step = j_make_train_step(cfg, model, criterion, tx)
-    ref = []
-    for _ in range(3):
-        state, losses, _ = step(state, host.device)
-        ref.append(float(losses["loss"]))
-
+    overrides, variables, ref = jax_refs["steps"]
     p_cfg = apply_overrides(Config(), SMALL_OVERRIDES + overrides)
     p_state = init_state(p_cfg, device="cpu")
     bridge.load_flax(p_state.model, variables)

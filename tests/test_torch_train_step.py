@@ -21,6 +21,7 @@ conditioning:
   init, PyTorch's own 1.2e-3 (measured)."""
 
 import contextlib
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -92,9 +93,10 @@ class Uniforms:
         return torch.from_numpy(self.drawn[self.i - 1]).to(device)
 
 
-def jax_step(cfg, host, uniforms=None):
-    """(state, loss, losses, grads) of one `jax.value_and_grad` on the
-    batch, in train mode (is_eval False)."""
+def jax_step_lowered(cfg, host, uniforms=None):
+    """(state, lowered): JAX's init, and one `jax.value_and_grad` on the
+    batch in train mode (is_eval False) traced and lowered, the sampled
+    memories' uniforms drawn, not yet compiled."""
     dev = host.device
     state, model, criterion, _ = j_init(cfg, dev)
     caps = j_caps(cfg, dev.coords.shape[1])
@@ -117,9 +119,24 @@ def jax_step(cfg, host, uniforms=None):
     with patch as mp:
         if uniforms is not None:
             mp.setattr(jax.random, "uniform", uniforms.jax)
-        (loss, losses), grads = jax.jit(
-            jax.value_and_grad(loss_fn, has_aux=True))(state.params)
+        lowered = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(
+            state.params)
+    return state, lowered
+
+
+def run_compiled(state, compiled):
+    """(state, loss, losses, grads) of a compiled `jax_step_lowered`."""
+    (loss, losses), grads = compiled(state.params)
     return state, float(loss), losses, grads
+
+
+def compile_all(lowered):
+    """{name: compiled} of {name: lowered}, compiled at once in threads
+    (XLA compiles outside the GIL)."""
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        jobs = {name: pool.submit(low.compile)
+                for name, low in lowered.items()}
+        return {name: job.result() for name, job in jobs.items()}
 
 
 def port_step(overrides, variables, uniforms=None, extra=()):
@@ -152,19 +169,47 @@ def grad_errors(state, jax_grads):
     return out
 
 
+# small_config's levels 4 ... 1 hold 128, 256, 512 and 1024 rows: hlevels 0
+# and 1 sample 32 and 64 of theirs, hlevel 2 takes its whole level, hlevel 3
+# samples 256 (Config()'s sample sizes mix so on batches of about 3,200 to
+# 25,600 points)
+MIXED_SAMPLE_SIZES = "model.sample_sizes=[32,64,512,256,512]"
+# the cases' overrides and the seeds of their uniforms (None: whole levels)
+STEP_CASES = {"max_sample_size": (["model.max_sample_size=true"], None),
+              "sampled": ([], 7), "mixed": ([MIXED_SAMPLE_SIZES], 11)}
+
+
+@pytest.fixture(scope="module")
+def jax_steps():
+    """{case: (overrides, (state, loss, losses, grads), uniforms, cfg)}:
+    JAX's value_and_grad of each of STEP_CASES on the train scenes, traced
+    in turn, compiled at once (`compile_all`) and run in turn."""
+    host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
+    lowered, cases = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        host_lsap(mp)
+        for name, (extra, seed) in STEP_CASES.items():
+            overrides = OVERRIDES + extra
+            cfg = j_apply(small_config(), overrides)
+            uniforms = None if seed is None else Uniforms(seed)
+            state, lowered[name] = jax_step_lowered(cfg, host, uniforms)
+            cases[name] = (overrides, state, uniforms, cfg)
+        compiled = compile_all(lowered)
+        return {name: (overrides, run_compiled(state, compiled[name]),
+                       uniforms, cfg)
+                for name, (overrides, state, uniforms, cfg)
+                in cases.items()}
+
+
 @pytest.mark.parametrize("sampled", [False, True],
                          ids=["max_sample_size", "sampled"])
-def test_train_step_matches_jax_grad(sampled, monkeypatch):
+def test_train_step_matches_jax_grad(sampled, jax_steps):
     """The loss within 1e-4 (relative), every loss entry within 1e-4 of
     max(1, |ref|), and every gradient leaf within GRAD_TOL; sampled:
     small_config's sample sizes [32, 64, 128, 256] on levels of 1024 ...
     128 rows, the same uniforms on both sides."""
-    host_lsap(monkeypatch)
-    overrides = OVERRIDES + ([] if sampled else ["model.max_sample_size=true"])
-    cfg = j_apply(small_config(), overrides)
-    host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
-    uniforms = Uniforms(7) if sampled else None
-    state, loss, losses, grads = jax_step(cfg, host, uniforms)
+    overrides, (state, loss, losses, grads), uniforms, cfg = jax_steps[
+        "sampled" if sampled else "max_sample_size"]
     if sampled:  # one draw per (decoder round, level), each [B, cap]
         assert len(uniforms.drawn) == cfg.model.num_decoders * 4
     variables = flax_to_numpy({"params": state.params,
@@ -182,24 +227,13 @@ def test_train_step_matches_jax_grad(sampled, monkeypatch):
     assert errs[worst] <= GRAD_TOL, (worst, errs[worst])
 
 
-# small_config's levels 4 ... 1 hold 128, 256, 512 and 1024 rows: hlevels 0
-# and 1 sample 32 and 64 of theirs, hlevel 2 takes its whole level, hlevel 3
-# samples 256 (Config()'s sample sizes mix so on batches of about 3,200 to
-# 25,600 points)
-MIXED_SAMPLE_SIZES = "model.sample_sizes=[32,64,512,256,512]"
-
-
-def test_train_step_mixes_sampled_and_full_levels(monkeypatch):
+def test_train_step_mixes_sampled_and_full_levels(jax_steps):
     """A round whose levels are sampled, then whole, then sampled again:
     the loss and losses as test_train_step_matches_jax_grad holds them and
     every gradient leaf within GRAD_TOL, the same uniforms on both sides
     (one draw per sampled level and round)."""
-    host_lsap(monkeypatch)
-    overrides = OVERRIDES + [MIXED_SAMPLE_SIZES]
-    cfg = j_apply(small_config(), overrides)
-    host = JCollate(point_bucket_multiple=BUCKET)(train_scenes(j_make))
-    uniforms = Uniforms(11)
-    state, loss, losses, grads = jax_step(cfg, host, uniforms)
+    overrides, (state, loss, losses, grads), uniforms, cfg = jax_steps[
+        "mixed"]
     assert len(uniforms.drawn) == cfg.model.num_decoders * 3
     variables = flax_to_numpy({"params": state.params,
                                "buffers": state.buffers})

@@ -26,8 +26,8 @@ from mask3d_tpu_torch.data.synthetic import make_synthetic_scene
 from mask3d_tpu_torch.train.criterion import make_criterion
 from mask3d_tpu_torch.train.loop import init_state, make_train_step
 from tests.test_e2e import small_config
-from tests.test_torch_train_step import OVERRIDES, Uniforms, host_lsap, \
-    jax_step, train_scenes
+from tests.test_torch_train_step import OVERRIDES, Uniforms, compile_all, \
+    host_lsap, jax_step_lowered, run_compiled, train_scenes
 from tests.torch_parity import BUCKET, SMALL_OVERRIDES, flax_to_numpy
 
 # the first train scene's level-0 grid is 40x24x8 (15 bricks of 8^3)
@@ -77,20 +77,28 @@ def jax_runs(names):
     """{name: (state, loss, losses, grads, uniforms, matching)} of JAX's
     B=1 value_and_grad for each (name, overrides), the sampled memories
     drawn from one set of numpy uniforms (seed 7), the host LSAP's
-    assignments recorded."""
+    assignments recorded. The steps are traced in turn, compiled at once
+    (`compile_all`) and run in turn."""
     import scipy.optimize
 
     host = JCollate(point_bucket_multiple=BUCKET)(one_scene(j_make))
-    runs = {}
+    lowered = {}
     with pytest.MonkeyPatch.context() as mp:
         host_lsap(mp)
         for name, ov in names:
             cfg = j_apply(small_config(), OVERRIDES + ov)
-            uniforms, matching = Uniforms(7), Matching()
+            uniforms = Uniforms(7)
+            lowered[name] = jax_step_lowered(cfg, host, uniforms) + (
+                uniforms,)
+        compiled = compile_all({name: low for name, (_, low, _)
+                                in lowered.items()})
+        runs = {}
+        for name, (state, _, uniforms) in lowered.items():
+            matching = Matching()
             mp.setattr(scipy.optimize, "linear_sum_assignment",
                        matching.recording())
-            runs[name] = jax_step(cfg, host, uniforms) + (uniforms,
-                                                         matching)
+            runs[name] = run_compiled(state, compiled[name]) + (uniforms,
+                                                                 matching)
     return runs
 
 
@@ -162,3 +170,42 @@ def grads_of(state):
 def jax_grads(run):
     return bridge.from_flax({"params": flax_to_numpy(run[3])})
 
+
+
+def jax_train_loss(cfg, dev, variables, uniforms=None):
+    """The loss of the JAX package's train step (`loop.make_train_step`'s
+    `loss_fn`: `model.apply` in train mode, then the criterion; its value
+    at the step's weights is the loss the step reports) on the device
+    batch `dev`, for the Flax `variables`, jitted at XLA level 0 (a
+    fraction of the default's compile time); the sampled memories drawn
+    from `uniforms`. The caller patches JAX's matcher to the host LSAP."""
+    import jax
+    import jax.numpy as jnp
+
+    from mask3d_tpu.sparse import build_sparse_batch as j_build
+    from mask3d_tpu.train.loop import _sb_kwargs, level_capacities, \
+        make_criterion as j_criterion, make_model as j_model
+
+    model, criterion = j_model(cfg), j_criterion(cfg)
+    params, buffers = (jax.tree_util.tree_map(jnp.asarray, variables[c])
+                       for c in ("params", "buffers"))
+
+    def loss_fn(params, buffers, dev):
+        sb = j_build(dev.coords, dev.counts, dev.dims,
+                     level_capacities(cfg, dev.coords.shape[1]),
+                     **_sb_kwargs(cfg, dev.grid_dims))
+        out = model.apply(
+            {"params": params, "buffers": buffers}, sb, dev.feats,
+            dev.coords.astype(jnp.float32), False, grid_dims=dev.grid_dims,
+            rngs={"sample": jax.random.PRNGKey(0),
+                  "queries": jax.random.PRNGKey(0)})
+        return criterion(out, dev.target.with_label_offset(
+            cfg.data.prediction_label_offset), sb.levels[0].valid)
+
+    with pytest.MonkeyPatch.context() as mp:
+        if uniforms is not None:
+            mp.setattr(jax.random, "uniform", uniforms.jax)
+        lowered = jax.jit(loss_fn).lower(params, buffers, dev)
+    losses = lowered.compile(compiler_options={
+        "xla_backend_optimization_level": 0})(params, buffers, dev)
+    return {k: float(v) for k, v in losses.items()}
