@@ -330,6 +330,20 @@ beside this script. Phases:
    printed (an untrained model's mAPs are ~0: its pass certifies
    nothing).
 
+19. `profile_collate`, run after phase 12 (whose numbers it reads):
+   `mask3d_tpu_torch.profile_collate.main(8)` on the card machine's host
+   (the flagship's 8 scenes at the tool's bucket 65536), its five ms
+   lines printed with the host's CPU count and torch threads. Gates: (a)
+   its batch's counts equal phase 3's (only n_cap differs, printed), and
+   the counts of `flagship_items(1)` (a planted fault) must fail that;
+   (b) its `encode_batch_u8` buffer, copied to the card and decoded
+   there, gives back its batch's keys, counts and dims bit for bit, and
+   one flipped byte of a key delta (a planted fault) must fail that.
+   Printed, not gated: the feeder ratio, the host work `bench.py`'s
+   feeder does for a batch (collate total plus phase 12's C++ encode)
+   over phase 12's bf16 forward of a batch: the feeder threads that keep
+   a bf16 forward fed. It launches no kernel.
+
 `python3 chip_smoke.py --trained <checkpoint>` runs, in place of the
 phases above, the gates of phases 4 and 5 at full width on trained
 weights (a port checkpoint of `Config()`, as the rehearsal writes):
@@ -377,6 +391,8 @@ BF16_BOUNDS = dict(mean=5e-3, q999=5e-2, max=0.3)
 FP32_PATH_TOL = 1e-3
 BF16_PATH_MEAN = 0.05
 BUCKET = 49152
+# phase profile_collate: the tool's default repetitions
+PROFILE_COLLATE_REPS = 8
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores, dense
 BF16_GATHER_C = {96: 0, 128: 2, 256: 3}  # the bf16 grids' taps
 # the JAX bench's inference stack on the dense path, and what each counted
@@ -3044,6 +3060,24 @@ def same_levels(torch, a, b):
     return bad
 
 
+def keys_differ(torch, decoded, coords, counts, dims):
+    """The names of what differs between decoded (keys, counts, dims) and
+    a batch on the card: the packed keys on each item's rows, the counts
+    and the dims, bit for bit (empty: equal)."""
+    from mask3d_tpu_torch.sparse.core import pack_keys
+
+    keys, got_counts, got_dims = decoded
+    rows = torch.arange(coords.shape[1], device=coords.device)[None] \
+        < counts[:, None]
+    want = pack_keys(coords, dims[:, None, :]).to(torch.int32)
+    bad = [] if torch.equal(torch.where(rows, keys, 0),
+                            torch.where(rows, want, 0)) else ["keys"]
+    bad += [] if torch.equal(got_counts, counts.to(torch.int32)) \
+        else ["counts"]
+    return bad + ([] if torch.equal(got_dims, dims.to(torch.int32))
+                  else ["dims"])
+
+
 def decode_gate(torch, dev, u8, caps):
     """The card's decode of a bench buffer against the collated batch:
     keys (on each item's rows), counts and dims, and the sparse batch
@@ -3051,17 +3085,10 @@ def decode_gate(torch, dev, u8, caps):
     bit for bit. Returns the names of what differs."""
     from mask3d_tpu_torch.data import transfer
     from mask3d_tpu_torch.sparse.context import build_sparse_batch
-    from mask3d_tpu_torch.sparse.core import pack_keys
 
     b, n = dev.coords.shape[:2]
-    (keys, counts, dims), coarse = transfer.decode_pyramid_u8(u8, b, n, caps)
-    rows = torch.arange(n, device="cuda")[None] < dev.counts[:, None]
-    want = pack_keys(dev.coords, dev.dims[:, None, :]).to(torch.int32)
-    bad = [] if torch.equal(torch.where(rows, keys, 0),
-                            torch.where(rows, want, 0)) else ["base keys"]
-    bad += [] if torch.equal(counts, dev.counts.to(torch.int32)) \
-        else ["counts"]
-    bad += [] if torch.equal(dims, dev.dims.to(torch.int32)) else ["dims"]
+    base, coarse = transfer.decode_pyramid_u8(u8, b, n, caps)
+    bad = keys_differ(torch, base, dev.coords, dev.counts, dev.dims)
     args = (dev.coords, dev.counts, dev.dims, caps, dev.grid_dims)
     return bad + same_levels(torch, build_sparse_batch(*args),
                              build_sparse_batch(*args,
@@ -3174,6 +3201,87 @@ def run_bench_input(torch, np, mt, cfg_mod, counters, by_key, host, card):
             f"{row['infer_ms']:.2f} ms a forward (median of 3, fenced) on "
             f"{card}")
         del mdl
+    return out
+
+
+def run_profile_collate(torch, host, bench_input, card):
+    """Phase `profile_collate`: `python -m mask3d_tpu_torch.profile_collate
+    8` in process on the card machine's host (see the module docstring)."""
+    import contextlib
+    import io
+
+    from mask3d_tpu_torch import profile_collate as pc
+    from mask3d_tpu_torch.data import transfer
+    from mask3d_tpu_torch.data.collate import VoxelizeCollate
+    from mask3d_tpu_torch.profile_forward import flagship_items
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        times, tool_host = pc.main(PROFILE_COLLATE_REPS)
+    for line in printed.getvalue().splitlines():
+        log(f"profile_collate: {line}")
+    out = {"ms": times, "cpu_count": os.cpu_count(),
+           "torch_threads": torch.get_num_threads()}
+    dev = tool_host.device
+
+    # (a) the tool's counts are phase `collate`'s (its n_cap is not)
+    want = host.device.counts.tolist()
+    out["counts"] = dev.counts.tolist()
+    out["n_cap"] = [int(dev.coords.shape[1]), int(host.device.capacity)]
+    fault_counts = VoxelizeCollate(point_bucket_multiple=pc.BUCKET)(
+        flagship_items(1)).device.counts.tolist()
+    out["counts_fault_fails"] = fault_counts != want
+    log(f"profile_collate (a): counts {out['counts']} at n_cap "
+        f"{out['n_cap'][0]} against phase collate's {want} at n_cap "
+        f"{out['n_cap'][1]}: equal {out['counts'] == want}; "
+        f"flagship_items(1)'s counts {fault_counts} fail the gate: "
+        f"{out['counts_fault_fails']}")
+    assert out["counts"] == want, "the tool's counts are not phase collate's"
+    assert out["counts_fault_fails"], "flagship_items(1) passed gate (a)"
+
+    # (b) its encode_batch_u8 buffer decoded on the card gives its keys
+    buf = pc.encode_batch_u8(dev.coords, dev.counts, dev.dims)
+    b, n = dev.coords.shape[:2]
+    on_card = [torch.as_tensor(a, device="cuda")
+               for a in (dev.coords, dev.counts, dev.dims)]
+
+    def decoded_differs(u8):
+        return keys_differ(torch, transfer.decode_keys_u8(
+            transfer.to_device(u8, "cuda"), b, n), *on_card)
+
+    bad = decoded_differs(buf)
+    # the planted fault: one delta byte flipped inside item 0's rows, at a
+    # row the escape table does not overwrite (delta < 255)
+    row = next(r for r in range(1, int(dev.counts[0])) if buf[r] < 255)
+    faulty = buf.copy()
+    faulty[row] ^= 1
+    fault = decoded_differs(faulty)
+    out["decode_differs"], out["byte_fault_fails"] = bad, bool(fault)
+    log(f"profile_collate (b): the card's decode of the tool's "
+        f"{buf.nbytes}-byte buffer differs in {bad or 'nothing'}; byte "
+        f"{row} flipped fails the gate: {fault}")
+    assert not bad, f"decode of the tool's buffer differs: {bad}"
+    assert fault, "a flipped key byte passed gate (b)"
+
+    # the feeder ratio: a batch's host work on bench.py's feeder (collate
+    # + encode) over the card's bf16 forward of a batch
+    fwd = ((bench_input or {}).get("forward") or {}).get("bf16")
+    out["feeder_host_ms"] = (times["collate total"]
+                             + bench_input["encode_ms_cpp"]
+                             if fwd else None)
+    out["bf16_forward_ms"] = fwd["infer_u8_ms"] if fwd else None
+    out["feeders"] = (out["feeder_host_ms"] / fwd["infer_u8_ms"]
+                      if fwd else None)
+    log(f"profile_collate: host os.cpu_count() {out['cpu_count']}, torch "
+        f"threads {out['torch_threads']}; feeder threads that keep a bf16 "
+        f"forward fed: "
+        + (f"{out['feeders']} (collate total {times['collate total']} ms + "
+           f"encode {bench_input['encode_ms_cpp']} ms over the bf16 "
+           f"forward's {fwd['infer_u8_ms']} ms, phase bench_input)"
+           if fwd else "not recorded (phase bench_input did not record "
+           "a bf16 forward)")
+        + f" on {card}")
+    log(f"profile_collate: {json.dumps(out)}")
     return out
 
 
@@ -6129,6 +6237,10 @@ def main():
         torch, np, mt, cfg_mod, counters, by_key, host, card))
     if bench_input is None:
         failures.append("bench_input did not run or failed a check")
+    profile = phase("profile_collate", lambda: run_profile_collate(
+        torch, host, bench_input, card))
+    if profile is None:
+        failures.append("profile_collate did not run or failed a check")
     lsap_rows = phase("lsap", lambda: run_lsap(torch, np, lsap_mod, host,
                                                 card))
     if not lsap_rows:

@@ -166,6 +166,8 @@ def test_data_preparation_cites_its_sources(module, names):
      "experiment1_voxel_size_150_train scene_00000"),
     ("calib_int8_logits.py", "tools/calib_int8_logits.py",
      "main rng variants"),
+    ("profile_collate.py", "tools/profile_collate.py",
+     "main bench vox_all gather_all targets_all"),
 ])
 def test_trained_model_tools_cite_their_sources(module, source, names):
     """Each of the JAX package's trained-model tools has its counterpart,
